@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels (sm_90a) for the TPU kernels on the ported
+path, each beside its plain PyTorch version:
+
+* K1 `land.land_max` — replaces cafe_tpu/ops/pallas_land.py;
+* K2 `scatter_add.scatter_add_` — replaces cafe_tpu/ops/pallas_apply.py.
+
+Sources build at first launch (build.py); importing this package builds
+nothing.
+"""
+
+from . import land, scatter_add
+
+KERNELS = {"land_max": land.KERNEL, "scatter_add": scatter_add.KERNEL}
+
+__all__ = ["land", "scatter_add", "KERNELS"]

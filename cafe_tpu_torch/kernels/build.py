@@ -1,0 +1,110 @@
+"""Build the port's CUDA sources at first use and bind them with ctypes.
+
+Each `.cu` file in this directory exposes a plain C interface (pointers,
+integers and the CUDA stream; an int return that is cudaGetLastError()
+after the launch). `nvcc` compiles it for sm_90a into a shared library
+under `build/cafe_tpu_torch/` at the repository root (listed in
+.gitignore), named by a hash of the source and the flags, so a changed
+source rebuilds and an unchanged one loads at once. A failed build raises;
+there is no fallback.
+
+`build()` starts one nvcc per source, all at once, and waits for all of
+them: a cold build costs the slowest source, not the sum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+KERNEL_DIR = Path(__file__).resolve().parent
+BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "cafe_tpu_torch"
+SOURCES = ("land.cu", "scatter_add.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("cafe_tpu_torch: no CUDA toolkit found (set "
+                           "CUDA_HOME or put nvcc on PATH)")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def library_path(source: str) -> Path:
+    text = (KERNEL_DIR / source).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source whose library is missing, in parallel.
+    Returns {source: ptxas report} for the sources built by this call."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for src in sources:
+        out = library_path(src)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_DIR / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    reports, failed = {}, []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        reports[src] = log
+    if failed:
+        raise RuntimeError("cafe_tpu_torch: kernel build failed:\n"
+                           + "\n".join(failed))
+    return reports
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, building it first if needed."""
+    if source not in _LIBS:
+        build([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        lib.cafe_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cafe_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[source] = lib
+    return _LIBS[source]
+
+
+class CudaKernel:
+    """One C entry point of a `.cu` source, loaded at its first launch.
+
+    `launches` counts the launches that went through this object and
+    nothing else, so a run can show that its path reached the kernel."""
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            msg = load(self.source).cafe_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: launch failed with CUDA "
+                               f"error {err} ({msg})")
+        self.launches += 1

@@ -1,0 +1,157 @@
+"""The train/eval step (port of cafe_tpu/train/step.py).
+
+One call covers embedding gather -> dense towers -> BCE -> backward ->
+sketch insert + migration -> sparse + dense optimizer applies (sgd,
+adagrad, rows-Adam; lr schedules are not ported yet). Embedding tables
+never enter autograd: the gathered rows are made leaves with
+requires_grad, their gradients come back from one autograd.grad call, and
+each embedding part turns row gradients into in-place scatter updates
+(embeddings/base.py), so every update stays O(batch).
+
+The step updates the state IN PLACE (dense params and tables, where the
+JAX package donates them) and returns a TrainState holding the new
+sketch, tick and step; callers must not reuse the old TrainState.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+EPS = 1e-7
+
+
+class TrainState(NamedTuple):
+    params: Any          # dense tower params {"bot": [...], "top": [...]}
+    embed: Any           # embedding tables / sketch / optimizer slots
+    embed_dense: Any     # differentiable embedding params ({} per part)
+    opt: Any             # dense-optimizer slots: None (sgd), an acc tree
+                         # (adagrad) or [m, v, t] (adam)
+    step: torch.Tensor   # int32 global step
+
+
+def init_state(model, embed_layer, seed: int, optimizer: str,
+               params=None) -> TrainState:
+    """Tables from numpy (bit-equal to the JAX package's), dense params
+    from `params` when given (e.g. bridged from the JAX package) else
+    from the model's own torch init."""
+    if params is None:
+        params = model.init(seed)
+    embed_state, embed_dense = embed_layer.init(seed)
+    opt = init_dense_opt([params, embed_dense], optimizer)
+    return TrainState(params, embed_state, embed_dense, opt,
+                      torch.zeros((), dtype=torch.int32,
+                                  device=embed_layer.device))
+
+
+def _zeros_like_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_zeros_like_tree(v) for v in tree]
+    return torch.zeros_like(tree)
+
+
+def init_dense_opt(params, optimizer: str):
+    """Dense-optimizer slots for a param tree: None (sgd), a grad^2
+    accumulator tree (adagrad), or [m, v, t] (adam) — the JAX package's
+    structure with tuples as lists."""
+    if optimizer == "adagrad":
+        return _zeros_like_tree(params)
+    if optimizer == "adam":
+        first = _leaves(params)[0]
+        return [_zeros_like_tree(params), _zeros_like_tree(params),
+                torch.zeros((), dtype=torch.int32, device=first.device)]
+    if optimizer != "sgd":
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    return None
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _bce(p, y, w):
+    p = p.clamp(EPS, 1.0 - EPS)
+    losses = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p))
+    # an all-padding (sub-)batch has zero weight; return 0, not 0/0
+    return (losses * w).sum() / w.sum().clamp_min(1.0)
+
+
+@torch.no_grad()
+def _dense_update(params, grads, opt, lr, kind):
+    """sgd / adagrad (torch semantics, eps 1e-10) / adam on the leaves of
+    `params`, in place (params and slots). Returns the new opt state."""
+    ps = _leaves(params)
+    if kind == "sgd":
+        for p, g in zip(ps, grads):
+            p.sub_(lr * g)
+        return opt
+    if kind == "adam":
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        m, v, t = opt
+        t = t + 1
+        tf = t.to(torch.float32)
+        bc1, bc2 = 1.0 - b1 ** tf, 1.0 - b2 ** tf
+        for p, g, mm, vv in zip(ps, grads, _leaves(m), _leaves(v)):
+            mm.copy_(b1 * mm + (1 - b1) * g)
+            vv.copy_(b2 * vv + (1 - b2) * g * g)
+            p.copy_(p - lr * (mm / bc1) / (torch.sqrt(vv / bc2) + eps))
+        return [m, v, t]
+    for p, g, a in zip(ps, grads, _leaves(opt)):
+        a.copy_(a + g * g)
+        p.copy_(p - lr * g / (torch.sqrt(a) + 1e-10))
+    return opt
+
+
+def build_train_step(model, embed_layer, cfg):
+    lr = cfg.learning_rate
+    if cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0:
+        raise NotImplementedError("lr schedules are not ported yet")
+
+    def train_step(state: TrainState, dense_x, ids, labels, valid: int
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        b = ids.shape[0]
+        w = (torch.arange(b, device=ids.device) < valid).float()
+        raws, auxs = embed_layer.gather(state.embed, ids)
+        raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
+        dense = [state.params, state.embed_dense]
+        dense_leaves = _leaves(dense)
+        for p in dense_leaves:
+            p.requires_grad_()
+
+        with torch.enable_grad():
+            feats = embed_layer.transform(state.embed_dense, raws)
+            p = model.apply(state.params, dense_x, feats)
+            loss = _bce(p, labels, w)
+            grads = torch.autograd.grad(
+                loss, dense_leaves + [raws[k] for k in sorted(raws)])
+        g_params = grads[:len(dense_leaves)]
+        g_raws = dict(zip(sorted(raws), grads[len(dense_leaves):]))
+
+        opt = _dense_update(dense, g_params, state.opt, lr, cfg.optimizer)
+        embed, stats = embed_layer.apply_grads(state.embed, ids, g_raws,
+                                               auxs, lr)
+        p = p.detach()
+        metrics = {"loss": loss.detach(),
+                   "correct": ((torch.round(p) == labels) * w).sum(),
+                   "weight": w.sum(), **stats}
+        return TrainState(state.params, embed, state.embed_dense, opt,
+                          state.step + 1), metrics
+
+    return train_step
+
+
+def build_eval_step(model, embed_layer):
+    @torch.no_grad()
+    def eval_step(state: TrainState, dense_x, ids):
+        raws, _ = embed_layer.gather(state.embed, ids)
+        feats = embed_layer.transform(state.embed_dense, raws)
+        return model.apply(state.params, dense_x, feats)
+
+    return eval_step

@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (cafe_tpu_torch) on one NVIDIA card and
+check it end to end.
+
+    python3 chip_smoke.py     # needs one CUDA card
+
+Phases, each printing one JSON line and raising on failure:
+
+1. build + device: the kernels are compiled from the repo's .cu sources
+   (one nvcc per source, all at once); the card's name and power limit;
+2. kernels: each CUDA kernel against its plain PyTorch version on the card
+   at the slice's shapes (K1 bit-exact; K2 within its f32 bound), timed
+   beside the plain version, one library call and the memory bound;
+3. headline: DLRM + CAFE, Criteo-Kaggle's 26 vocabularies, batch 2048,
+   dim 16, cr 1e-3, bf16 towers, SGD, a sketch insert every step — timed
+   steps through build_all / train_step; K1 must launch once per step;
+4. parity: 3 headline steps on the card and on the CPU from one state
+   (frequency scores, low threshold so ids promote): sketch and routing
+   equal, loss / params / table within a stated tolerance;
+5. sibling: the dim-128 config (cr 0.1, lr 1.0, CriteoTB towers on the
+   Kaggle vocabularies; a 3.2M-row table) — K1 and K2 must launch;
+6. profile: 5 headline steps under torch.profiler — device busy time,
+   idle share, kernels per step (full table in chiprun_out/).
+
+Then the kernels line (every kernel's launches on the main path, error,
+times and bound) and, last, the device line. Exits non-zero without a
+CUDA card or without the cafe_tpu_torch package beside it.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+HEADLINE_STEPS, WINDOWS = 20, 5
+SIBLING_STEPS = 5
+OUT_DIR = "chiprun_out"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps=30, warmup=3) -> float:
+    """Median device time of fn() over `reps` runs, CUDA events. Each run
+    is queued behind a ~0.5 ms device sleep, so the events time the
+    device's work and not the host's launch latency (a function that
+    waits for the device inside, like a boolean-mask index, still
+    includes its own wait)."""
+    for _ in range(warmup):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in ev:
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def host_ms(fn, reps=30) -> float:
+    """Host time of one fn() call while the device is kept busy (the
+    wrapper's own cost: checks, allocation, the ctypes launch)."""
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def land_case(rng, b, c, n, kind="random"):
+    if kind == "all_dropped":
+        keys = rng.integers(n, n + 50, b)
+    elif kind == "key_eq_n":
+        keys = np.concatenate([rng.integers(0, n, b - 8), np.full(8, n)])
+    elif kind == "sparse_rows":
+        keys = rng.choice(np.arange(0, n, 7), b)
+    else:
+        keys = rng.integers(0, n + 7, b)
+    keys = np.sort(keys).astype(np.int32)
+    enc = np.where(rng.random((b, c)) < 0.6,
+                   rng.integers(0, 1 << 30, (b, c)), -1).astype(np.int32)
+    return torch.from_numpy(keys).cuda(), torch.from_numpy(enc).cuda()
+
+
+def phase_kernels(land, scatter_add):
+    rng = np.random.default_rng(0)
+    out = {}
+    # ---- K1: both slice shapes + the edge cases of the CPU tests
+    k1 = []
+    for b, c, n, kind in [(53248, 5, 9646, "random"),
+                          (36864, 5, 1543432, "random"),
+                          (100, 4, 128, "random"), (512, 2, 64, "all_dropped"),
+                          (333, 5, 97, "key_eq_n"),
+                          (256, 3, 4096, "sparse_rows")]:
+        keys, enc = land_case(rng, b, c, n, kind)
+        got = land.land_max(enc, keys, n)
+        want = land.land_max_plain(enc, keys, n)
+        err = int((got.long() - want.long()).abs().max()) if n else 0
+        if err != 0:
+            raise AssertionError(f"K1 differs from its plain version at "
+                                 f"{(b, c, n, kind)}: max err {err}")
+        row = {"shape": [b, c, n], "kind": kind, "max_abs_err": err}
+        if kind == "random":
+            out_lib = torch.full((n, c), -1, dtype=torch.int32,
+                                 device="cuda")
+            keep = (keys >= 0) & (keys < n)
+            idx = keys[keep].long()[:, None].expand(-1, c).contiguous()
+            src = enc[keep].contiguous()
+            bms, by = bound_ms((b * c + b + n * c) * 4, b * c)
+            row.update(
+                ms=time_ms(lambda: land.land_max(enc, keys, n)),
+                host_ms=host_ms(lambda: land.land_max(enc, keys, n)),
+                plain_ms=time_ms(lambda: land.land_max_plain(enc, keys, n)),
+                library_ms=time_ms(lambda: out_lib.scatter_reduce_(
+                    0, idx, src, "amax", include_self=True)),
+                bound_ms=bms, bound_by=by)
+        k1.append(row)
+    out["land_max"] = k1
+    emit({"phase": "kernels_land_max", "cases": k1})
+
+    # ---- K2: the sibling's table with Zipf ids, duplicate groups > 1000
+    n, d, b = 3232256, 128, 36864
+    ranks = (rng.random(b) ** 6 * n).astype(np.int64)
+    ids = ((ranks * 1000000007) % n).astype(np.int32)
+    ids[rng.choice(b, 24, replace=False)] = -1          # dropped lanes
+    ids[rng.choice(b, 24, replace=False)] = n
+    _, group_sizes = np.unique(ids[(ids >= 0) & (ids < n)],
+                               return_counts=True)
+    g_max = int(group_sizes.max())
+    if g_max <= 1000:
+        raise AssertionError(f"K2 oracle needs a group > 1000 lanes, "
+                             f"got {g_max}")
+    table0 = torch.rand((n, d), generator=torch.Generator().manual_seed(1))
+    table0 = (table0 - 0.5).cuda()
+    upd = torch.from_numpy(
+        rng.normal(0, 0.01, (b, d)).astype(np.float32)).cuda()
+    tids = torch.from_numpy(ids).cuda()
+    got = scatter_add.scatter_add_(table0.clone(), tids, upd)
+    want = scatter_add.scatter_add_plain_(table0.clone(), tids, upd)
+    err = float((got - want).abs().max())
+    # worst-case f32 reordering bound: each of the g_max adds of a group
+    # can round by 2^-24 of the running sum, at most |row| + sum |upd|
+    tol = g_max * 2.0 ** -24 * (0.5 + g_max * float(upd.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"K2 differs from its plain version: {err} > "
+                             f"{tol}")
+    # the same ids with dyadic payloads (multiples of 2^-10, every row's
+    # running sum far below 2^14): f32 adds them exactly in any order, so
+    # the kernel must match bit for bit, and a lost or doubled update
+    # cannot hide under the reordering bound above
+    table_q = torch.round(table0 * 1024) / 1024
+    upd_q = torch.round(upd * 1024) / 1024
+    got = scatter_add.scatter_add_(table_q.clone(), tids, upd_q)
+    want = scatter_add.scatter_add_plain_(table_q, tids, upd_q)
+    err_exact = float((got - want).abs().max())
+    if err_exact != 0.0:
+        raise AssertionError(f"K2 differs from its plain version on exact "
+                             f"dyadic sums: {err_exact}")
+    del got, want, table_q, upd_q
+    keep = (tids >= 0) & (tids < n)
+    lib_ids, lib_upd = tids[keep].long(), upd[keep].contiguous()
+    uniq = len(group_sizes)
+    bms, by = bound_ms(b * 4 + b * d * 4 + 2 * uniq * d * 4, b * d)
+    work = table0.clone()
+    row = {"shape": [n, d, b], "max_group": g_max, "distinct_rows": uniq,
+           "max_abs_err": err, "tolerance": tol,
+           "max_abs_err_dyadic": err_exact,
+           "ms": time_ms(lambda: scatter_add.scatter_add_(work, tids, upd)),
+           "host_ms": host_ms(
+               lambda: scatter_add.scatter_add_(work, tids, upd)),
+           "plain_ms": time_ms(
+               lambda: scatter_add.scatter_add_plain_(work, tids, upd)),
+           "library_ms": time_ms(
+               lambda: work.index_add_(0, lib_ids, lib_upd)),
+           "bound_ms": bms, "bound_by": by}
+    del work, table0
+    out["scatter_add"] = row
+    emit({"phase": "kernels_scatter_add", **row})
+    return out
+
+
+def headline_cfg(Config, **kw):
+    base = dict(dataset="criteo", model="dlrm", embedding_dim=16,
+                compress_method="cafe", compress_rate=0.001,
+                cafe_sketch_threshold=500.0, cafe_hash_rate=0.5,
+                mini_batch_size=2048, learning_rate=0.1, optimizer="sgd",
+                bf16=True, cafe_insert_interval=1)
+    base.update(kw)
+    return Config(**base)
+
+
+def drive(build_all, fence, cfg, data, batches, kernels, steps, windows):
+    """Build on the card, reset the kernel counts, run 2 warm-up steps and
+    `windows` timed windows of `steps` steps, each ended by the port's
+    fence (a device synchronize); return the phase record."""
+    _, embed, state, step, _ = build_all(cfg, data, device="cuda")
+    fence(state)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    n_run = 0
+    for i in range(2):
+        state, m = step(state, *batches[i % len(batches)])
+        n_run += 1
+    fence(state, m)
+    win_ms, promos = [], 0
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, m = step(state, *batches[n_run % len(batches)])
+            n_run += 1
+            promos += m["cafe_promotions"]
+        fence(state, m)
+        win_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+    launches = {name: k.launches for name, k in kernels.items()}
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    ms = float(np.median(win_ms))
+    return state, {
+        "steps": n_run, "ms_per_step": ms, "window_ms": win_ms,
+        "examples_per_s": cfg.mini_batch_size * 1e3 / ms, "loss": loss,
+        "promotions": int(promos), "hot_frac": float(m["cafe_hot_frac"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+        "parts": [type(p).__name__ for p in embed.parts]}
+
+
+def phase_parity(build_all, from_reference, to_numpy, Config, data,
+                 batches_cpu, batches_gpu):
+    """3 headline steps on the card and on the CPU from one state."""
+    cfg = headline_cfg(Config, cafe_use_freq=True, cafe_sketch_threshold=2.0)
+    _, c_embed, c_state, c_step, _ = build_all(cfg, data, device="cpu")
+    _, g_embed, _, g_step, _ = build_all(cfg, data, device="cuda")
+    g_state = from_reference(c_state, "cuda")
+    rec = {"max_abs_diff": {}}
+    for i in range(3):
+        c_state, cm = c_step(c_state, *batches_cpu[i])
+        g_state, gm = g_step(g_state, *batches_gpu[i])
+    c, g = to_numpy(c_state), to_numpy(g_state)
+    csk, gsk = c["embed"]["part0"]["sketch"], g["embed"]["part0"]["sketch"]
+    for f in ("val", "cnt", "dic", "free", "free_top", "tot"):
+        if not np.array_equal(csk[f], gsk[f]):
+            raise AssertionError(f"sketch {f} differs between card and CPU")
+    _, c_aux = c_embed.gather(c_state.embed, batches_cpu[0][1])
+    _, g_aux = g_embed.gather(g_state.embed, batches_gpu[0][1])
+    if not torch.equal(c_aux["part0"][1], g_aux["part0"][1].cpu()):
+        raise AssertionError("routed rows differ between card and CPU")
+    # bf16 towers: both round operands to bf16 and multiply in f32; the
+    # f32 sums run in other orders, so a value can land one bf16 ulp
+    # apart and move later grads by ~0.4%. Over 3 steps at lr 0.1 that
+    # stays well below 1e-3.
+    tol = 1e-3
+    pairs = [("loss", float(cm["loss"]), float(gm["loss"])),
+             ("table", c["embed"]["part0"]["table"],
+              g["embed"]["part0"]["table"])]
+    for tower in ("bot", "top"):
+        for j, (cl, gl) in enumerate(zip(c["params"][tower],
+                                         g["params"][tower])):
+            for k in ("w", "b"):
+                pairs.append((f"{tower}{j}.{k}", cl[k], gl[k]))
+    for name, cv, gv in pairs:
+        diff = float(np.max(np.abs(np.asarray(cv) - np.asarray(gv))))
+        rec["max_abs_diff"][name] = diff
+        if not diff <= tol:
+            raise AssertionError(f"{name} differs by {diff} > {tol}")
+    rec.update(tolerance=tol, promotions_cpu=int(cm["cafe_promotions"]),
+               hot_frac=float(gm["cafe_hot_frac"]), sketch_equal=True,
+               routing_equal=True)
+    return rec
+
+
+def phase_profile(build_all, cfg, data, batches):
+    """Trace 5 headline steps; write the kernel table to chiprun_out/."""
+    from torch.profiler import ProfilerActivity, profile
+    _, _, state, step, _ = build_all(cfg, data, device="cuda")
+    for i in range(3):
+        state, _ = step(state, *batches[i])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5):
+            state, _ = step(state, *batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    # device kernels only (aten ops also carry their kernels' time)
+    dev = [(a.key, getattr(a, "self_device_time_total",
+                           getattr(a, "self_cuda_time_total", 0)), a.count)
+           for a in avgs if a.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sorted([x for x in dev if x[1] > 0], key=lambda x: -x[1])
+    busy_us = sum(x[1] for x in dev)
+    ours = [x for x in dev if "land_max_kernel" in x[0]
+            or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    key = ("self_device_time_total"
+           if hasattr(avgs[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    with open(os.path.join(OUT_DIR, "profile_headline.txt"), "w") as f:
+        f.write(avgs.table(sort_by=key, row_limit=60))
+    return {"steps": 5, "wall_ms_per_step": wall_us / 5e3,
+            "device_busy_ms_per_step": busy_us / 5e3,
+            "device_idle_share": (1.0 - busy_us / wall_us) if dev else None,
+            "kernels_per_step": sum(x[2] for x in dev) / 5,
+            "top_kernels": [{"name": k[:80], "ms_per_step": t / 5e3,
+                             "calls_per_step": c / 5}
+                            for k, t, c in dev[:10] + ours]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cafe_tpu_torch.bridge import from_reference, to_numpy
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.data import make_criteo_batches
+    from cafe_tpu_torch.kernels import KERNELS, build, land, scatter_add
+    from cafe_tpu_torch.train import build_all
+    from cafe_tpu_torch.utils.timing import fence
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 towers stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    reports = build.build()
+    emit({"phase": "device", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": time.perf_counter() - t0,
+          "ptxas": {src: [ln.split(":", 1)[-1].strip()
+                          for ln in log.splitlines() if "Used" in ln]
+                    for src, log in reports.items()}})
+
+    kern = phase_kernels(land, scatter_add)
+
+    data, batches = make_criteo_batches(batch=2048, n_batches=8)
+    batches_cpu = [(d.cpu(), s.cpu(), l.cpu(), v)
+                   for d, s, l, v in batches[:3]]
+    state, head = drive(build_all, fence, headline_cfg(Config), data,
+                        batches, KERNELS, HEADLINE_STEPS, WINDOWS)
+    del state
+    if head["launches"]["land_max"] != head["steps"]:
+        raise AssertionError(f"headline: K1 launched "
+                             f"{head['launches']['land_max']} times in "
+                             f"{head['steps']} steps")
+    emit({"phase": "headline", **head})
+
+    emit({"phase": "parity", **phase_parity(
+        build_all, from_reference, to_numpy, Config, data, batches_cpu,
+        batches)})
+
+    cfg128 = headline_cfg(Config, dataset="criteotb", embedding_dim=128,
+                          compress_rate=0.1, learning_rate=1.0)
+    state, sib = drive(build_all, fence, cfg128, data, batches, KERNELS,
+                       SIBLING_STEPS, 1)
+    del state
+    for name in ("land_max", "scatter_add"):
+        if sib["launches"][name] != sib["steps"]:
+            raise AssertionError(f"sibling: {name} launched "
+                                 f"{sib['launches'][name]} times in "
+                                 f"{sib['steps']} steps")
+    emit({"phase": "sibling", **sib})
+    torch.cuda.empty_cache()
+
+    emit({"phase": "profile_headline", **phase_profile(
+        build_all, headline_cfg(Config), data, batches)})
+
+    sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
+                            "cafe_tpu/ops/pallas_land.py:167",
+                            kern["land_max"][0]),
+               "scatter_add": ("cafe_tpu_torch/kernels/scatter_add.cu",
+                               "cafe_tpu/ops/pallas_apply.py:164",
+                               kern["scatter_add"])}
+    lines = []
+    for name, (src, replaces, rec) in sources.items():
+        by_path = {"headline": head["launches"][name],
+                   "sibling": sib["launches"][name]}
+        lines.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"], "shape": rec["shape"]})
+    emit({"kernels": lines})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
