@@ -22,14 +22,11 @@ CRITEO_COUNTS = [
 ]
 
 
-def make_criteo_batches(batch: int = 2048, n_batches: int = 8,
-                        device="cuda"):
-    """(train_data, batches): the numpy dataset and `n_batches` batches
-    (dense, sparse, label, valid) staged on `device`."""
-    dev = resolve_device(device)
+def make_criteo_arrays(rows: int) -> CTRArrays:
+    """`rows` Criteo-Kaggle-shaped rows (seed 0): the arrays that
+    make_criteo_batches cuts into batches."""
     counts = np.asarray(CRITEO_COUNTS, dtype=np.int64)
     rng = np.random.default_rng(0)
-    rows = batch * n_batches
     sparse = np.empty((rows, len(counts)), dtype=np.int32)
     for f, n in enumerate(counts):
         u = rng.random(rows) ** 4.0
@@ -37,15 +34,20 @@ def make_criteo_batches(batch: int = 2048, n_batches: int = 8,
         sparse[:, f] = (ranks * 1000000007) % n
     dense = np.log1p(rng.gamma(2.0, 2.0, (rows, 13))).astype(np.float32)
     label = rng.integers(0, 2, rows).astype(np.float32)
-    train_data = CTRArrays(sparse, dense, label, counts.astype(np.int32))
+    return CTRArrays(sparse, dense, label, counts.astype(np.int32))
 
+
+def make_criteo_batches(batch: int = 2048, n_batches: int = 8,
+                        device="cuda"):
+    """(train_data, batches): the numpy dataset and `n_batches` batches
+    (dense, sparse, label, valid) staged on `device`."""
+    dev = resolve_device(device)
+    train_data = make_criteo_arrays(batch * n_batches)
     batches = []
     for b in range(n_batches):
         lo = b * batch
-        batches.append((
-            torch.from_numpy(dense[lo:lo + batch]).to(dev),
-            torch.from_numpy(sparse[lo:lo + batch]).to(dev),
-            torch.from_numpy(label[lo:lo + batch]).to(dev),
-            batch,
-        ))
+        batches.append(tuple(
+            torch.from_numpy(a[lo:lo + batch]).to(dev)
+            for a in (train_data.dense, train_data.sparse, train_data.label))
+            + (batch,))
     return train_data, batches

@@ -36,7 +36,8 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
     parts = []
 
     if getattr(cfg, "weighted_pooling", ""):
-        raise NotImplementedError("weighted pooling is not ported yet")
+        raise NotImplementedError("weighted pooling is not ported yet "
+                                  "(ROADMAP queue Q3)")
 
     def full_part(fields):
         if fields:
@@ -51,7 +52,8 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
         parts.append(HashedTablePart(list(range(nf)), counts, real, dim, opt))
     elif method == "cafe":
         if cfg.cafe_plus:
-            raise NotImplementedError("CAFE+ (cafe_plus) is not ported yet")
+            raise NotImplementedError("CAFE+ (cafe_plus) is not ported yet "
+                                      "(ROADMAP queue Q4)")
         full_part(small)
         goff = np.concatenate([[0], np.cumsum(counts)[:-1]])
         cafe_kwargs = dict(
@@ -89,7 +91,8 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
                                              real, dim, opt))
     elif method in ("qr", "mde", "off", "ada", "ae"):
         raise NotImplementedError(
-            f"compress method {method!r} is not ported yet")
+            f"compress method {method!r} is not ported yet (ROADMAP "
+            f"queue Q3)")
     else:
         raise ValueError(f"unknown compress method {method}")
 

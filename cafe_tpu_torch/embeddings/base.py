@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.sparse import SLOT_SUFFIXES, apply_rows, init_slots
 
 # All tables are padded to a multiple of this row count (the JAX package
@@ -141,16 +142,17 @@ class HashedTablePart(Part):
 
 
 class EmbeddingLayer:
-    """Field-partitioned composite of parts on one device."""
+    """Field-partitioned composite of parts on one device (default the
+    card; raises without CUDA unless device='cpu')."""
 
     def __init__(self, parts: List[Part], num_fields: int, dim: int,
-                 device="cpu"):
+                 device="cuda"):
         assert sorted(sum((p.field_idx for p in parts), [])) == \
             list(range(num_fields))
         self.parts = parts
         self.num_fields = num_fields
         self.dim = dim
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         for p in parts:
             p.device = self.device
         order = np.concatenate([p.field_idx for p in parts]).astype(np.int64)

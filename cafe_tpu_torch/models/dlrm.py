@@ -4,7 +4,8 @@ Bottom MLP on dense features, dot-product feature interaction (the upper
 triangle of T @ T^T, picked with a fixed index list built from the JAX
 package's static mask), top MLP with a sigmoid output. Legacy options as
 in the JAX package: interaction_op "cat", interaction_itself (keep the
-diagonal), loss_threshold (clamp p to [t, 1-t]).
+diagonal), loss_threshold (clamp p to [t, 1-t]). `device` defaults to the
+card and raises without CUDA unless it is "cpu".
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .mlp import apply_mlp, init_mlp, mm
 
 
@@ -22,7 +24,7 @@ class DLRM:
                  ln_bot, ln_top, compute_dtype=torch.float32,
                  interaction_op: str = "dot",
                  interaction_itself: bool = False,
-                 loss_threshold: float = 0.0, device="cpu"):
+                 loss_threshold: float = 0.0, device="cuda"):
         self.embedding_dim = embedding_dim
         self.num_sparse = num_sparse
         self.num_dense = num_dense
@@ -32,7 +34,7 @@ class DLRM:
         assert interaction_op in ("dot", "cat"), interaction_op
         self.interaction_op = interaction_op
         self.loss_threshold = float(loss_threshold)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         nf = num_sparse + (1 if num_dense > 0 else 0)
         k = 0 if interaction_itself else 1
         mask = np.triu(np.ones((nf, nf), bool), k=k).reshape(-1)

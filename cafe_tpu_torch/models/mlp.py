@@ -23,9 +23,14 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 
-def init_mlp(gen: torch.Generator, ln: Sequence[int], device="cpu"
+
+def init_mlp(gen: torch.Generator, ln: Sequence[int], device="cuda"
              ) -> List[dict]:
+    """Params on `device` (default the card; raises without CUDA unless
+    device='cpu')."""
+    device = resolve_device(device)
     params = []
     ln = list(ln)
     for i in range(len(ln) - 1):

@@ -9,7 +9,13 @@ package donates them to the jitted step) and returned.
 * SGD into tables of >= PALLAS_APPLY_MIN_ROWS rows with dim % 128 == 0
   goes to kernel K2 (kernels/scatter_add.py — the CUDA kernel for CUDA
   tables, its plain version for CPU tables), where the JAX package runs
-  its Pallas kernel ops/pallas_apply.py;
+  its Pallas kernel ops/pallas_apply.py; impl 'pallas' forces it and
+  'scatter' forbids it;
+* under impl 'dense', SGD that the K2 rule leaves and that passes the JAX
+  package's dense row-sum gate (_use_dense_rowsum, the TPU's VMEM caps
+  kept word for word so that the same configurations take the same
+  route) goes to kernel K3 (kernels/rowsum.py), where the JAX package
+  runs ops/pallas_rowsum.py;
 * other SGD takes one `index_add_` (a library scatter, where the JAX
   package leaves the update to XLA's scatter);
 * Adagrad / rows-Adam coalesce duplicates first (torch semantics), then
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import rowsum as _rowsum
 from ..kernels import scatter_add as _scatter_add
 from . import sorted_update as _sorted
 
@@ -36,6 +43,14 @@ SLOT_SUFFIXES = {
 # SGD into tables with at least this many rows (and dim % 128 == 0) uses
 # kernel K2, the same rule as the JAX package's Pallas apply.
 PALLAS_APPLY_MIN_ROWS = 1 << 20
+
+# The JAX package's gate for its dense row-sum kernel (pallas_rowsum.py
+# MAX_OUT_BYTES / MAX_LANES and ops/sparse._use_dense_rowsum): a [D, N] f32
+# VMEM accumulator of at most 6 MiB, at most 262,144 lanes and a [D, B]
+# update block of at most 8 MiB. K3 itself has no such cap.
+DENSE_ROWSUM_MAX_TABLE_BYTES = 6 << 20
+DENSE_ROWSUM_MAX_LANES = 262144
+DENSE_ROWSUM_MAX_UPDATE_BYTES = 8 << 20
 
 
 def init_slots(table: torch.Tensor, optimizer: str) -> dict:
@@ -114,18 +129,24 @@ def sparse_sgd(table: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor,
 
 def _use_pallas_apply(n_rows: int, dim: int, impl: str = "auto") -> bool:
     """K2 selection (the JAX package's rule without its TPU check: the
-    K2 wrapper serves both devices)."""
+    K2 wrapper serves both devices). 'dense' falls through to the auto
+    rule, as in the JAX package."""
     if impl == "scatter":
         return False
     if impl == "pallas":
         return True
-    if impl == "dense":
-        raise NotImplementedError(
-            "sparse_apply_impl='dense' (ops/pallas_rowsum.py, K3) is not "
-            "ported yet")
-    if impl != "auto":
+    if impl not in ("auto", "dense"):
         raise ValueError(f"unknown sparse_apply_impl {impl!r}")
     return n_rows >= PALLAS_APPLY_MIN_ROWS and dim % 128 == 0
+
+
+def _use_dense_rowsum(n_rows: int, dim: int, lanes: int,
+                      impl: str = "auto") -> bool:
+    """K3 selection: impl 'dense' and the JAX package's gate."""
+    return (impl == "dense" and dim % 8 == 0
+            and n_rows * dim * 4 <= DENSE_ROWSUM_MAX_TABLE_BYTES
+            and lanes <= DENSE_ROWSUM_MAX_LANES
+            and dim * lanes * 4 <= DENSE_ROWSUM_MAX_UPDATE_BYTES)
 
 
 def apply_rows(table: torch.Tensor, slots: dict, idx: torch.Tensor,
@@ -140,6 +161,10 @@ def apply_rows(table: torch.Tensor, slots: dict, idx: torch.Tensor,
         upd = (-lr * grad).to(table.dtype)
         return _scatter_add.scatter_add_(table, idx.to(torch.int32),
                                          upd.contiguous()), {}
+    if optimizer == "sgd" and _use_dense_rowsum(*table.shape, idx.shape[0],
+                                                impl):
+        upd = (-lr * grad).to(table.dtype)
+        return _rowsum.sparse_add_dense_(table, idx, upd), {}
     if table_pass is None:
         table_pass = optimizer != "sgd" and _sorted.use_table_pass(
             table.shape[0], idx.shape[0])

@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.sorted_update import land_max, seg_max
 
 # Sentinel for padded/invalid lanes; sorts to the end of any real id range.
@@ -71,7 +72,10 @@ class InsertResult(NamedTuple):
     cell: torch.Tensor    # int32 [L]
 
 
-def init_sketch(cfg: HotSketchConfig, device="cpu") -> SketchState:
+def init_sketch(cfg: HotSketchConfig, device="cuda") -> SketchState:
+    """A fresh sketch on `device` (default the card; raises without CUDA
+    unless device='cpu')."""
+    device = resolve_device(device)
     # rows padded as the JAX package pads them (its sharding alignment);
     # imported here: embeddings/ imports this module
     from ..embeddings.base import round_up

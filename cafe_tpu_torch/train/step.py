@@ -2,7 +2,8 @@
 
 One call covers embedding gather -> dense towers -> BCE -> backward ->
 sketch insert + migration -> sparse + dense optimizer applies (sgd,
-adagrad, rows-Adam; lr schedules are not ported yet). Embedding tables
+adagrad, rows-Adam; the lr schedule of train/lr_schedule.py as an f32
+tensor on the card when one is set). Embedding tables
 never enter autograd: the gathered rows are made leaves with
 requires_grad, their gradients come back from one autograd.grad call, and
 each embedding part turns row gradients into in-place scatter updates
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+
+from .lr_schedule import lr_policy
 
 EPS = 1e-7
 
@@ -110,13 +113,17 @@ def _dense_update(params, grads, opt, lr, kind):
 
 
 def build_train_step(model, embed_layer, cfg):
-    lr = cfg.learning_rate
-    if cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0:
-        raise NotImplementedError("lr schedules are not ported yet")
+    base_lr = cfg.learning_rate
+    use_sched = cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0
 
     def train_step(state: TrainState, dense_x, ids, labels, valid: int
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = ids.shape[0]
+        if use_sched:
+            lr = lr_policy(base_lr, state.step, cfg.lr_num_warmup_steps,
+                           cfg.lr_decay_start_step, cfg.lr_num_decay_steps)
+        else:
+            lr = base_lr
         w = (torch.arange(b, device=ids.device) < valid).float()
         raws, auxs = embed_layer.gather(state.embed, ids)
         raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
@@ -145,6 +152,35 @@ def build_train_step(model, embed_layer, cfg):
                           state.step + 1), metrics
 
     return train_step
+
+
+def _weighted(name: str) -> bool:
+    return name == "loss" or name.endswith("_frac")
+
+
+def build_multi_step(train_step, k: int):
+    """k sequential train steps per call over a flat [k*B] batch: sub-batch
+    i takes rows [i*B, (i+1)*B) and valid_i = clip(valid - i*B, 0, B).
+    Metrics come back as one step's: weighted means (by each sub-batch's
+    weight) for loss and *_frac, sums for the counters."""
+
+    def multi_step(state: TrainState, dense_x, ids, labels, valid: int):
+        b = ids.shape[0] // k
+        agg = None
+        for i in range(k):
+            sl = slice(i * b, (i + 1) * b)
+            v_i = min(max(valid - i * b, 0), b)
+            dx = None if dense_x is None else dense_x[sl]
+            state, m = train_step(state, dx, ids[sl], labels[sl], v_i)
+            m = {name: v * m["weight"] if _weighted(name) else v
+                 for name, v in m.items()}
+            agg = m if agg is None else {name: agg[name] + v
+                                         for name, v in m.items()}
+        denom = agg["weight"].clamp_min(1.0)
+        return state, {name: v / denom if _weighted(name) else v
+                       for name, v in agg.items()}
+
+    return multi_step
 
 
 def build_eval_step(model, embed_layer):

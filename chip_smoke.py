@@ -8,29 +8,48 @@ Phases, each printing one JSON line and raising on failure:
 
 1. build + device: the kernels are compiled from the repo's .cu sources
    (one nvcc per source, all at once); the card's name and power limit;
-2. kernels: each CUDA kernel against its plain PyTorch version on the card
+2. kernels: K1 and K2 against their plain PyTorch versions on the card
    at the slice's shapes (K1 bit-exact; K2 within its f32 bound), timed
    beside the plain version, one library call and the memory bound;
 3. headline: DLRM + CAFE, Criteo-Kaggle's 26 vocabularies, batch 2048,
    dim 16, cr 1e-3, bf16 towers, SGD, a sketch insert every step — timed
    steps through build_all / train_step; K1 must launch once per step;
-4. parity: 3 headline steps on the card and on the CPU from one state
-   (frequency scores, low threshold so ids promote): sketch and routing
-   equal, loss / params / table within a stated tolerance;
-5. sibling: the dim-128 config (cr 0.1, lr 1.0, CriteoTB towers on the
+4. kernels_rowsum: K3 against its plain version at the headline table
+   (27,136 x 16) with 53,248 lanes: the ids the trained CafePart routes
+   a batch to, and duplicate-heavy Zipf ids — within the f32 reordering
+   bound of the longest run, bit-equal on dyadic payloads, and two
+   launches bit-equal to each other; timed as phase 2;
+5. headline_dense: the headline with --sparse_apply_impl dense; K1 and K3
+   must each launch once per step;
+6. parity: 3 headline steps on the card and on the CPU from one state
+   (frequency scores, low threshold so ids promote), for the auto and the
+   dense sparse apply: sketch and routing equal, loss / params / table
+   within a stated tolerance;
+7. sibling: the dim-128 config (cr 0.1, lr 1.0, CriteoTB towers on the
    Kaggle vocabularies; a 3.2M-row table) — K1 and K2 must launch;
-6. profile: 5 headline steps under torch.profiler — device busy time,
-   idle share, kernels per step (full table in chiprun_out/).
+8. profile: 5 headline steps (auto and dense) under torch.profiler —
+   device busy time, idle share, kernels per step (tables in
+   chiprun_out/);
+9. cli: main_torch.main on a Criteo-Kaggle-shaped memmap in the
+   reference's binary format (114,688 rows: 48 train and 8 test batches
+   of 2048) with the headline flags, --sparse_apply_impl dense and an lr
+   schedule: run A trains, evaluates twice and checkpoints (K1 and K3
+   must launch 48 times); run B loads the best checkpoint and must
+   reproduce run A's metrics there; run C measures the latency protocol.
 
 Then the kernels line (every kernel's launches on the main path, error,
 times and bound) and, last, the device line. Exits non-zero without a
 CUDA card or without the cafe_tpu_torch package beside it.
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -41,6 +60,13 @@ F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 HEADLINE_STEPS, WINDOWS = 20, 5
 SIBLING_STEPS = 5
 OUT_DIR = "chiprun_out"
+CLI_ROWS = 114688             # 6/7 train: 48 batches of 2048; 8 test ones
+CLI_FLAGS = ["--dataset", "criteo", "--embedding_dim", "16",
+             "--compress_method", "cafe", "--compress_rate", "0.001",
+             "--cafe_sketch_threshold", "500", "--cafe_hash_rate", "0.5",
+             "--mini_batch_size", "2048", "--learning_rate", "0.1",
+             "--bf16", "true", "--sparse_apply_impl", "dense",
+             "--test_mini_batch_size", "2048"]
 
 
 def emit(obj) -> None:
@@ -206,13 +232,15 @@ def headline_cfg(Config, **kw):
     return Config(**base)
 
 
-def drive(build_all, fence, cfg, data, batches, kernels, steps, windows):
-    """Build on the card, reset the kernel counts, run 2 warm-up steps and
+def drive(build_all, fence, cfg, data, batches, kernels, steps, windows,
+          device="cuda"):
+    """Build on `device`, reset the kernel counts, run 2 warm-up steps and
     `windows` timed windows of `steps` steps, each ended by the port's
-    fence (a device synchronize); return the phase record."""
-    _, embed, state, step, _ = build_all(cfg, data, device="cuda")
+    fence (a device synchronize); return (state, embed, phase record)."""
+    _, embed, state, step, _ = build_all(cfg, data, device=device)
     fence(state)
-    torch.cuda.reset_peak_memory_stats()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
     n_run = 0
@@ -234,19 +262,23 @@ def drive(build_all, fence, cfg, data, batches, kernels, steps, windows):
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")
     ms = float(np.median(win_ms))
-    return state, {
+    return state, embed, {
         "steps": n_run, "ms_per_step": ms, "window_ms": win_ms,
         "examples_per_s": cfg.mini_batch_size * 1e3 / ms, "loss": loss,
         "promotions": int(promos), "hot_frac": float(m["cafe_hot_frac"]),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 2**30
+                        if device == "cuda" else None),
         "launches": launches,
         "parts": [type(p).__name__ for p in embed.parts]}
 
 
 def phase_parity(build_all, from_reference, to_numpy, Config, data,
-                 batches_cpu, batches_gpu):
-    """3 headline steps on the card and on the CPU from one state."""
-    cfg = headline_cfg(Config, cafe_use_freq=True, cafe_sketch_threshold=2.0)
+                 batches_cpu, batches_gpu, impl):
+    """3 headline steps on the card and on the CPU from one state, with
+    sparse apply `impl` (auto: index_add_; dense: K3 on the card, its
+    plain version on the CPU)."""
+    cfg = headline_cfg(Config, cafe_use_freq=True, cafe_sketch_threshold=2.0,
+                       sparse_apply_impl=impl)
     _, c_embed, c_state, c_step, _ = build_all(cfg, data, device="cpu")
     _, g_embed, _, g_step, _ = build_all(cfg, data, device="cuda")
     g_state = from_reference(c_state, "cuda")
@@ -281,14 +313,15 @@ def phase_parity(build_all, from_reference, to_numpy, Config, data,
         rec["max_abs_diff"][name] = diff
         if not diff <= tol:
             raise AssertionError(f"{name} differs by {diff} > {tol}")
-    rec.update(tolerance=tol, promotions_cpu=int(cm["cafe_promotions"]),
+    rec.update(impl=impl, tolerance=tol,
+               promotions_cpu=int(cm["cafe_promotions"]),
                hot_frac=float(gm["cafe_hot_frac"]), sketch_equal=True,
                routing_equal=True)
     return rec
 
 
-def phase_profile(build_all, cfg, data, batches):
-    """Trace 5 headline steps; write the kernel table to chiprun_out/."""
+def phase_profile(build_all, cfg, data, batches, name):
+    """Trace 5 steps of `cfg`; write the kernel table to chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
     _, _, state, step, _ = build_all(cfg, data, device="cuda")
     for i in range(3):
@@ -309,12 +342,13 @@ def phase_profile(build_all, cfg, data, batches):
     dev = sorted([x for x in dev if x[1] > 0], key=lambda x: -x[1])
     busy_us = sum(x[1] for x in dev)
     ours = [x for x in dev if "land_max_kernel" in x[0]
-            or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]]
+            or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
+            or "rowsum_add_kernel" in x[0]]
     os.makedirs(OUT_DIR, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(avgs[0], "self_device_time_total")
            else "self_cuda_time_total")
-    with open(os.path.join(OUT_DIR, "profile_headline.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
         f.write(avgs.table(sort_by=key, row_limit=60))
     return {"steps": 5, "wall_ms_per_step": wall_us / 5e3,
             "device_busy_ms_per_step": busy_us / 5e3,
@@ -325,6 +359,190 @@ def phase_profile(build_all, cfg, data, batches):
                             for k, t, c in dev[:10] + ours]}
 
 
+def rowsum_case(rowsum, table, ids, upd):
+    """K3 against its plain version on one input: (record, timing
+    closures). Raises on a disagreement."""
+    n, d = table.shape
+    b = ids.shape[0]
+    keep = (ids >= 0) & (ids < n)
+    kept = ids[keep].long()
+    _, run_sizes = torch.unique(kept, return_counts=True)
+    g_max, uniq = int(run_sizes.max()), int(run_sizes.numel())
+    got = rowsum.sparse_add_dense_(table.clone(), ids, upd)
+    again = rowsum.sparse_add_dense_(table.clone(), ids, upd)
+    want = rowsum.sparse_add_dense_plain_(table.clone(), ids, upd)
+    err = float((got - want).abs().max())
+    # worst-case f32 reordering bound of the longest run (the plain
+    # version's index_add_ uses atomics on the card), as for K2
+    tol = g_max * 2.0 ** -24 * (float(table.abs().max())
+                                + g_max * float(upd.abs().max()))
+    if not err <= tol:
+        raise AssertionError(f"K3 differs from its plain version: {err} > "
+                             f"{tol}")
+    if not torch.equal(got, again):
+        raise AssertionError("K3: two launches on one input differ")
+    # dyadic payloads (multiples of 2^-10, every sum far below 2^14): f32
+    # adds them exactly in any order, so K3 must match bit for bit
+    table_q = torch.round(table * 1024) / 1024
+    upd_q = torch.round(upd * 1024 * 8) / 1024
+    got_q = rowsum.sparse_add_dense_(table_q.clone(), ids, upd_q)
+    want_q = rowsum.sparse_add_dense_plain_(table_q, ids, upd_q)
+    err_exact = float((got_q - want_q).abs().max())
+    if err_exact != 0.0:
+        raise AssertionError(f"K3 differs from its plain version on exact "
+                             f"dyadic sums: {err_exact}")
+    del got, again, want, table_q, upd_q, got_q, want_q
+    keys, upd_sorted = rowsum.sort_lanes(n, ids, upd)
+    lib_upd = upd[keep].contiguous()
+    work = table.clone()
+    bms, by = bound_ms(b * 4 + b * d * 4 + 2 * uniq * d * 4, b * d)
+    return {"shape": [n, d, b], "max_run": g_max, "distinct_rows": uniq,
+            "dropped_lanes": int(b - kept.numel()),
+            "max_abs_err": err, "tolerance": tol,
+            "max_abs_err_dyadic": err_exact, "deterministic": True,
+            "ms": time_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd)),
+            "kernel_ms": time_ms(
+                lambda: rowsum.add_sorted_(work, keys, upd_sorted)),
+            "host_ms": host_ms(
+                lambda: rowsum.sparse_add_dense_(work, ids, upd)),
+            "plain_ms": time_ms(
+                lambda: rowsum.sparse_add_dense_plain_(work, ids, upd)),
+            "library_ms": time_ms(
+                lambda: work.index_add_(0, kept, lib_upd)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_rowsum(rowsum, embed, state, batches):
+    """K3 at the headline table: the rows the trained CafePart routes one
+    batch to (hot and hashed ids of the 26 fields), and Zipf ids drawn as
+    the sibling's K2 check draws them (runs of thousands of lanes), with
+    dropped lanes below 0 and at N."""
+    rng = np.random.default_rng(2)
+    table = state.embed["part0"]["table"].clone()
+    n, d = table.shape
+    _, aux = embed.gather(state.embed, batches[0][1])
+    routed = aux["part0"][1].reshape(-1).to(torch.int32)
+    b = routed.shape[0]
+    ranks = (rng.random(b) ** 6 * n).astype(np.int64)
+    zipf = ((ranks * 1000000007) % n).astype(np.int32)
+    zipf[rng.choice(b, 24, replace=False)] = -1
+    zipf[rng.choice(b, 24, replace=False)] = n
+    upd = torch.from_numpy(
+        rng.normal(0, 0.01, (b, d)).astype(np.float32)).cuda()
+    cases = {"routed": rowsum_case(rowsum, table, routed, upd),
+             "zipf": rowsum_case(rowsum, table,
+                                 torch.from_numpy(zipf).cuda(), upd)}
+    return cases
+
+
+def write_criteo_memmap(make_criteo_arrays, path, rows):
+    """A Criteo-Kaggle-shaped dataset in the reference's binary format."""
+    a = make_criteo_arrays(rows)
+    a.sparse.tofile(os.path.join(path, "processed_sparse_sep.bin"))
+    a.dense.tofile(os.path.join(path, "processed_dense.bin"))
+    a.label.astype(np.int32).tofile(os.path.join(path,
+                                                 "processed_label.bin"))
+    a.counts.astype(np.int32).tofile(os.path.join(path,
+                                                  "processed_count.bin"))
+
+
+def run_cli(main_fn, argv, log_name):
+    """main_torch.main(argv) with its prints kept in chiprun_out/."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, log_name), "w") as f:
+        f.write(buf.getvalue())
+    return result, buf.getvalue().splitlines()
+
+
+def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
+    """Runs A (train + eval + checkpoints), B (inference from the best
+    checkpoint) and C (latency protocol) of main_torch.main."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(here, "build")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=scratch)
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
+        base = CLI_FLAGS + ["--data_path", root]
+        if device == "cpu":
+            base += ["--force_platform", "cpu"]
+        model = os.path.join(root, "m")
+        tb_a = os.path.join(root, "tb_a")
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res_a, out_a = run_cli(main_fn, base + [
+            "--lr_num_warmup_steps", "8", "--lr_decay_start_step", "24",
+            "--lr_num_decay_steps", "24", "--print_freq", "8",
+            "--test_freq", "24", "--save_model", model, "--save_freq", "20",
+            "--tensor_board_filename", tb_a], "cli_run_a.txt")
+        wall_a = time.perf_counter() - t0
+        launches_a = {name: k.launches for name, k in kernels.items()}
+        trained = [ln.split() for ln in out_a
+                   if ln.startswith("Finished training it ")]
+        its = [int(w[3].split("/")[0]) for w in trained]
+        ms_it = [float(w[7]) for w in trained]
+        losses = [float(w[-1]) for w in trained]
+        evals = [ln for ln in out_a if ln.startswith(" accuracy")]
+        if its[-1] != 48 or not all(np.isfinite(losses)):
+            raise AssertionError(f"cli run A: its {its}, losses {losses}")
+        if len(evals) != 2:
+            raise AssertionError(f"cli run A printed {len(evals)} eval "
+                                 f"lines, not 2")
+        if device == "cuda" and not (launches_a["land_max"]
+                                     == launches_a["rowsum"] == 48):
+            raise AssertionError(f"cli run A: launches {launches_a}, "
+                                 f"K1 and K3 must launch 48 times")
+        for f in ("m", "m.meta.json", "m.latest", "tb_a/scalars.jsonl"):
+            if not os.path.exists(os.path.join(root, f)):
+                raise AssertionError(f"cli run A wrote no {f}")
+        with open(os.path.join(tb_a, "scalars.jsonl")) as f:
+            scalars = [json.loads(ln) for ln in f]
+        events = {}
+        for sc in scalars:
+            if sc["tag"] != "Train/Loss":
+                events.setdefault(sc["step"], {})[sc["tag"]] = sc["value"]
+        best_step = max(events, key=lambda st: (events[st]["Test/Acc"],
+                                                -st))
+        best = events[best_step]
+
+        res_b, _ = run_cli(main_fn, base + [
+            "--load_model", model, "--inference_only", "true",
+            "--tensor_board_filename", os.path.join(root, "tb_b")],
+            "cli_run_b.txt")
+        diffs = {k: abs(v - best["Test/Acc" if k == "accuracy" else k])
+                 for k, v in res_b["metrics"].items()}
+        if not max(diffs.values()) <= 1e-6:
+            raise AssertionError(f"cli run B differs from run A's best "
+                                 f"test event: {diffs}")
+
+        tb_c = os.path.join(root, "tb_c")
+        for k in kernels.values():
+            k.launches = 0
+        res_c, _ = run_cli(main_fn, base + [
+            "--test_throughput", "true", "--tensor_board_filename", tb_c],
+            "cli_run_c.txt")
+        launches_c = {name: k.launches for name, k in kernels.items()}
+        with open(os.path.join(tb_c, "latency.json")) as f:
+            latency = json.load(f)
+        if latency != res_c["latency"] or not latency["test"] > 0:
+            raise AssertionError(f"cli run C: latency {latency}")
+        return {"rows": CLI_ROWS, "run_a": {
+                    "its": len(its), "wall_s": wall_a,
+                    "ms_per_it_median": float(np.median(ms_it)),
+                    "loss_first": losses[0], "loss_last": losses[-1],
+                    "eval_lines": evals, "best_event_it": best_step,
+                    "best_metrics": best, "launches": launches_a},
+                "run_b": {"metrics": res_b["metrics"],
+                          "max_abs_diff_vs_run_a_best": max(diffs.values())},
+                "run_c": {"latency": latency, "launches": launches_c}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -333,8 +551,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cafe_tpu_torch.bridge import from_reference, to_numpy
     from cafe_tpu_torch.config import Config
-    from cafe_tpu_torch.data import make_criteo_batches
-    from cafe_tpu_torch.kernels import KERNELS, build, land, scatter_add
+    import main_torch
+    from cafe_tpu_torch.data import make_criteo_arrays, make_criteo_batches
+    from cafe_tpu_torch.kernels import (KERNELS, build, land, rowsum,
+                                        scatter_add)
     from cafe_tpu_torch.train import build_all
     from cafe_tpu_torch.utils.timing import fence
 
@@ -360,49 +580,75 @@ def main() -> int:
     data, batches = make_criteo_batches(batch=2048, n_batches=8)
     batches_cpu = [(d.cpu(), s.cpu(), l.cpu(), v)
                    for d, s, l, v in batches[:3]]
-    state, head = drive(build_all, fence, headline_cfg(Config), data,
-                        batches, KERNELS, HEADLINE_STEPS, WINDOWS)
-    del state
-    if head["launches"]["land_max"] != head["steps"]:
-        raise AssertionError(f"headline: K1 launched "
-                             f"{head['launches']['land_max']} times in "
-                             f"{head['steps']} steps")
+    by_path = {}
+
+    def check_launches(name, rec, want):
+        for k, n in want.items():
+            if rec["launches"][k] != n:
+                raise AssertionError(f"{name}: {k} launched "
+                                     f"{rec['launches'][k]} times, not {n}")
+        by_path[name] = rec["launches"]
+
+    state, embed, head = drive(build_all, fence, headline_cfg(Config), data,
+                               batches, KERNELS, HEADLINE_STEPS, WINDOWS)
+    check_launches("headline", head, {"land_max": head["steps"]})
     emit({"phase": "headline", **head})
 
-    emit({"phase": "parity", **phase_parity(
-        build_all, from_reference, to_numpy, Config, data, batches_cpu,
-        batches)})
+    kern["rowsum"] = phase_rowsum(rowsum, embed, state, batches)
+    emit({"phase": "kernels_rowsum", **kern["rowsum"]})
+    del state, embed
+
+    state, _, dense = drive(build_all, fence,
+                            headline_cfg(Config, sparse_apply_impl="dense"),
+                            data, batches, KERNELS, HEADLINE_STEPS, WINDOWS)
+    del state
+    check_launches("headline_dense", dense,
+                   {"land_max": dense["steps"], "rowsum": dense["steps"],
+                    "scatter_add": 0})
+    emit({"phase": "headline_dense", **dense})
+
+    for impl in ("auto", "dense"):
+        emit({"phase": "parity", **phase_parity(
+            build_all, from_reference, to_numpy, Config, data, batches_cpu,
+            batches, impl)})
 
     cfg128 = headline_cfg(Config, dataset="criteotb", embedding_dim=128,
                           compress_rate=0.1, learning_rate=1.0)
-    state, sib = drive(build_all, fence, cfg128, data, batches, KERNELS,
-                       SIBLING_STEPS, 1)
+    state, _, sib = drive(build_all, fence, cfg128, data, batches, KERNELS,
+                          SIBLING_STEPS, 1)
     del state
-    for name in ("land_max", "scatter_add"):
-        if sib["launches"][name] != sib["steps"]:
-            raise AssertionError(f"sibling: {name} launched "
-                                 f"{sib['launches'][name]} times in "
-                                 f"{sib['steps']} steps")
+    check_launches("sibling", sib, {"land_max": sib["steps"],
+                                    "scatter_add": sib["steps"]})
     emit({"phase": "sibling", **sib})
     torch.cuda.empty_cache()
 
-    emit({"phase": "profile_headline", **phase_profile(
-        build_all, headline_cfg(Config), data, batches)})
+    for name, cfg in (("headline", headline_cfg(Config)),
+                      ("headline_dense",
+                       headline_cfg(Config, sparse_apply_impl="dense"))):
+        emit({"phase": f"profile_{name}", **phase_profile(
+            build_all, cfg, data, batches, name)})
+
+    cli = phase_cli(main_torch.main, make_criteo_arrays, KERNELS)
+    by_path["cli"] = cli["run_a"]["launches"]
+    by_path["cli_throughput"] = cli["run_c"]["launches"]
+    emit({"phase": "cli", **cli})
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",
                             kern["land_max"][0]),
                "scatter_add": ("cafe_tpu_torch/kernels/scatter_add.cu",
                                "cafe_tpu/ops/pallas_apply.py:164",
-                               kern["scatter_add"])}
+                               kern["scatter_add"]),
+               "rowsum": ("cafe_tpu_torch/kernels/rowsum.cu",
+                          "cafe_tpu/ops/pallas_rowsum.py:100",
+                          kern["rowsum"]["routed"])}
     lines = []
     for name, (src, replaces, rec) in sources.items():
-        by_path = {"headline": head["launches"][name],
-                   "sibling": sib["launches"][name]}
+        launches = {path: counts[name] for path, counts in by_path.items()}
         lines.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path, "max_abs_err": rec["max_abs_err"],
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})

@@ -43,7 +43,7 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "main_torch.py"]))
 def test_no_import_names_jax_or_cafe_tpu(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -59,10 +59,16 @@ def test_no_import_names_jax_or_cafe_tpu(path):
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    sys.path.insert(0, str(REPO))
+    import main_torch
     from cafe_tpu_torch import bridge
     from cafe_tpu_torch.config import Config
     from cafe_tpu_torch.data import make_criteo_batches
-    from cafe_tpu_torch.embeddings import build_embedding_layer
+    from cafe_tpu_torch.data.loader import device_prefetch
+    from cafe_tpu_torch.embeddings import (EmbeddingLayer, HashedTablePart,
+                                           build_embedding_layer)
+    from cafe_tpu_torch.models import DLRM, init_mlp
+    from cafe_tpu_torch.sketch.hotsketch import HotSketchConfig, init_sketch
     from cafe_tpu_torch.train import build_all
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config(dataset="synthetic", synthetic_rows=256,
@@ -76,8 +82,23 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         bridge.to_torch({"w": np.zeros(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         build_embedding_layer(cfg, [3000, 40], 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DLRM(8, 2, 4, [4, 8], [9, 4, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_mlp(torch.Generator().manual_seed(0), [4, 8])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_sketch(HotSketchConfig(buckets=64, threshold=1.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingLayer([HashedTablePart([0], [10], [10], 8)], 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(device_prefetch(iter([])))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_torch.main(["--dataset", "synthetic", "--synthetic_rows", "256",
+                         "--tensor_board_filename", ""])
     *_, state, step, _ = build_all(cfg, device="cpu")
     assert state.embed["part0"]["table"].device.type == "cpu"
+    assert DLRM(8, 2, 4, [4, 8], [9, 4, 1], device="cpu").init(0)[
+        "top"][0]["w"].device.type == "cpu"
     _, batches = make_criteo_batches(batch=8, n_batches=1, device="cpu")
     assert batches[0][1].shape == (8, 26)
 
@@ -130,3 +151,41 @@ def test_batch_iterator_matches_jax_package():
         for g, w in zip(got, want):
             for a, b in zip(g, w):
                 np.testing.assert_array_equal(a, b)
+
+
+COPIES = ["train/metrics.py", "utils/logging.py", "data/datasets.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_verbatim_copies_equal_originals(rel):
+    """Numpy-only modules the port keeps verbatim copies of."""
+    assert (PKG / rel).read_text() == (REPO / "cafe_tpu" / rel).read_text()
+
+
+def test_metrics_copy_matches_jax_package():
+    from cafe_tpu.train import metrics as jm
+    from cafe_tpu_torch.train import metrics as tm
+    rng = np.random.default_rng(0)
+    for n in (50, 1000):
+        y = rng.integers(0, 2, n)
+        scores = np.round(rng.random(n), 1)       # many ties
+        assert tm.binary_metrics(y, scores) == jm.binary_metrics(y, scores)
+    assert np.isnan(tm.roc_auc(np.ones(5), rng.random(5)))
+
+
+def test_logger_copy_writes_the_same_lines(tmp_path):
+    import json
+    from cafe_tpu.utils.logging import ScalarLogger as JLogger
+    from cafe_tpu_torch.utils.logging import ScalarLogger as TLogger
+    lines = {}
+    for name, cls in (("j", JLogger), ("t", TLogger)):
+        log = cls(str(tmp_path / name))
+        for step, (tag, v) in enumerate([("Train/Loss", 0.69),
+                                         ("Test/Acc", 0.51),
+                                         ("roc_auc", np.float32(0.5))]):
+            log.add_scalar(tag, v, step)
+        log.close()
+        with open(tmp_path / name / "scalars.jsonl") as f:
+            lines[name] = [{k: v for k, v in json.loads(ln).items()
+                            if k != "ts"} for ln in f]
+    assert lines["t"] == lines["j"] and len(lines["t"]) == 3

@@ -1,5 +1,5 @@
-"""Port kernels (kernels/land.py K1, kernels/scatter_add.py K2) against
-numpy oracles, with no JAX in the process.
+"""Port kernels (kernels/land.py K1, kernels/scatter_add.py K2,
+kernels/rowsum.py K3) against numpy oracles, with no JAX in the process.
 
 The plain versions run here on the CPU. The CUDA kernels have no CPU
 mode: the `cuda` tests skip without a card and run on one with
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from cafe_tpu_torch.kernels import land, scatter_add
+from cafe_tpu_torch.kernels import land, rowsum, scatter_add
 
 torch.set_num_threads(1)
 
@@ -85,6 +85,29 @@ def test_scatter_add_plain_vs_oracle():
                                rtol=1e-6, atol=1000 * 0.1 * 1e-6)
 
 
+def _zipf_case(n, d, b, seed=7):
+    """Zipf ids with runs of thousands of lanes, negative and >= n lanes
+    (both dropped), and dyadic values (multiples of 2^-10, sums far below
+    2^14), which f32 adds exactly in any order."""
+    rng = np.random.default_rng(seed)
+    table = np.round(rng.normal(0, 1, (n, d)) * 1024) / 1024
+    ids = ((rng.random(b) ** 6 * n).astype(np.int64) * 1000000007 % n)
+    ids = ids.astype(np.int32)
+    ids[::13] = -1
+    ids[5::29] = n + 3
+    upd = np.round(rng.normal(0, 0.05, (b, d)) * 1024) / 1024
+    return table.astype(np.float32), ids, upd.astype(np.float32)
+
+
+def test_rowsum_plain_vs_oracle():
+    table, ids, upd = _zipf_case(1000, 16, 5000)
+    assert np.bincount(ids[(ids >= 0) & (ids < 1000)]).max() > 1000
+    got = rowsum.sparse_add_dense_(torch.from_numpy(table.copy()),
+                                   torch.from_numpy(ids),
+                                   torch.from_numpy(upd))
+    np.testing.assert_array_equal(got.numpy(), _oracle_add(table, ids, upd))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -111,3 +134,21 @@ def test_scatter_add_kernel_on_card(card):
     np.testing.assert_allclose(got.cpu().numpy(),
                                _oracle_add(table, ids, upd),
                                rtol=1e-5, atol=2000 * 0.1 * 2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b", [(1000, 16, 5000), (27136, 16, 53248),
+                                   (512, 128, 16384), (64, 8, 3)])
+def test_rowsum_kernel_on_card(card, n, d, b):
+    """Dyadic values: the kernel must match the oracle bit for bit, and
+    two launches must agree bit for bit (no atomics)."""
+    table, ids, upd = _zipf_case(n, d, b)
+    args = [torch.from_numpy(x).to(card) for x in (ids, upd)]
+    before = rowsum.KERNEL.launches
+    got = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card), *args)
+    again = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card), *args)
+    torch.cuda.synchronize()
+    assert rowsum.KERNEL.launches == before + 2
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _oracle_add(table, ids, upd))
+    assert torch.equal(got, again)

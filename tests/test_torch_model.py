@@ -40,7 +40,7 @@ def _dlrm_pair(dtype, **kw):
               **kw)
     t = TDLRM(8, 5, 4, ln_bot, ln_top,
               compute_dtype=torch.bfloat16 if dtype == "bf16"
-              else torch.float32, **kw)
+              else torch.float32, device="cpu", **kw)
     return j, t
 
 
@@ -61,7 +61,7 @@ def test_dlrm_cat_interaction_and_clamp():
     ln_bot, ln_top = [4, 16, 8], [8 + 5 * 8, 16, 1]
     kw = dict(interaction_op="cat", loss_threshold=0.3)
     j = JDLRM(8, 5, 4, ln_bot, ln_top, **kw)
-    t = TDLRM(8, 5, 4, ln_bot, ln_top, **kw)
+    t = TDLRM(8, 5, 4, ln_bot, ln_top, device="cpu", **kw)
     params = j.init(jax.random.PRNGKey(2))
     rng = np.random.default_rng(2)
     dense = rng.normal(0, 1, (32, 4)).astype(np.float32)
