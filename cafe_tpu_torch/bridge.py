@@ -10,6 +10,11 @@ The port's state mirrors the reference one-to-one: params
 {"bot": [{"w", "b"}, ...], "top": [...]}, each embedding part's dict
 ("table", the sketch's fields as a dict under "sketch", "tick"),
 embed_dense, opt and step.
+
+A sharded JAX state is one global state; under a mesh each port rank
+holds its slices (parallel/sharding.py). `from_reference_sharded` cuts
+rank r's state from the global arrays, and `to_reference_sharded`
+gathers the ranks' shards back into the JAX layout.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel.sharding import shard_state, unshard_state
 from .train.step import TrainState
 
 
@@ -41,9 +47,25 @@ def to_torch(node, device="cuda"):
 
 
 def from_reference(ref_state, device="cuda") -> TrainState:
-    """The port's TrainState from a JAX TrainState (copies every leaf)."""
-    return TrainState(*(to_torch(getattr(ref_state, f), device)
+    """The port's TrainState from a JAX TrainState, or from a dict of its
+    fields with numpy leaves (copies every leaf)."""
+    fields = _fields(ref_state)
+    return TrainState(*(to_torch(fields[f], device)
                         for f in TrainState._fields))
+
+
+def from_reference_sharded(ref_state, mesh, embed_layer) -> TrainState:
+    """Rank `mesh.rank`'s port state (on the mesh's device) from a JAX
+    TrainState of GLOBAL arrays, or a dict of its fields as numpy (a
+    sharded JAX state fetched to the host is one)."""
+    return shard_state(from_reference(ref_state, mesh.device), mesh,
+                       embed_layer)
+
+
+def to_reference_sharded(state, mesh, embed_layer, like):
+    """The ranks' shards gathered into the structure of `like` (a JAX
+    state or subtree), as numpy. Collective: every rank calls it."""
+    return to_reference(unshard_state(state, mesh, embed_layer), like)
 
 
 def to_numpy(node):

@@ -16,6 +16,12 @@ Contract per part (as in the JAX package):
 Tables are initialised with numpy exactly as the JAX package does (same
 generator, same draws), so the two packages start from bit-equal tables.
 `apply_grads` updates tables IN PLACE (the JAX package donates them).
+
+Under a mesh (EmbeddingLayer.set_mesh) a part that opts in (enable_mesh)
+holds this rank's row shard and runs the explicit exchange
+(parallel/exchange.py) on this rank's batch slice; a part that does not
+stays replicated and applies the global batch's update on every rank,
+as XLA's partitioner does for the JAX package.
 """
 
 from __future__ import annotations
@@ -24,13 +30,25 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.sparse import SLOT_SUFFIXES, apply_rows, init_slots
+from ..parallel.exchange import (all_gather, sharded_apply,
+                                 sharded_apply_a2a, sharded_fetch,
+                                 sharded_fetch_a2a)
+from ..utils.timing import tensors_of
 
 # All tables are padded to a multiple of this row count (the JAX package
 # shards them over power-of-two meshes; kept for a bit-equal layout).
 ROW_ALIGN = 512
+
+# tables smaller than this stay replicated even under the explicit
+# exchange — the collective round-trip costs more than it saves
+_MIN_SHARD_ROWS = 1024
+
+# --shard_exchange -> the all-to-all impl of the a2a legs
+EXCHANGE_IMPLS = {"a2a": "lax", "pallas": "pallas"}
 
 
 def round_up(n: int, align: int = ROW_ALIGN) -> int:
@@ -61,6 +79,37 @@ class Part:
     # sparse apply route (cfg.sparse_apply_impl; ops/sparse.apply_rows)
     apply_impl: str = "auto"
     device = torch.device("cpu")
+    # set by EmbeddingLayer.set_mesh on a part that opted in: gather and
+    # apply_grads then run the explicit exchange on this rank's shard
+    mesh = None
+    unique_frac = 0.0
+    # exchange for the row legs (--shard_exchange): 'explicit'
+    # (all-gather + owner-compute + reduce-scatter), 'a2a' (request-routed
+    # dist.all_to_all_single) or 'pallas' (the same through kernel K5)
+    exchange_mode = "explicit"
+
+    def enable_mesh(self, mesh) -> bool:
+        """Opt this part into the explicit exchange. Default: stay
+        replicated. Must be called before init()."""
+        return False
+
+    def _sharded_fetch(self, table, idx2d):
+        """The configured row-fetch exchange (see exchange_mode)."""
+        if self.exchange_mode != "explicit":
+            return sharded_fetch_a2a(self.mesh, table, idx2d,
+                                     impl=EXCHANGE_IMPLS[self.exchange_mode])
+        return sharded_fetch(self.mesh, table, idx2d, self.unique_frac)
+
+    def _sharded_apply(self, table, slots, idx2d, g3d, lr):
+        """The configured row-update exchange (see exchange_mode)."""
+        if self.exchange_mode != "explicit":
+            return sharded_apply_a2a(
+                self.mesh, table, slots, idx2d, g3d, lr, self.optimizer,
+                impl=EXCHANGE_IMPLS[self.exchange_mode],
+                apply_impl=self.apply_impl)
+        return sharded_apply(self.mesh, table, slots, idx2d, g3d, lr,
+                             self.optimizer, self.unique_frac,
+                             apply_impl=self.apply_impl)
 
     def init(self, rng: np.random.Generator) -> Dict:
         raise NotImplementedError
@@ -123,6 +172,14 @@ class HashedTablePart(Part):
         self.np_offsets = _offsets(self.real_ns)
         self.rows = int(sum(self.real_ns))
 
+    def enable_mesh(self, mesh) -> bool:
+        n = mesh.size
+        rows_pad = round_up(self.rows)
+        if rows_pad % n or rows_pad < max(n, _MIN_SHARD_ROWS):
+            return False
+        self.mesh = mesh
+        return True
+
     def init(self, rng):
         scales = [np.sqrt(1.0 / max(n, 5)) for n in self.counts]
         state = {"table": torch.from_numpy(
@@ -132,18 +189,41 @@ class HashedTablePart(Part):
 
     def gather(self, state, ids):
         flat = (ids % self._const("real_ns")) + self._const("np_offsets")
+        if self.mesh is not None:
+            return self._sharded_fetch(state["table"], flat), flat
         return state["table"][flat.long()], flat
 
     def apply_grads(self, state, ids, g_raw, aux, lr):
+        if self.mesh is not None:
+            table, slots = self._sharded_apply(
+                state["table"], self._slots_of(state, "table"), aux, g_raw,
+                lr)
+            return self._put_slots({**state, "table": table}, "table",
+                                   slots), {}
         b, f, d = g_raw.shape
         state = self._table_update(state, "table", aux.reshape(b * f),
                                    g_raw.reshape(b * f, d), lr)
         return state, {}
 
 
+def _gather_tree(node, mesh):
+    """Every tensor of `node` (a tensor or a tuple of them, batch-major)
+    all-gathered along dim 0."""
+    if isinstance(node, (tuple, list)):
+        return type(node)(_gather_tree(x, mesh) for x in node)
+    return all_gather(node, mesh)
+
+
 class EmbeddingLayer:
     """Field-partitioned composite of parts on one device (default the
-    card; raises without CUDA unless device='cpu')."""
+    card; raises without CUDA unless device='cpu').
+
+    `mesh` (set by set_mesh, or directly for data parallelism alone) makes
+    the layer work on this rank's batch slice: parts that run the
+    exchange hold row shards; every other part is replicated and applies
+    the all-gathered global batch on every rank."""
+
+    mesh = None
 
     def __init__(self, parts: List[Part], num_fields: int, dim: int,
                  device="cuda"):
@@ -159,6 +239,29 @@ class EmbeddingLayer:
         self._perm = torch.as_tensor(np.argsort(order), device=self.device)
         self._cols = [torch.as_tensor(p.field_idx, device=self.device)
                       for p in parts]
+
+    def set_mesh(self, mesh, unique_frac: float = 0.0,
+                 exchange_mode: str = "explicit") -> List[str]:
+        """Turn on the explicit exchange on every part that supports it
+        (big hashed tables, CAFE parts with shard-local sketches). Must
+        run BEFORE init(); returns the names of the parts that turned it
+        on (the rest stay replicated)."""
+        if exchange_mode not in ("explicit",) + tuple(EXCHANGE_IMPLS):
+            raise NotImplementedError(
+                f"shard_exchange {exchange_mode!r} is not ported yet "
+                f"(ROADMAP queue Q8); use explicit, a2a or pallas")
+        if unique_frac > 0.0:
+            raise NotImplementedError(
+                "shard_unique_frac > 0: the unique-compact exchange is not "
+                "ported yet (ROADMAP queue Q8)")
+        self.mesh = mesh
+        active = []
+        for i, p in enumerate(self.parts):
+            if p.enable_mesh(mesh):
+                p.unique_frac = float(unique_frac)
+                p.exchange_mode = exchange_mode
+                active.append(f"part{i}:{type(p).__name__}")
+        return active
 
     def init(self, seed: int) -> Tuple[Dict, Dict]:
         rng = np.random.default_rng(seed)
@@ -186,8 +289,18 @@ class EmbeddingLayer:
         collected: Dict[str, list] = {}
         new_state = {}
         for i, p in enumerate(self.parts):
-            s, st = p.apply_grads(state[f"part{i}"], ids[:, self._cols[i]],
-                                  g_raws[f"part{i}"], auxs[f"part{i}"], lr)
+            args = (ids[:, self._cols[i]], g_raws[f"part{i}"],
+                    auxs[f"part{i}"])
+            replicated = self.mesh is not None and p.mesh is None
+            if replicated:
+                args = _gather_tree(args, self.mesh)
+            s, st = p.apply_grads(state[f"part{i}"], *args, lr)
+            if replicated and self.mesh.size > 1:
+                # the card sums duplicate rows with atomics in no fixed
+                # order, so replicas could drift apart by f32 rounding:
+                # every rank takes rank 0's (small) replicated state
+                for t in tensors_of(s):
+                    dist.broadcast(t, src=0, group=self.mesh.group)
             new_state[f"part{i}"] = s
             for k, v in st.items():
                 collected.setdefault(k, []).append(v)

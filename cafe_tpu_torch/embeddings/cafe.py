@@ -17,7 +17,15 @@ the backward one scatter:
 State: {"table": f32 [total_rows, D], "sketch": the sketch dict,
 "tick": int32 []} — the JAX part's state with the sketch's NamedTuple
 as a dict. The table is updated IN PLACE (the JAX package donates it).
-CAFE+ (`plus=True`) and the sharded paths are not ported yet.
+
+Under a mesh (enable_mesh) the part holds this rank's row shard and a
+SHARD-LOCAL sketch (sketch/sharded.py): ids route to shards by
+hash(id) % n, each shard inserts the ids it owns into its own buckets
+with its own free stack, and promotions stay rank-local. The forward
+all-gathers the ids and reduce-scatters the hot-row answers (id-sized
+traffic) before the row exchange; the backward all-gathers (id, score)
+pairs for the insert, migrates a bounded n*mig_lanes rows, then runs the
+row-update exchange. CAFE+ (`plus=True`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +36,10 @@ import numpy as np
 import torch
 
 from ..ops.sparse import SLOT_SUFFIXES
+from ..parallel.exchange import (DROP_ROW, _local_idx, _owner_rows,
+                                 all_gather, psum, psum_scatter)
 from ..sketch.hotsketch import (
+    INVALID_ID,
     PROMO_LANES,
     HotSketchConfig,
     init_sketch,
@@ -36,6 +47,8 @@ from ..sketch.hotsketch import (
     sketch_insert,
     sketch_query,
 )
+from ..sketch.sharded import (init_sharded_sketch, local_config,
+                              shard_global_view, shard_local_view, shard_of)
 from .base import Part, _offsets, round_up
 
 
@@ -68,24 +81,59 @@ class CafePart(Part):
             buckets=self.hotn, threshold=float(sketch_threshold),
             decay=float(sketch_decay), land_impl=land_impl,
             max_id=int(max_oid))
+        self.n_shards = 1
+
+    def enable_mesh(self, mesh) -> bool:
+        """Opt into the explicit exchange with a shard-local sketch (see
+        the module docstring). Must be called BEFORE init()."""
+        n = mesh.size
+        if self.total_rows % n:
+            return False
+        try:
+            lcfg, s_l = local_config(self.sketch_cfg, n)
+        except ValueError:
+            return False
+        if s_l < 2:
+            return False
+        self.mesh = mesh
+        self.n_shards = n
+        self._lcfg = lcfg
+        self._s_l = s_l
+        # a row of this rank's shard that no migration writes: the first
+        # multiple of S_l at or after the shard's start is a shard's cold
+        # sentinel slot 0 (or a hash row when >= hash_base); S_l < rows
+        # per shard, so it lies inside the shard
+        rows_l = self.total_rows // n
+        self._spare_row = -(-mesh.rank * rows_l // s_l) * s_l \
+            - mesh.rank * rows_l
+        return True
 
     def init(self, rng: np.random.Generator) -> Dict:
         """Same numpy draws as the JAX part: the hot rows, then each
-        field's hash rows."""
+        field's hash rows. Under a mesh the GLOBAL state (the whole
+        padded hot region drawn, since any shard's slot may serve, and
+        the sharded sketch layout); parallel/sharding.shard_state cuts
+        this rank's slices from it."""
         table = np.zeros((self.total_rows, self.dim), dtype=np.float32)
         high_scale = np.sqrt(1.0 / self.max_count)
-        table[: self.hotn] = rng.uniform(
+        n_hot_init = self.hash_base if self.mesh is not None else self.hotn
+        table[: n_hot_init] = rng.uniform(
             -high_scale, high_scale,
-            size=(self.hotn, self.dim)).astype(np.float32)
+            size=(n_hot_init, self.dim)).astype(np.float32)
         lo = self.hash_base
         for n, hs in zip(self.counts, self.hash_sizes):
             scale = np.sqrt(1.0 / n)
             table[lo:lo + hs] = rng.uniform(
                 -scale, scale, size=(hs, self.dim)).astype(np.float32)
             lo += hs
+        if self.mesh is not None:
+            sketch = init_sharded_sketch(self.sketch_cfg, self.n_shards,
+                                         self.device)
+        else:
+            sketch = init_sketch(self.sketch_cfg, self.device)
         state = {
             "table": torch.from_numpy(table).to(self.device),
-            "sketch": init_sketch(self.sketch_cfg, self.device),
+            "sketch": sketch,
             "tick": torch.zeros((), dtype=torch.int32, device=self.device),
         }
         return self._maybe_acc(state, "table")
@@ -99,7 +147,20 @@ class CafePart(Part):
             + self._const("hash_off") + self.hash_base
         return torch.where(is_hot, slot, hrow), hrow
 
+    def _hash_rows(self, oids: torch.Tensor) -> torch.Tensor:
+        """hash_base + the per-field hash row of offset ids, the field
+        found by searchsorted over the global offsets (the JAX package's
+        sharded and migration paths)."""
+        goff = self._const("global_offsets")[0]
+        pf = torch.searchsorted(goff, oids.contiguous(), right=True) - 1
+        pf = pf.clamp(0, len(self.field_idx) - 1)
+        return ((oids % self._const("hash_sizes")[0][pf])
+                + self._const("hash_off")[0][pf]).clamp(
+                    0, self.hash_rows - 1) + self.hash_base
+
     def gather(self, state: Dict, ids: torch.Tensor):
+        if self.mesh is not None:
+            return self._gather_sharded(state, ids)
         b, f = ids.shape
         oids = self._oids(ids)
         q = sketch_query(self.sketch_cfg, state["sketch"],
@@ -109,6 +170,25 @@ class CafePart(Part):
         row, hrow = self._rows(oids, is_hot, slot)
         raw = state["table"][row.long()]
         return raw, (oids, row, hrow, is_hot)
+
+    def _gather_sharded(self, state: Dict, ids: torch.Tensor):
+        """Sharded forward: all-gather the offset ids; each sketch shard
+        answers hot-routing for the ids it owns; an int32 reduce-scatter
+        hands each rank its lanes' hot rows (id-sized traffic). The
+        D-wide rows then move through the configured row exchange."""
+        mesh, n, s_l = self.mesh, self.n_shards, self._s_l
+        b, f = ids.shape
+        oids = self._oids(ids)
+        cand = all_gather(oids.reshape(-1), mesh)
+        mine = shard_of(cand, n) == mesh.rank
+        q = sketch_query(self._lcfg, shard_local_view(state["sketch"]),
+                         torch.where(mine, cand, int(INVALID_ID)))
+        slot_g = torch.where(mine & (q < 0), -q + mesh.rank * s_l, 0)
+        slot = psum_scatter(slot_g.to(torch.int32), mesh).reshape(b, f)
+        is_hot = slot > 0
+        row = torch.where(is_hot, slot, self._hash_rows(oids))
+        raw = self._sharded_fetch(state["table"], row)
+        return raw, (oids, row, is_hot)
 
     def _insert_and_compact(self, sketch_in, flat_oids, g_raw):
         """Score -> insert -> lossless promotion cap -> fixed-lane
@@ -144,6 +224,8 @@ class CafePart(Part):
 
     def apply_grads(self, state: Dict, ids: torch.Tensor,
                     g_raw: torch.Tensor, aux, lr: float):
+        if self.mesh is not None:
+            return self._apply_sharded(state, g_raw, aux, lr)
         oids, row, hrow, is_hot = aux
         b, f, d = g_raw.shape
         flat_oids = oids.reshape(-1)
@@ -162,12 +244,7 @@ class CafePart(Part):
         # insert_grad-then-step order). Lanes without a promotion write
         # their source row onto itself: hash rows never receive a
         # promotion, so those writes change nothing and need no mask.
-        goff = self._const("global_offsets")[0]
-        pfield = (torch.searchsorted(goff, p_ids, right=True) - 1).clamp(
-            0, len(self.field_idx) - 1)
-        prow = ((p_ids % self._const("hash_sizes")[0][pfield])
-                + self._const("hash_off")[0][pfield]).clamp(
-                    0, self.hash_rows - 1) + self.hash_base
+        prow = self._hash_rows(p_ids)
         dst = torch.where(p_mask, p_slots, prow).long()
         table = state["table"]
         table[dst] = table[prow.long()]
@@ -188,3 +265,89 @@ class CafePart(Part):
             "cafe_hot_frac": is_hot.float().mean(),
         }
         return state, stats
+
+    def _insert_sharded(self, sk_local, oids, scores):
+        """All-gather (id, score) lanes; this shard inserts the ids it
+        owns; promotions beyond the per-shard budget are reverted
+        losslessly; the kept ones compact to [p_cap, 3] lanes of (id,
+        global slot, mask). Returns (sketch, lanes, kept count)."""
+        mesh, n, s_l = self.mesh, self.n_shards, self._s_l
+        p_cap = min(self.mig_lanes, max(s_l - 1, 1))
+        # ids and score bits ride one int32 all-gather
+        pairs = all_gather(torch.stack(
+            [oids.reshape(-1), scores.reshape(-1).view(torch.int32)], 1),
+            mesh)
+        cand = pairs[:, 0]
+        q_ids = torch.where(shard_of(cand, n) == mesh.rank, cand,
+                            int(INVALID_ID))
+        st, promo = sketch_insert(self._lcfg, sk_local, q_ids,
+                                  pairs[:, 1].contiguous().view(
+                                      torch.float32))
+        rank = torch.cumsum(promo.mask.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+        excess = promo.mask & (rank >= p_cap)
+        st = revert_promotions(self._lcfg, st, q_ids, promo, excess)
+        keep = promo.mask & ~excess
+        pos = torch.where(keep, rank.clamp(0, p_cap - 1), p_cap).long()
+        lanes = torch.zeros((p_cap + 1, 3), dtype=torch.int32,
+                            device=self.device)
+        lanes[:, 0] = int(INVALID_ID)
+        lanes[pos] = torch.stack([promo.ids, promo.slots + mesh.rank * s_l,
+                                  keep.to(torch.int32)], 1)
+        return st, lanes[:p_cap], keep.sum(dtype=torch.int32)
+
+    def _apply_sharded(self, state: Dict, g_raw: torch.Tensor, aux,
+                       lr: float):
+        """Sharded backward: shard-local insert, a bounded migration
+        exchange (cold-row owners contribute, a psum, hot-row owners
+        write), then the row-update exchange. The importance scores are
+        global-batch quantities, as in the JAX package (which scores
+        outside its shard_map): per-field norm sums are all-reduced and
+        the batch size is the global one."""
+        oids, row, is_hot = aux
+        mesh, n = self.mesh, self.n_shards
+        b, f, _ = g_raw.shape
+        interval = self.insert_interval
+        if self.use_freq:
+            scores = torch.full((b, f), float(interval), dtype=torch.float32,
+                                device=g_raw.device)
+        else:
+            norms = torch.sqrt((g_raw * g_raw).sum(dim=-1) + 1e-30)
+            scores = norms * (b * n * interval) / (
+                psum(norms.sum(dim=0, keepdim=True), mesh) + 1e-30)
+        sk = shard_local_view(state["sketch"])
+        table = state["table"]
+        slots = self._slots_of(state, "table")
+        # the tick is replicated: every rank takes the same branch
+        if interval == 1 or int(state["tick"]) % interval == 0:
+            sk, lanes, n_keep = self._insert_sharded(sk, oids, scores)
+            glanes = all_gather(lanes, mesh)
+            gp_mask = glanes[:, 2] > 0
+            src = torch.where(gp_mask, self._hash_rows(glanes[:, 0]),
+                              DROP_ROW)
+            mig = psum(_owner_rows(table, src, mesh), mesh)
+            dst = _local_idx(table.shape[0],
+                             torch.where(gp_mask, glanes[:, 1], DROP_ROW),
+                             mesh).long()
+            # lanes this rank does not write rewrite the spare row with
+            # its own value (promoted slots are distinct and never the
+            # spare row), so the write needs no host-side mask
+            live = dst < table.shape[0]
+            dst = torch.where(live, dst, self._spare_row)
+            table[dst] = torch.where(live[:, None], mig, table[dst])
+            # promoted slots restart their optimizer state
+            for slot_t in slots.values():
+                if slot_t.dim() == 2:
+                    slot_t[dst] = torch.where(live[:, None], 0.0,
+                                              slot_t[dst])
+        else:
+            n_keep = torch.zeros((), dtype=torch.int32, device=table.device)
+        counts = psum(torch.stack([n_keep, is_hot.sum(dtype=torch.int32)]),
+                      mesh)
+        table, slots = self._sharded_apply(table, slots, row, g_raw, lr)
+        out = self._put_slots(
+            {**state, "table": table, "sketch": shard_global_view(sk),
+             "tick": state["tick"] + 1}, "table", slots)
+        stats = {"cafe_promotions": counts[0],
+                 "cafe_hot_frac": counts[1].float() / (n * b * f)}
+        return out, stats

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "cafe_tpu_torch"
-SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu")
+SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu", "a2a.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -94,15 +94,19 @@ def init_sketch(cfg: HotSketchConfig, device="cuda") -> SketchState:
     }
 
 
-def _bucket_of(cfg: HotSketchConfig, ids: torch.Tensor) -> torch.Tensor:
-    """(uint32(id) * 2654435761 mod 2^32) % S, as int32. The wrapping
-    uint32 product is formed from two partial products that stay below
-    2^48, so the int64 arithmetic never overflows."""
+def mul_u32(ids: torch.Tensor, mult: int) -> torch.Tensor:
+    """uint32(id) * mult mod 2^32, as int64. The wrapping uint32 product
+    is formed from two partial products that stay below 2^48, so the
+    int64 arithmetic never overflows."""
     x = ids.long() & _U32
-    lo = x * (_HASH_MULT & 0xFFFF)
-    hi = ((x * (_HASH_MULT >> 16)) & 0xFFFF) << 16
-    h = (lo + hi) & _U32
-    return (h % cfg.buckets).to(torch.int32)
+    lo = x * (mult & 0xFFFF)
+    hi = ((x * (mult >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _bucket_of(cfg: HotSketchConfig, ids: torch.Tensor) -> torch.Tensor:
+    """(uint32(id) * 2654435761 mod 2^32) % S, as int32."""
+    return (mul_u32(ids, _HASH_MULT) % cfg.buckets).to(torch.int32)
 
 
 def query_cells(cfg: HotSketchConfig, val: torch.Tensor, cnt: torch.Tensor,

@@ -7,6 +7,12 @@ suite, best-accuracy and rolling checkpoints with exact-batch resume.
 the CPU (the kernels' plain versions), anything else on the card, which
 must be there. Configurations the port does not have yet raise
 NotImplementedError naming their ROADMAP queue; none is ignored.
+
+With --mesh_shape / --shard_embeddings, or under torchrun, `run` trains
+on a flat mesh of one process per device (parallel/): each rank reads
+its slice of every batch, the sharded parts exchange rows over the
+mesh's group, eval scores are all-gathered before the metrics, and only
+rank 0 prints and logs.
 """
 
 from __future__ import annotations
@@ -20,14 +26,19 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config
 from ..data import (CTRArrays, batch_iterator, load_dataset,
                     make_synthetic_arrays, num_batches)
+from ..data.datasets import process_batch_iterator
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..embeddings import build_embedding_layer
 from ..models import MODELS
+from ..parallel import make_mesh, maybe_init_distributed, shard_state
+from ..parallel.exchange import all_gather
+from ..parallel.mesh import torchrun_world_size
 from ..utils.logging import ScalarLogger
 from ..utils.timing import fence, queue_bound
 from .checkpoint import load_checkpoint, save_checkpoint, save_rolling
@@ -58,12 +69,19 @@ def model_arch(cfg: Config, num_dense: int, num_sparse: int):
     return ln_bot, ln_top
 
 
-def build_all(cfg: Config, train_data=None, device="cuda", params=None):
+def build_all(cfg: Config, train_data=None, device="cuda", params=None,
+              mesh=None):
     """Construct (model, embed_layer, state, train_step, eval_step) on
     `device` (default the card; raises without CUDA unless device='cpu').
     `params` replaces the model's own dense init (bridge.py brings the
-    JAX package's over)."""
-    dev = resolve_device(device)
+    JAX package's over).
+
+    With `mesh` (parallel.make_mesh; its device replaces `device`), the
+    layer works on this rank's batch slice; with cfg.shard_embeddings the
+    parts that support it switch to the explicit exchange BEFORE the
+    state is made (the state layout depends on it), and the returned
+    state is this rank's slice of the global one."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     if cfg.model not in MODELS:
         raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
                                   f"(ROADMAP queue Q3)")
@@ -83,9 +101,20 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None):
         loss_threshold=cfg.loss_threshold, device=dev)
     embed = build_embedding_layer(cfg, counts, cfg.embedding_dim, train_data,
                                   device=dev)
+    if mesh is not None:
+        embed.mesh = mesh
+        if cfg.shard_embeddings:
+            active = embed.set_mesh(mesh, cfg.shard_unique_frac,
+                                    cfg.shard_exchange)
+            if mesh.rank == 0:
+                print(f"{cfg.shard_exchange} exchange on: "
+                      f"{active or 'no part (all small: replicated)'}",
+                      flush=True)
     state = init_state(model, embed, cfg.numpy_rand_seed, cfg.optimizer,
                        params=params)
-    return model, embed, state, build_train_step(model, embed, cfg), \
+    if mesh is not None:
+        state = shard_state(state, mesh, embed)
+    return model, embed, state, build_train_step(model, embed, cfg, mesh), \
         build_eval_step(model, embed)
 
 
@@ -114,16 +143,35 @@ def get_dataset(cfg: Config, phase: str) -> CTRArrays:
                      data.label[sl], data.counts)
 
 
+def wants_mesh(cfg: Config) -> bool:
+    """Whether `run` trains on a mesh (as the JAX package's run decides,
+    with torchrun's environment standing for its process count)."""
+    return cfg.mesh_shape is not None or cfg.shard_embeddings \
+        or cfg.dist_num_processes > 1 or (torchrun_world_size() or 1) > 1
+
+
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the configurations the port lacks
     (the embedding builder raises for the methods and options it lacks,
     'ae' and its pretraining included)."""
-    if cfg.mesh_shape is not None or cfg.shard_embeddings \
-            or cfg.dist_num_processes > 1:
-        raise NotImplementedError(
-            "mesh_shape / shard_embeddings / dist_num_processes > 1: "
-            "sharded and multi-process training are not ported yet "
-            "(ROADMAP queue Q8)")
+    if wants_mesh(cfg):
+        unported = [
+            (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)"),
+            (cfg.shard_unique_frac > 0, "shard_unique_frac > 0 (the "
+             "unique-compact exchange)"),
+            (cfg.shard_embeddings and cfg.shard_exchange == "auto",
+             "shard_exchange auto"),
+            (bool(cfg.save_model or cfg.load_model),
+             "save_model / load_model under a mesh"),
+            (cfg.test_throughput, "the latency protocol under a mesh"),
+            (cfg.steps_per_dispatch > 1, "steps_per_dispatch > 1 under a "
+             "mesh"),
+            (cfg.cafe_plus, "CAFE+ sharded"),
+        ]
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(f"{what} is not ported yet "
+                                          f"(ROADMAP queue Q8)")
     if cfg.quantize_emb_bits in (4, 8):
         raise NotImplementedError(
             "quantize_emb_bits: quantized serving is not ported yet "
@@ -148,15 +196,23 @@ def _on(x, dev):
 
 
 def inference(cfg: Config, eval_step, state: TrainState, test_data,
-              throughput: bool = False) -> Tuple[Dict[str, float], float]:
+              throughput: bool = False, mesh=None
+              ) -> Tuple[Dict[str, float], float]:
     """Streaming evaluation on the state's device (main.py:32-131).
-    Returns (metrics, ms_per_it)."""
+    Returns (metrics, ms_per_it). Under a mesh each rank scores its slice
+    of every test batch through the same exchange, and the scores are
+    all-gathered before the metrics (every rank gets them)."""
     dev = state.step.device
     if not throughput:
         scores, targets = [], []
-        for dense, sparse, label, valid in device_prefetch(
-                batch_iterator(test_data, cfg.test_mini_batch_size), dev):
+        bs = cfg.test_mini_batch_size
+        batches = (batch_iterator(test_data, bs) if mesh is None else
+                   process_batch_iterator(test_data, bs, mesh.rank,
+                                          mesh.size))
+        for dense, sparse, label, valid in device_prefetch(batches, dev):
             p = eval_step(state, dense, sparse)
+            if mesh is not None:
+                p, label = all_gather(p, mesh), all_gather(label, mesh)
             scores.append(p[:valid])
             targets.append(label[:valid])
         return binary_metrics(torch.cat(targets).cpu().numpy(),
@@ -219,24 +275,60 @@ def _start_profile(dev):
     return prof
 
 
+def _quiet(*args, **kwargs) -> None:
+    """print() of the ranks other than 0."""
+
+
 def run(cfg: Config) -> Dict:
     t_build = time.time()
     check_supported(cfg)
     device = resolve_device("cpu" if cfg.force_platform == "cpu"
                             else "cuda")
+    mesh, own_group = None, False
+    if wants_mesh(cfg):
+        own_group = maybe_init_distributed(cfg, device)
+    try:
+        if wants_mesh(cfg):
+            mesh = make_mesh(cfg.mesh_shape, cfg.mesh_inner, device)
+            for nm, bs in (("mini_batch_size", cfg.mini_batch_size),
+                           ("test_mini_batch_size",
+                            cfg.test_mini_batch_size)):
+                if bs % mesh.size:
+                    raise ValueError(f"--{nm} {bs} must divide by the "
+                                     f"{mesh.size}-device mesh")
+            device = mesh.device
+        result = _run(cfg, t_build, device, mesh)
+        # close() is collective: a rank that failed skips it, so that it
+        # exits instead of waiting for ranks that may never arrive
+        if mesh is not None:
+            mesh.close()
+        return result
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(cfg: Config, t_build: float, device, mesh) -> Dict:
+    main = mesh is None or mesh.rank == 0
+    print_ = print if main else _quiet
     train_data = get_dataset(cfg, "train")
     test_data = get_dataset(cfg, "test")
     model, embed, state, train_step, eval_step = build_all(
-        cfg, train_data, device=device)
-    print(f"setup done in {time.time() - t_build:.1f}s on {device}; "
-          f"counts={np.asarray(train_data.counts)[:8]}...", flush=True)
+        cfg, train_data, device=device, mesh=mesh)
+    if mesh is not None:
+        print_(f"sharded over {mesh.size} ranks ({mesh.backend}; "
+               f"shard_embeddings={cfg.shard_embeddings}, "
+               f"exchange={cfg.shard_exchange})", flush=True)
+    print_(f"setup done in {time.time() - t_build:.1f}s on {device}; "
+           f"counts={np.asarray(train_data.counts)[:8]}...", flush=True)
 
     if cfg.test_throughput:
         cfg = dataclasses.replace(
             cfg, print_freq=max(cfg.print_freq, 1024),
             test_freq=2 * max(cfg.print_freq, 1024))
 
-    logger = ScalarLogger(cfg.tensor_board_filename or None)
+    logger = ScalarLogger((cfg.tensor_board_filename or None) if main
+                          else None)
     nbatches = num_batches(train_data, cfg.mini_batch_size)
     # k steps per call over a flat [k*B] batch; iteration counters stay
     # in B units
@@ -264,9 +356,9 @@ def run(cfg: Config) -> Dict:
               f"iter={skip_batch} acc={best_acc:.4f}", flush=True)
 
     if cfg.inference_only:
-        metrics, _ = inference(cfg, eval_step, state, test_data)
-        print(" ".join(f"{k}={v:.5f}" for k, v in metrics.items()),
-              flush=True)
+        metrics, _ = inference(cfg, eval_step, state, test_data, mesh=mesh)
+        print_(" ".join(f"{k}={v:.5f}" for k, v in metrics.items()),
+               flush=True)
         logger.close()
         return {"metrics": metrics}
 
@@ -283,11 +375,16 @@ def run(cfg: Config) -> Dict:
         # first call continues precisely where the checkpoint stopped,
         # whatever the saving run's steps_per_dispatch
         base_it = skip_batch if ep == skip_epoch else 0
-        batches = device_prefetch(batch_iterator(
-            train_data, fetch, start_row=base_it * cfg.mini_batch_size),
-            device)
+        start = base_it * cfg.mini_batch_size
+        if mesh is None:
+            raw = batch_iterator(train_data, fetch, start_row=start)
+        else:
+            # each rank reads only its slice of every global batch
+            raw = process_batch_iterator(train_data, fetch, mesh.rank,
+                                         mesh.size, start_row=start)
+        batches = device_prefetch(raw, device)
         for i, (dense, sparse, label, valid) in enumerate(batches):
-            if cfg.enable_profiling and i == 10 and prof is None:
+            if cfg.enable_profiling and main and i == 10 and prof is None:
                 prof = _start_profile(device)
             state, m = train_step(state, dense, sparse, label, valid)
             if prof is not None and i == 10 + cfg.profile_steps:
@@ -297,7 +394,7 @@ def run(cfg: Config) -> Dict:
                 os.makedirs(out, exist_ok=True)
                 prof.export_chrome_trace(osp.join(out, "trace.json"))
                 prof = None
-                print(f"profile written to {out}", flush=True)
+                print_(f"profile written to {out}", flush=True)
             total_loss = total_loss + m["loss"] * valid
             total_samp += valid
             total_iter += k_disp
@@ -314,9 +411,9 @@ def run(cfg: Config) -> Dict:
                 train_ms = (now - t_window) * 1000.0 / max(total_iter, 1)
                 t_window = now
                 train_loss = float(total_loss) / max(total_samp, 1)
-                print(f"Finished training it {eff_it}/{nbatches} of epoch "
-                      f"{ep}, {train_ms:.2f} ms/it, loss {train_loss:.6f}",
-                      flush=True)
+                print_(f"Finished training it {eff_it}/{nbatches} of epoch "
+                       f"{ep}, {train_ms:.2f} ms/it, loss {train_loss:.6f}",
+                       flush=True)
                 log_iter = nbatches * ep + eff_it
                 logger.add_scalar("Train/Loss", train_loss, log_iter)
                 total_loss = torch.zeros((), dtype=torch.float32,
@@ -345,18 +442,19 @@ def run(cfg: Config) -> Dict:
                     out = osp.join(cfg.tensor_board_filename, "latency.json")
                     with open(out, "w") as f:
                         json.dump(lat, f)
-                    print(f"latency: {lat}", flush=True)
+                    print_(f"latency: {lat}", flush=True)
                     logger.close()
                     return {"latency": lat}
-                metrics, _ = inference(cfg, eval_step, state, test_data)
+                metrics, _ = inference(cfg, eval_step, state, test_data,
+                                       mesh=mesh)
                 log_iter = nbatches * ep + eff_it
                 for k, v in metrics.items():
                     logger.add_scalar(k if k != "accuracy" else "Test/Acc",
                                       v, log_iter)
-                print(f" accuracy {metrics['accuracy'] * 100:3.3f} %, "
-                      f"auc {metrics['roc_auc'] * 100:3.3f} %, "
-                      f"best {max(best_acc, metrics['accuracy']) * 100:3.3f} %",
-                      flush=True)
+                print_(f" accuracy {metrics['accuracy'] * 100:3.3f} %, "
+                       f"auc {metrics['roc_auc'] * 100:3.3f} %, best "
+                       f"{max(best_acc, metrics['accuracy']) * 100:3.3f} %",
+                       flush=True)
                 result = {"metrics": metrics}
                 if metrics["accuracy"] > best_acc:
                     best_acc = metrics["accuracy"]

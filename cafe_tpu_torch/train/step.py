@@ -12,6 +12,14 @@ each embedding part turns row gradients into in-place scatter updates
 The step updates the state IN PLACE (dense params and tables, where the
 JAX package donates them) and returns a TrainState holding the new
 sketch, tick and step; callers must not reuse the old TrainState.
+
+Under a mesh each rank runs the step on its contiguous slice of the
+global batch (the JAX package re-jits the same function with batch
+shardings). The loss is the GLOBAL batch's, sum(losses * w) /
+max(sum(w), 1): each rank weights its lanes by their global positions,
+divides its local sum by the global weight, and the dense gradients are
+summed over the mesh. That is exactly the global gradient, so the
+embedding row gradients need no rescaling; the metrics come back global.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .lr_schedule import lr_policy
 
@@ -79,11 +88,20 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _bce(p, y, w):
+def _bce(p, y, w, w_total: float):
+    """sum(losses * w) / max(w_total, 1): w_total is the whole (global)
+    batch's weight, so an all-padding (sub-)batch returns 0, not 0/0."""
     p = p.clamp(EPS, 1.0 - EPS)
     losses = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p))
-    # an all-padding (sub-)batch has zero weight; return 0, not 0/0
-    return (losses * w).sum() / w.sum().clamp_min(1.0)
+    return (losses * w).sum() / max(w_total, 1.0)
+
+
+def _psum_(tensors, mesh) -> None:
+    """Sum each tensor over the mesh, in place, with one all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    for t, x in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(x.view_as(t))
 
 
 @torch.no_grad()
@@ -112,9 +130,13 @@ def _dense_update(params, grads, opt, lr, kind):
     return opt
 
 
-def build_train_step(model, embed_layer, cfg):
+def build_train_step(model, embed_layer, cfg, mesh=None):
+    """The step on one device, or with `mesh` this rank's share of the
+    mesh's step: `ids` etc. are this rank's slice and `valid` counts the
+    valid rows of the GLOBAL batch."""
     base_lr = cfg.learning_rate
     use_sched = cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0
+    n, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
 
     def train_step(state: TrainState, dense_x, ids, labels, valid: int
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -124,7 +146,9 @@ def build_train_step(model, embed_layer, cfg):
                            cfg.lr_decay_start_step, cfg.lr_num_decay_steps)
         else:
             lr = base_lr
-        w = (torch.arange(b, device=ids.device) < valid).float()
+        lanes = torch.arange(rank * b, (rank + 1) * b, device=ids.device)
+        w = (lanes < valid).float()
+        w_total = float(min(max(int(valid), 0), n * b))
         raws, auxs = embed_layer.gather(state.embed, ids)
         raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
         dense = [state.params, state.embed_dense]
@@ -135,19 +159,23 @@ def build_train_step(model, embed_layer, cfg):
         with torch.enable_grad():
             feats = embed_layer.transform(state.embed_dense, raws)
             p = model.apply(state.params, dense_x, feats)
-            loss = _bce(p, labels, w)
+            loss = _bce(p, labels, w, w_total)
             grads = torch.autograd.grad(
                 loss, dense_leaves + [raws[k] for k in sorted(raws)])
         g_params = grads[:len(dense_leaves)]
         g_raws = dict(zip(sorted(raws), grads[len(dense_leaves):]))
+        p = p.detach()
+        sums = torch.stack([loss.detach(),
+                            ((torch.round(p) == labels) * w).sum(),
+                            w.sum()])
+        if mesh is not None:
+            _psum_(list(g_params) + [sums], mesh)
 
         opt = _dense_update(dense, g_params, state.opt, lr, cfg.optimizer)
         embed, stats = embed_layer.apply_grads(state.embed, ids, g_raws,
                                                auxs, lr)
-        p = p.detach()
-        metrics = {"loss": loss.detach(),
-                   "correct": ((torch.round(p) == labels) * w).sum(),
-                   "weight": w.sum(), **stats}
+        metrics = {"loss": sums[0], "correct": sums[1], "weight": sums[2],
+                   **stats}
         return TrainState(state.params, embed, state.embed_dense, opt,
                           state.step + 1), metrics
 

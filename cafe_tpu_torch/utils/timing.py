@@ -13,21 +13,22 @@ import time
 import torch
 
 
-def _tensors(tree):
+def tensors_of(tree):
+    """Every tensor in a tree of dicts, lists and tuples."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):
         for v in tree.values():
-            yield from _tensors(v)
+            yield from tensors_of(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _tensors(v)
+            yield from tensors_of(v)
 
 
 def fence(*trees) -> None:
     """Wait for the card to finish all queued work when any tensor in
     `trees` lives on it; a no-op for CPU tensors."""
-    devices = {t.device for t in _tensors(trees) if t.is_cuda}
+    devices = {t.device for t in tensors_of(trees) if t.is_cuda}
     for dev in devices:
         torch.cuda.synchronize(dev)
 

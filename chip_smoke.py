@@ -35,7 +35,22 @@ Phases, each printing one JSON line and raising on failure:
    of 2048) with the headline flags, --sparse_apply_impl dense and an lr
    schedule: run A trains, evaluates twice and checkpoints (K1 and K3
    must launch 48 times); run B loads the best checkpoint and must
-   reproduce run A's metrics there; run C measures the latency protocol.
+   reproduce run A's metrics there; run C measures the latency protocol;
+10. kernels_a2a: K5 at n = 1 at the headline's exchange shapes (ids
+   [1, 53,248] int32, rows [1, 53,248, 16] f32), bit-equal to its plain
+   version (NCCL all_to_all_single) and timed beside it, `copy_` and the
+   memory bound; then K5 between 4 processes on the one card through
+   CUDA IPC over 3 successive calls, bit-equal on every rank (not timed:
+   processes on one card without MPS are time-sliced);
+11. sharded: the headline through build_all(mesh=make_mesh(1)) on NCCL
+   with --shard_exchange pallas, timed as the headline (K5 must launch 4
+   times and K1 once per step); the same state through explicit, a2a and
+   pallas, and on the CPU (a gloo group of 1), 3 steps each with
+   frequency scores: sketch and routing equal, tables within the bound;
+   5 traced steps;
+12. cli_sharded: main_torch.main on the memmap with --mesh_shape 1
+   --shard_embeddings true --shard_exchange pallas: 48 steps and 2 evals,
+   with the launch counts checked.
 
 Then the kernels line (every kernel's launches on the main path, error,
 times and bound) and, last, the device line. Exits non-zero without a
@@ -45,6 +60,7 @@ CUDA card or without the cafe_tpu_torch package beside it.
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -54,6 +70,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
@@ -233,11 +250,13 @@ def headline_cfg(Config, **kw):
 
 
 def drive(build_all, fence, cfg, data, batches, kernels, steps, windows,
-          device="cuda"):
-    """Build on `device`, reset the kernel counts, run 2 warm-up steps and
-    `windows` timed windows of `steps` steps, each ended by the port's
-    fence (a device synchronize); return (state, embed, phase record)."""
-    _, embed, state, step, _ = build_all(cfg, data, device=device)
+          device="cuda", mesh=None):
+    """Build on `device` (or on `mesh`), reset the kernel counts, run 2
+    warm-up steps and `windows` timed windows of `steps` steps, each
+    ended by the port's fence (a device synchronize); return (state,
+    embed, phase record)."""
+    _, embed, state, step, _ = build_all(cfg, data, device=device,
+                                         mesh=mesh)
     fence(state)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -320,10 +339,10 @@ def phase_parity(build_all, from_reference, to_numpy, Config, data,
     return rec
 
 
-def phase_profile(build_all, cfg, data, batches, name):
+def phase_profile(build_all, cfg, data, batches, name, mesh=None):
     """Trace 5 steps of `cfg`; write the kernel table to chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
-    _, _, state, step, _ = build_all(cfg, data, device="cuda")
+    _, _, state, step, _ = build_all(cfg, data, device="cuda", mesh=mesh)
     for i in range(3):
         state, _ = step(state, *batches[i])
     torch.cuda.synchronize()
@@ -343,7 +362,7 @@ def phase_profile(build_all, cfg, data, batches, name):
     busy_us = sum(x[1] for x in dev)
     ours = [x for x in dev if "land_max_kernel" in x[0]
             or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
-            or "rowsum_add_kernel" in x[0]]
+            or "rowsum_add_kernel" in x[0] or "a2a_send_kernel" in x[0]]
     os.makedirs(OUT_DIR, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(avgs[0], "self_device_time_total")
@@ -542,6 +561,223 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+A2A_IPC = dict(n=4, chunk=13312, dim=16, epochs=3, seed=5)
+
+
+def a2a_inputs(n, chunk, dim, seed, rank):
+    """Rank `rank`'s seeded all-to-all inputs: ids [n, chunk] int32 and
+    rows [n, chunk, dim] f32."""
+    rng = np.random.default_rng([seed, rank])
+    ids = rng.integers(0, 2**31 - 1, (n, chunk), dtype=np.int64)
+    return (torch.from_numpy(ids.astype(np.int32)),
+            torch.from_numpy(rng.standard_normal((n, chunk, dim),
+                                                 dtype=np.float32)))
+
+
+def a2a_ipc_rank(rank, store, out_dir):
+    """One of the 4 processes of the one-card K5 check: a gloo group for
+    the IPC handles, card 0 for the data; writes its verdict as JSON."""
+    from cafe_tpu_torch.kernels import a2a
+    from cafe_tpu_torch.parallel import Mesh
+    cfg = A2A_IPC
+    n = cfg["n"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=n)
+    mesh = Mesh(size=n, rank=rank, device=torch.device("cuda", 0),
+                group=dist.new_group(list(range(n)), backend="gloo"))
+    equal = []
+    for e in range(cfg["epochs"]):
+        seed = cfg["seed"] + e
+        ins = [a2a_inputs(n, cfg["chunk"], cfg["dim"], seed, s)
+               for s in range(n)]
+        for leg in (0, 1):
+            got = a2a.all_to_all(ins[rank][leg].cuda(), mesh).cpu()
+            want = torch.stack([ins[s][leg][rank] for s in range(n)])
+            equal.append(bool(torch.equal(got, want)))
+    torch.cuda.synchronize()
+    launches = a2a.KERNEL.launches
+    mesh.close()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "equal": equal, "launches": launches}, f)
+
+
+def phase_a2a(a2a, mesh):
+    """K5 at n = 1 (headline exchange shapes) and across 4 processes on
+    the one card."""
+    gen = torch.Generator().manual_seed(4)
+    m = 53248
+    legs = {"ids": torch.randint(0, 2**31 - 1, (1, m), dtype=torch.int32,
+                                 generator=gen).cuda(),
+            "rows": torch.randn((1, m, 16), generator=gen).cuda()}
+    rec = {"n1": {}}
+    for name, x in legs.items():
+        got = a2a.all_to_all(x, mesh)
+        want = a2a.all_to_all_plain(x, mesh)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, x)):
+            raise AssertionError(f"K5 {name} leg differs from its plain "
+                                 f"version at n = 1")
+        out = torch.empty_like(x)
+        nbytes = x.numel() * x.element_size()
+        bms, by = bound_ms(2 * nbytes, 0)
+        rec["n1"][name] = {
+            "shape": list(x.shape), "bytes": nbytes, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: a2a.all_to_all(x, mesh)),
+            "host_ms": host_ms(lambda: a2a.all_to_all(x, mesh)),
+            "plain_ms": time_ms(lambda: a2a.all_to_all_plain(x, mesh)),
+            "library_ms": time_ms(lambda: out.copy_(x)),
+            "bound_ms": bms, "bound_by": by}
+
+    # 4 processes on card 0, CUDA IPC between them, 3 calls of each leg
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_a2a_",
+                            dir=os.path.join(here, "build"))
+    ctx = multiprocessing.get_context("spawn")
+    n = A2A_IPC["n"]
+    procs = [ctx.Process(target=a2a_ipc_rank,
+                         args=(r, os.path.join(root, "store"), root))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    verdicts = []
+    for r in range(n):
+        path = os.path.join(root, f"rank{r}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"K5 IPC check: rank {r} wrote no result "
+                                 f"(exit codes {[p.exitcode for p in procs]})")
+        with open(path) as f:
+            verdicts.append(json.load(f))
+    shutil.rmtree(root, ignore_errors=True)
+    want_launches = 2 * A2A_IPC["epochs"]
+    if not all(all(v["equal"]) and v["launches"] == want_launches
+               for v in verdicts):
+        raise AssertionError(f"K5 across 4 processes on one card: "
+                             f"{verdicts}")
+    rec["ipc_one_card"] = {
+        **A2A_IPC, "bit_equal_every_rank_every_call": True,
+        "launches_per_rank": want_launches,
+        "wall_s": time.perf_counter() - t0,
+        "timed": False,
+        "why_not_timed": "processes sharing one card without MPS run "
+                         "time-sliced, not concurrently: a correctness "
+                         "check of the IPC writes and flags only"}
+    return rec
+
+
+def phase_sharded_parity(build_all, from_reference, to_numpy, Config, data,
+                         batches_cpu, batches_gpu, mesh_gpu, mesh_cpu):
+    """3 frequency-score steps from one state on the card in each
+    exchange mode and on the CPU (gloo, pallas = K5's plain version):
+    sketch, routing and promotions equal everywhere; tables, params and
+    loss within the bf16-tower bound of phase_parity."""
+    def cfg(mode):
+        return headline_cfg(Config, cafe_use_freq=True,
+                            cafe_sketch_threshold=2.0, mesh_shape=1,
+                            shard_embeddings=True, shard_exchange=mode)
+    _, _, start, _, _ = build_all(cfg("pallas"), data, mesh=mesh_cpu)
+    start = to_numpy(start)          # n = 1: the rank's state is global
+    runs = {}
+    for name, mesh, batches in (("pallas", mesh_gpu, batches_gpu),
+                                ("explicit", mesh_gpu, batches_gpu),
+                                ("a2a", mesh_gpu, batches_gpu),
+                                ("pallas_cpu", mesh_cpu, batches_cpu)):
+        mode = name.split("_")[0]
+        _, embed, _, step, _ = build_all(cfg(mode), data, mesh=mesh)
+        state = from_reference(start, mesh.device)
+        promos = []
+        for i in range(3):
+            state, m = step(state, *batches[i])
+            promos.append(int(m["cafe_promotions"]))
+        _, aux = embed.gather(state.embed, batches[0][1])
+        runs[name] = (to_numpy(state), float(m["loss"]), promos,
+                      aux["part0"][1].cpu())
+    ref_state, ref_loss, ref_promos, ref_rows = runs["pallas"]
+    rec = {"tolerance": 1e-3, "max_abs_diff": {}, "promotions": ref_promos}
+    for name, (st, loss, promos, rows) in runs.items():
+        for f in ("val", "cnt", "dic", "free", "free_top", "tot"):
+            if not np.array_equal(st["embed"]["part0"]["sketch"][f],
+                                  ref_state["embed"]["part0"]["sketch"][f]):
+                raise AssertionError(f"sharded {name}: sketch {f} differs "
+                                     f"from the card's pallas run")
+        if promos != ref_promos or not torch.equal(rows, ref_rows):
+            raise AssertionError(f"sharded {name}: promotions {promos} or "
+                                 f"routing differ from the card's pallas "
+                                 f"run {ref_promos}")
+        diffs = {"loss": abs(loss - ref_loss),
+                 "table": float(np.max(np.abs(
+                     st["embed"]["part0"]["table"]
+                     - ref_state["embed"]["part0"]["table"])))}
+        for tower in ("bot", "top"):
+            for j, (a, b) in enumerate(zip(st["params"][tower],
+                                           ref_state["params"][tower])):
+                diffs[f"{tower}{j}"] = float(max(
+                    np.max(np.abs(a[k] - b[k])) for k in ("w", "b")))
+        rec["max_abs_diff"][name] = diffs
+        if not max(diffs.values()) <= rec["tolerance"]:
+            raise AssertionError(f"sharded {name} differs from the card's "
+                                 f"pallas run: {diffs}")
+    if sum(ref_promos) == 0:
+        raise AssertionError("sharded parity: no id promoted")
+    rec.update(sketch_equal=True, routing_equal=True,
+               modes=list(runs))
+    return rec
+
+
+def phase_cli_sharded(main_fn, make_criteo_arrays, kernels):
+    """main_torch.main on the memmap with the sharded pallas exchange at
+    world size 1: 48 train steps, 2 evals of 8 batches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_clis_",
+                            dir=os.path.join(here, "build"))
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res, out = run_cli(main_fn, CLI_FLAGS + [
+            "--data_path", root, "--mesh_shape", "1",
+            "--shard_embeddings", "true", "--shard_exchange", "pallas",
+            "--print_freq", "8", "--test_freq", "24",
+            "--tensor_board_filename", os.path.join(root, "tb")],
+            "cli_sharded.txt")
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        trained = [ln.split() for ln in out
+                   if ln.startswith("Finished training it ")]
+        its = [int(w[3].split("/")[0]) for w in trained]
+        losses = [float(w[-1]) for w in trained]
+        evals = [ln for ln in out if ln.startswith(" accuracy")]
+        if its[-1] != 48 or not all(np.isfinite(losses)) or len(evals) != 2:
+            raise AssertionError(f"cli_sharded: its {its}, losses {losses}, "
+                                 f"{len(evals)} eval lines")
+        # 4 K5 calls a train step (fetch ids + rows, apply ids + grads),
+        # 2 an eval batch (fetch ids + rows)
+        want = {"land_max": 48, "rowsum": 48, "a2a": 4 * 48 + 2 * 2 * 8}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"cli_sharded: launches {launches}, "
+                                 f"expected {want}")
+        return {"its": len(its), "wall_s": wall,
+                "ms_per_it_median": float(np.median(
+                    [float(w[7]) for w in trained])),
+                "loss_first": losses[0], "loss_last": losses[-1],
+                "eval_lines": evals, "metrics": res["metrics"],
+                "launches": launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -553,8 +789,9 @@ def main() -> int:
     from cafe_tpu_torch.config import Config
     import main_torch
     from cafe_tpu_torch.data import make_criteo_arrays, make_criteo_batches
-    from cafe_tpu_torch.kernels import (KERNELS, build, land, rowsum,
+    from cafe_tpu_torch.kernels import (KERNELS, a2a, build, land, rowsum,
                                         scatter_add)
+    from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from cafe_tpu_torch.train import build_all
     from cafe_tpu_torch.utils.timing import fence
 
@@ -633,6 +870,37 @@ def main() -> int:
     by_path["cli_throughput"] = cli["run_c"]["launches"]
     emit({"phase": "cli", **cli})
 
+    # ---- the sharded slice at world size 1: NCCL on the card, and a
+    # gloo group of 1 for the CPU side of the parity
+    maybe_init_distributed(Config(), "cuda")
+    mesh_gpu = make_mesh(1, device="cuda")
+    mesh_cpu = make_mesh(1, device="cpu")
+    kern["a2a"] = phase_a2a(a2a, mesh_gpu)
+    emit({"phase": "kernels_a2a", **kern["a2a"]})
+
+    cfg_sh = headline_cfg(Config, mesh_shape=1, shard_embeddings=True,
+                          shard_exchange="pallas")
+    state, _, shd = drive(build_all, fence, cfg_sh, data, batches, KERNELS,
+                          HEADLINE_STEPS, WINDOWS, mesh=mesh_gpu)
+    del state
+    check_launches("sharded", shd, {"land_max": shd["steps"],
+                                    "a2a": 4 * shd["steps"]})
+    shd["headline_ms_per_step_same_call"] = head["ms_per_step"]
+    shd["vs_headline"] = shd["ms_per_step"] / head["ms_per_step"]
+    emit({"phase": "sharded", **shd})
+    emit({"phase": "sharded_parity", **phase_sharded_parity(
+        build_all, from_reference, to_numpy, Config, data, batches_cpu,
+        batches, mesh_gpu, mesh_cpu)})
+    emit({"phase": "profile_sharded", **phase_profile(
+        build_all, cfg_sh, data, batches, "sharded", mesh=mesh_gpu)})
+
+    clis = phase_cli_sharded(main_torch.main, make_criteo_arrays, KERNELS)
+    by_path["cli_sharded"] = clis["launches"]
+    emit({"phase": "cli_sharded", **clis})
+    mesh_gpu.close()
+    mesh_cpu.close()
+    dist.destroy_process_group()
+
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",
                             kern["land_max"][0]),
@@ -641,7 +909,10 @@ def main() -> int:
                                kern["scatter_add"]),
                "rowsum": ("cafe_tpu_torch/kernels/rowsum.cu",
                           "cafe_tpu/ops/pallas_rowsum.py:100",
-                          kern["rowsum"]["routed"])}
+                          kern["rowsum"]["routed"]),
+               "a2a": ("cafe_tpu_torch/kernels/a2a.cu",
+                       "cafe_tpu/ops/pallas_a2a.py:126",
+                       kern["a2a"]["n1"]["rows"])}
     lines = []
     for name, (src, replaces, rec) in sources.items():
         launches = {path: counts[name] for path, counts in by_path.items()}

@@ -347,8 +347,10 @@ def test_inference_throughput_cycles_small_test_set():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh_shape", "2"], ["--shard_embeddings", "true"],
-    ["--dist_num_processes", "2"], ["--quantize_emb_bits", "8"],
+    ["--mesh_shape", "2", "--mesh_inner", "2"],
+    ["--shard_embeddings", "true", "--shard_exchange", "auto"],
+    ["--dist_num_processes", "2", "--shard_unique_frac", "0.25"],
+    ["--quantize_emb_bits", "8"],
     ["--compress_method", "ae"], ["--compress_method", "qr"],
     ["--model", "wdl"], ["--cafe_plus", "true"]])
 def test_missing_configurations_raise(flag):

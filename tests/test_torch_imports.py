@@ -41,9 +41,14 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
     assert out.stdout.strip() == "ok"
 
 
+# files the card's machine (no jax) runs besides the package
+JAX_FREE = ["chip_smoke.py", "main_torch.py", "tests/torch_dist_worker.py",
+            "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
+            "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py"]
+
+
 @pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "main_torch.py"]))
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")] + JAX_FREE))
 def test_no_import_names_jax_or_cafe_tpu(path):
     tree = ast.parse((REPO / path).read_text())
     for node in ast.walk(tree):
@@ -189,3 +194,33 @@ def test_logger_copy_writes_the_same_lines(tmp_path):
             lines[name] = [{k: v for k, v in json.loads(ln).items()
                             if k != "ts"} for ln in f]
     assert lines["t"] == lines["j"] and len(lines["t"]) == 3
+
+
+COLLECTIVES = {"all_reduce", "all_gather", "all_gather_into_tensor",
+               "all_gather_single", "reduce_scatter_tensor",
+               "reduce_scatter_single", "all_to_all_single", "broadcast",
+               "barrier", "all_gather_object"}
+# exchange.py's names for the collectives it picks by torch version
+ALIASES = {"_all_gather_single", "_reduce_scatter_single"}
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in PKG.rglob("*.py")))
+def test_collectives_name_the_mesh_group(path):
+    """Every collective of the port names its process group (the mesh's),
+    never the default group implicitly."""
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        fn = node.func
+        if isinstance(fn, ast.Attribute):
+            is_dist = getattr(fn.value, "id", None) == "dist"
+            hit = is_dist and fn.attr in COLLECTIVES
+            name = fn.attr
+        else:
+            name = getattr(fn, "id", None)
+            hit = name in ALIASES
+        if hit:
+            assert any(k.arg == "group" for k in node.keywords), \
+                f"{path}:{node.lineno} {name} without group="

@@ -1,5 +1,6 @@
 """Port kernels (kernels/land.py K1, kernels/scatter_add.py K2,
-kernels/rowsum.py K3) against numpy oracles, with no JAX in the process.
+kernels/rowsum.py K3, kernels/a2a.py K5) against numpy oracles, with no
+JAX in the process.
 
 The plain versions run here on the CPU. The CUDA kernels have no CPU
 mode: the `cuda` tests skip without a card and run on one with
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from cafe_tpu_torch.kernels import land, rowsum, scatter_add
+import torch_dist_worker as w
+from cafe_tpu_torch.kernels import a2a, land, rowsum, scatter_add
 
 torch.set_num_threads(1)
 
@@ -152,3 +154,44 @@ def test_rowsum_kernel_on_card(card, n, d, b):
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   _oracle_add(table, ids, upd))
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_a2a_kernel_n1_on_card(card):
+    """K5 at n = 1 is the local copy: bit-equal to its input (the plain
+    version at n = 1), one launch a call, for the exchange's int32 ids,
+    f32 rows and a payload whose size is no multiple of 16 bytes."""
+    from cafe_tpu_torch.parallel import Mesh
+    mesh = Mesh(size=1, rank=0, device=card, group=None)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    cases = [torch.randint(0, 2**31 - 1, (1, 53248), dtype=torch.int32,
+                           generator=gen),
+             torch.randn((1, 53248, 16), generator=gen),
+             torch.randint(-128, 127, (1, 1001), dtype=torch.int8,
+                           generator=gen)]
+    before = a2a.KERNEL.launches
+    for x in cases:
+        x = x.to(card)
+        got = a2a.all_to_all(x, mesh)
+        torch.cuda.synchronize()
+        assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
+    assert a2a.KERNEL.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_a2a_kernel_processes_one_card(card, tmp_path):
+    """K5 between 4 processes on one card through CUDA IPC (the mechanism
+    that rides NVLink between cards), over 3 successive calls of each
+    leg, so a rank that runs ahead into the next call on the same
+    workspace would show: every rank's output bit-equal to what the
+    seeded inputs of all ranks say it must receive."""
+    n, chunk, dim, epochs, seed = 4, 13312, 16, 3, 5
+    res = w.run_ranks(w.kernel_a2a_epochs, n, tmp_path, chunk, dim, epochs,
+                      seed, device="cuda:0")
+    for rank, r in enumerate(res):
+        assert r["launches"] == 2 * epochs
+        for e, (ids, rows) in enumerate(r["outs"]):
+            want_ids, want_rows = w.expected_a2a(n, chunk, dim, seed + e,
+                                                 rank)
+            np.testing.assert_array_equal(ids, want_ids)
+            np.testing.assert_array_equal(rows, want_rows)
