@@ -15,7 +15,9 @@ Contract per part (as in the JAX package):
 
 Tables are initialised with numpy exactly as the JAX package does (same
 generator, same draws), so the two packages start from bit-equal tables.
-`apply_grads` updates tables IN PLACE (the JAX package donates them).
+`apply_grads` updates tables IN PLACE (the JAX package donates them);
+a step built with donate_state False hands it a clone of the caller's
+state (train/step.py), so only the clone changes.
 
 Under a mesh (EmbeddingLayer.set_mesh) a part that opts in (enable_mesh)
 holds this rank's row shard and runs the explicit exchange

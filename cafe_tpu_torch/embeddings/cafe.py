@@ -16,7 +16,8 @@ the backward one scatter:
 
 State: {"table": f32 [total_rows, D], "sketch": the sketch dict,
 "tick": int32 []} — the JAX part's state with the sketch's NamedTuple
-as a dict. The table is updated IN PLACE (the JAX package donates it).
+as a dict. The table is updated IN PLACE (the JAX package donates it;
+under donate_state False the step passes a clone, train/step.py).
 
 Under a mesh (enable_mesh) the part holds this rank's row shard and a
 SHARD-LOCAL sketch (sketch/sharded.py): ids route to shards by

@@ -6,8 +6,14 @@ Primitives the sketch insert lands its writes with:
   keys outside [0, n) are dropped (jax.ops.segment_* semantics).
 * `land_max(enc, sorted_keys, n, impl)` — the insert's one B-lane landing:
   'auto' / 'pallas' go to kernel K1 (kernels/land.py: the CUDA kernel for
-  CUDA tensors, its plain version for CPU tensors), 'segmax' is plain
-  torch. All arms return the same [n, C] int32, -1 where no lane writes.
+  CUDA tensors, its plain version for CPU tensors); 'segmax', 'segsum1'
+  and 'scan' are the JAX package's plain arms in torch. All arms return
+  the same [n, C] int32, -1 where no lane writes (the A/B of
+  tools/ab_insert_land_torch.py).
+* `use_scatter_landing(impl, n)` — whether the insert skips the landing
+  and scatters its writes (hotsketch.sketch_insert, land_impl 'scatter').
+* `set_rows_max(dest, payload_enc, sorted_keys)` — scatter-set for writes
+  with at most one non-negative contributor per destination element.
 * `compact_mask(mask, k)` — lane positions of the first k True lanes.
 
 plus `apply_rows_pass(...)`: the Adagrad / Adam (and SGD) sparse apply
@@ -61,26 +67,68 @@ def seg_max(vals: torch.Tensor, keys: torch.Tensor,
     return out[:n_rows]
 
 
+def use_scatter_landing(impl: str, n_rows: int) -> bool:
+    """Scatter landing mode of hotsketch.sketch_insert: update the [S, C]
+    cell arrays with per-touched-cell scatters instead of landing and
+    merging [S, C]-shaped intermediates. Bit-identical to the landing
+    path; 'auto' never selects it (the JAX package measured it slower on
+    its chip), so it stays a selectable arm for A/B. `n_rows` is unused,
+    as in the JAX package."""
+    return impl == "scatter"
+
+
 def land_max(enc: torch.Tensor, sorted_keys: torch.Tensor, n_rows: int,
              impl: str = "segmax") -> torch.Tensor:
-    """Segment-max landing for (-1)-encoded payloads: enc [B, C] int32
-    >= -1, sorted_keys [B] (outside [0, n_rows) dropped) -> [n_rows, C]
-    with -1 where no lane writes.
+    """Segment-max landing for (-1)-encoded single-writer payloads: enc
+    [B, C] int32 >= -1 (>= 0 on at most one lane per (segment, channel)),
+    sorted_keys [B] (outside [0, n_rows) dropped) -> [n_rows, C] with -1
+    where no lane writes. Interchangeable arms:
 
     * 'auto' / 'pallas' — kernel K1 (kernels/land.py). The JAX package
       capped its TPU kernel at MAX_ROWS / MAX_LANES (VMEM); the CUDA
-      kernel has no cap, so every sketch size lands through it.
-    * 'segmax' — plain torch seg_max, empty rows clamped to -1.
-    * 'segsum1', 'scan' — not ported yet (NotImplementedError).
+      kernel has no cap, so every sketch size lands through it. K1 is
+      exact for any number of writers.
+    * 'segmax' — seg_max, empty rows clamped to -1.
+    * 'segsum1' — seg_sum of enc + 1, minus 1: with one writer the sum is
+      its payload + 1, and 0 where no lane writes.
+    * 'scan' — a segmented inclusive cummax over the sorted lanes, then a
+      gather of each segment's end lane; the end lanes come from the
+      cumsum of a 1-channel count. torch has no associative scan, so the
+      cummax runs on the composite int64 key << 32 | (enc + 2^31): the
+      keys are sorted, so a later segment's composites exceed every
+      earlier one's and the running max restarts at each segment. No
+      host read.
     """
     if impl in ("auto", "pallas"):
         return _land.land_max(enc, sorted_keys.to(torch.int32), n_rows)
     if impl == "segmax":
         return seg_max(enc, sorted_keys, n_rows).clamp_min(-1)
-    if impl in ("segsum1", "scan"):
-        raise NotImplementedError(
-            f"land_max impl {impl!r} is not ported yet (use auto/segmax)")
-    raise ValueError(f"unknown land_max impl {impl!r}")
+    if impl == "segsum1":
+        return seg_sum(enc + 1, sorted_keys, n_rows) - 1
+    if impl != "scan":
+        raise ValueError(f"unknown land_max impl {impl!r}")
+    # [C, B]: torch's cummax runs the innermost dim in parallel; along
+    # dim 0 of [B, C] it walks the B lanes one by one (11.5 ms an insert
+    # at 53,248 lanes on an H100, tools/ab_insert_land_torch.py)
+    comp = (sorted_keys.long()[None, :] << 32) | (enc.t().long() + (1 << 31))
+    scanned = ((torch.cummax(comp, 1).values & 0xFFFFFFFF)
+               - (1 << 31)).to(torch.int32).t()
+    cnt = seg_sum((sorted_keys < n_rows).to(torch.int32), sorted_keys,
+                  n_rows)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int32) - 1
+    mx = scanned[ends.clamp(0, enc.shape[0] - 1).long()]
+    return torch.where((cnt > 0)[:, None], mx, -1)
+
+
+def set_rows_max(dest: torch.Tensor, payload_enc: torch.Tensor,
+                 sorted_keys: torch.Tensor) -> torch.Tensor:
+    """dest [R, C] with dest[k[i], c] = payload for writes with AT MOST
+    ONE non-negative contributor per destination element: payload_enc
+    [B, C] carries the payload (>= 0) on contributor lanes and -1
+    elsewhere, and the segment max recovers exactly the contributor's
+    value. Returns a new tensor."""
+    mx = seg_max(payload_enc, sorted_keys, dest.shape[0])
+    return torch.where(mx >= 0, mx.to(dest.dtype), dest)
 
 
 def compact_mask(mask: torch.Tensor, k: int

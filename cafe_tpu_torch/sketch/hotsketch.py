@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.sorted_update import land_max, seg_max
+from ..ops.sorted_update import land_max, seg_max, use_scatter_landing
 
 # Sentinel for padded/invalid lanes; sorts to the end of any real id range.
 INVALID_ID = np.int32(2**31 - 1)
@@ -53,7 +53,8 @@ class HotSketchConfig(NamedTuple):
     cells: int = 4        # C cells per bucket
     insert_rounds: int = 2  # conflict-resolution rounds for new-id placement
     # landing implementation (ops/sorted_update.land_max): 'auto' lands
-    # through kernel K1 at every sketch size
+    # through kernel K1 at every sketch size; 'scatter' skips the landing
+    # and scatters the writes (use_scatter_landing)
     land_impl: str = "auto"
     # exclusive upper bound on inserted ids; below 2^27 the landing packs
     # (cell, id) into one channel (C+1 channels instead of 2C)
@@ -150,6 +151,16 @@ def _set_drop(dst: torch.Tensor, idx: torch.Tensor,
     return out[:n]
 
 
+def _set_cells(dst: torch.Tensor, rows: torch.Tensor, cells: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    """dst [R, C] with dst[rows[i], cells[i]] = vals[i] where rows[i] is in
+    [0, R); lanes with rows[i] == R are dropped. Writes in range must hit
+    distinct elements. Returns a new tensor."""
+    r, c = dst.shape
+    flat = rows.long() * c + cells.long()
+    return _set_drop(dst.reshape(-1), flat, vals).view(r, c)
+
+
 def push_slots(free, free_top, slots, mask):
     """Push slots[mask] onto the free stack."""
     pos = free_top + _cumsum32(mask) - 1
@@ -209,10 +220,10 @@ def sketch_insert(cfg: HotSketchConfig, state: SketchState,
     Padded lanes carry id == INVALID_ID; scores must be non-negative.
     Every (bucket, cell) has at most one writer per round, and all round-1
     writes land through one `land_max` over the sorted lanes (kernel K1
-    under land_impl 'auto')."""
-    if cfg.land_impl == "scatter":
-        raise NotImplementedError(
-            "land_impl='scatter' is not ported yet (use auto/segmax)")
+    under land_impl 'auto'), or, under land_impl 'scatter', go straight
+    into copies of the [Sp, C] arrays: cnt by one row scatter-max, val and
+    dic by element sets whose dropped lanes write a spare element that is
+    cut off (torch has no mode='drop'). Both give the same state."""
     dev = ids.device
     b = ids.shape[0]
     s, c = cfg.buckets, cfg.cells
@@ -306,7 +317,19 @@ def sketch_insert(cfg: HotSketchConfig, state: SketchState,
     mask_w = (m & matched[:, None]) | mask_p
     cnt_new = torch.where(matched, bc_m + gtot, place_cnt)
     cnt_bits = cnt_new.to(torch.float32).view(torch.int32)
-    if cfg.max_id <= (1 << 27) and c <= 16:
+    scatter_mode = use_scatter_landing(cfg.land_impl, s)
+    if scatter_mode:
+        # cnt: a row scatter-max, where every written cell's new count is
+        # >= its old one (matched cells add gtot >= 0, placements inherit
+        # the victim's count) and the -1 payload of unwritten cells loses
+        # to every count (counts are >= 0); invalid lanes max into the
+        # spare row. val: <= 1 placed lane per bucket, an element set.
+        rows = torch.where(ok, h_s, sp).long()[:, None].expand(-1, c)
+        cnt = torch.cat([cnt, cnt[:1]]).scatter_reduce_(
+            0, rows, torch.where(mask_w, cnt_new[:, None], -1.0), "amax",
+            include_self=True)[:sp]
+        val = _set_cells(val, torch.where(placed, h_s, sp), use_cell, id_s)
+    elif cfg.max_id <= (1 << 27) and c <= 16:
         # packed landing: (target cell, id) in ONE channel. The CUDA
         # kernel lands raw payloads (no q = enc + 1 encoding), so any
         # cell < 16 packs without overflow.
@@ -345,10 +368,14 @@ def sketch_insert(cfg: HotSketchConfig, state: SketchState,
     r_c = rp[:, 3]
     slot = torch.where(
         presp, free[(ft0 - r_c).clamp(0, free.shape[0] - 1).long()], 0)
-    dic_enc = torch.where(presp[:, None] & (p_cell[:, None] == cells),
-                          slot[:, None], -1)
-    dmx = seg_max(dic_enc, p_h, s)
-    dic_rows = torch.where(dmx >= 0, dmx, dic[:s])
+    if scatter_mode:
+        # one (bucket, cell) per promotion: set the slots directly
+        dic = _set_cells(dic, torch.where(presp, p_h, sp), p_cell, slot)
+    else:
+        dic_enc = torch.where(presp[:, None] & (p_cell[:, None] == cells),
+                              slot[:, None], -1)
+        dmx = seg_max(dic_enc, p_h, s)
+        dic_rows = torch.where(dmx >= 0, dmx, dic[:s])
 
     # ---- round 2: losing new-id groups retry against the round-1 arrays
     if cfg.insert_rounds > 1:
@@ -362,27 +389,37 @@ def sketch_insert(cfg: HotSketchConfig, state: SketchState,
         l_hsafe = l_h.clamp_max(s - 1).long()
         l_id = rl[:, 0]
         l_g = rl[:, 4].view(torch.float32)
-        bc2 = cnt_rows[l_hsafe]
-        bd2 = dic_rows[l_hsafe]
+        bc2 = (cnt if scatter_mode else cnt_rows)[l_hsafe]
+        bd2 = (dic if scatter_mode else dic_rows)[l_hsafe]
         prev_l_bucket = _prev(_cummax(torch.where(l_valid, l_h, -1)), -1)
         winner2 = l_valid & (prev_l_bucket != l_h)
         use2, placeable2, bc_u2 = _place(bc2, bd2,
                                          torch.zeros_like(bc2, dtype=bool))
         placed2 = winner2 & placeable2
-        cb2 = (bc_u2 + l_g).to(torch.float32).view(torch.int32)
-        mask_p2 = placed2[:, None] & (use2[:, None] == cells)
-        enc2 = torch.cat([torch.where(mask_p2, l_id[:, None], -1),
-                          torch.where(mask_p2, cb2[:, None], -1)], dim=1)
-        mx2 = seg_max(enc2, l_h, s)
-        val_rows = torch.where(mx2[:, :c] >= 0, mx2[:, :c], val_rows)
-        cnt_rows = torch.where(mx2[:, c:] >= 0,
-                               mx2[:, c:].contiguous().view(torch.float32),
-                               cnt_rows)
+        cnt2 = (bc_u2 + l_g).to(torch.float32)
+        if scatter_mode:
+            h2 = torch.where(placed2, l_h, sp)
+            val = _set_cells(val, h2, use2, l_id)
+            cnt = _set_cells(cnt, h2, use2, cnt2)
+        else:
+            cb2 = cnt2.view(torch.int32)
+            mask_p2 = placed2[:, None] & (use2[:, None] == cells)
+            enc2 = torch.cat([torch.where(mask_p2, l_id[:, None], -1),
+                              torch.where(mask_p2, cb2[:, None], -1)], dim=1)
+            mx2 = seg_max(enc2, l_h, s)
+            val_rows = torch.where(mx2[:, :c] >= 0, mx2[:, :c], val_rows)
+            cnt_rows = torch.where(
+                mx2[:, c:] >= 0, mx2[:, c:].contiguous().view(torch.float32),
+                cnt_rows)
 
+    if not scatter_mode:
+        val = torch.cat([val_rows, val[s:]])
+        cnt = torch.cat([cnt_rows, cnt[s:]])
+        dic = torch.cat([dic_rows, dic[s:]])
     new_state = {
-        "val": torch.cat([val_rows, val[s:]]),
-        "cnt": torch.cat([cnt_rows, cnt[s:]]),
-        "dic": torch.cat([dic_rows, dic[s:]]),
+        "val": val,
+        "cnt": cnt,
+        "dic": dic,
         "free": free,
         "free_top": free_top,
         "tot": tot + scores.sum(),

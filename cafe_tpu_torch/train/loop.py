@@ -334,7 +334,8 @@ def _run(cfg: Config, t_build: float, device, mesh) -> Dict:
     # in B units
     k_disp = max(cfg.steps_per_dispatch, 1)
     if k_disp > 1:
-        train_step = build_multi_step(train_step, k_disp)
+        train_step = build_multi_step(train_step, k_disp,
+                                      donate=cfg.donate_state)
     fetch = cfg.mini_batch_size * k_disp
 
     best_acc = 0.0

@@ -9,9 +9,13 @@ requires_grad, their gradients come back from one autograd.grad call, and
 each embedding part turns row gradients into in-place scatter updates
 (embeddings/base.py), so every update stays O(batch).
 
-The step updates the state IN PLACE (dense params and tables, where the
-JAX package donates them) and returns a TrainState holding the new
-sketch, tick and step; callers must not reuse the old TrainState.
+With cfg.donate_state True (the default) the step updates the state IN
+PLACE (dense params and tables, where the JAX package donates them) and
+returns a TrainState holding the new sketch, tick and step; callers must
+not reuse the old TrainState. With donate_state False the step first
+clones every tensor of the incoming state and updates the clones, so the
+caller's TrainState stays valid, as the JAX package's un-donated call
+leaves it (at the cost of one copy of the whole state a call).
 
 Under a mesh each rank runs the step on its contiguous slice of the
 global batch (the JAX package re-jits the same function with batch
@@ -80,6 +84,31 @@ def init_dense_opt(params, optimizer: str):
     return None
 
 
+def clone_state(tree):
+    """A copy of a state tree: every tensor cloned (detached), containers
+    rebuilt with their own types, other leaves shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_state(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_state(v) for v in tree)
+    return tree
+
+
+def _undonated(step_inplace):
+    """`step_inplace` behind one clone of the incoming state; the in-place
+    step stays reachable as `__wrapped__` (build_multi_step clones once per
+    dispatch, not once per sub-step)."""
+    def step(state, *args):
+        return step_inplace(clone_state(state), *args)
+
+    step.__wrapped__ = step_inplace
+    return step
+
+
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -133,7 +162,8 @@ def _dense_update(params, grads, opt, lr, kind):
 def build_train_step(model, embed_layer, cfg, mesh=None):
     """The step on one device, or with `mesh` this rank's share of the
     mesh's step: `ids` etc. are this rank's slice and `valid` counts the
-    valid rows of the GLOBAL batch."""
+    valid rows of the GLOBAL batch. In place unless cfg.donate_state is
+    False (module docstring)."""
     base_lr = cfg.learning_rate
     use_sched = cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0
     n, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
@@ -179,27 +209,35 @@ def build_train_step(model, embed_layer, cfg, mesh=None):
         return TrainState(state.params, embed, state.embed_dense, opt,
                           state.step + 1), metrics
 
-    return train_step
+    return train_step if cfg.donate_state else _undonated(train_step)
 
 
 def _weighted(name: str) -> bool:
     return name == "loss" or name.endswith("_frac")
 
 
-def build_multi_step(train_step, k: int):
+def build_multi_step(train_step, k: int, donate: bool = False):
     """k sequential train steps per call over a flat [k*B] batch: sub-batch
     i takes rows [i*B, (i+1)*B) and valid_i = clip(valid - i*B, 0, B).
     Metrics come back as one step's: weighted means (by each sub-batch's
-    weight) for loss and *_frac, sums for the counters."""
+    weight) for loss and *_frac, sums for the counters.
+
+    The sub-steps run the in-place step (`train_step.__wrapped__` when the
+    step was built un-donated). `donate` False clones the incoming state
+    once per call, so the caller's state stays valid; True updates it in
+    place, as the JAX package's donate_argnums does."""
+    inner = getattr(train_step, "__wrapped__", train_step)
 
     def multi_step(state: TrainState, dense_x, ids, labels, valid: int):
+        if not donate:
+            state = clone_state(state)
         b = ids.shape[0] // k
         agg = None
         for i in range(k):
             sl = slice(i * b, (i + 1) * b)
             v_i = min(max(valid - i * b, 0), b)
             dx = None if dense_x is None else dense_x[sl]
-            state, m = train_step(state, dx, ids[sl], labels[sl], v_i)
+            state, m = inner(state, dx, ids[sl], labels[sl], v_i)
             m = {name: v * m["weight"] if _weighted(name) else v
                  for name, v in m.items()}
             agg = m if agg is None else {name: agg[name] + v

@@ -50,7 +50,24 @@ Phases, each printing one JSON line and raising on failure:
    5 traced steps;
 12. cli_sharded: main_torch.main on the memmap with --mesh_shape 1
    --shard_embeddings true --shard_exchange pallas: 48 steps and 2 evals,
-   with the launch counts checked.
+   with the launch counts checked;
+13. kernels_gather (run right after kernels_rowsum): K4 against its plain
+   version, bit for bit, at decision 4's shape (53,248 uniform ids into a
+   4,194,304 x 128 f32 table), at the headline table (27,136 x 16) with
+   the ids the trained CafePart routes a batch to, in bf16, on two
+   unaligned views (4-byte words, bytes) and at B = tile; timed beside
+   the plain version, index_select and the memory bound;
+14. ab_decisions: the four decisions of tools/ab_decisions_torch.py in
+   this process at full width, 3 windows x 20 steps: four report lines,
+   K4 launched 10 + 3 x 20 times in decision 4, K1 once a step in
+   decisions 1-3 and K2 once a step in decision 2; before them, the
+   donate_off arm's multi-step must leave its input state unchanged;
+15. ab_insert_land: tools/ab_insert_land_torch.py (level 1, the equal-state
+   check of all four landing arms, level 2), 3 windows x 20 steps; only
+   the pallas arm launches K1, once an insert;
+16. roofline: cafe_tpu_torch.tools.roofline at its default shapes: K2
+   launched by optimizer_apply, every frac_of_peak <= 1.05.
+The tools' own prints go to chiprun_out/tools_*.txt.
 
 Then the kernels line (every kernel's launches on the main path, error,
 times and bound) and, last, the device line. Exits non-zero without a
@@ -454,6 +471,69 @@ def phase_rowsum(rowsum, embed, state, batches):
     return cases
 
 
+def gather_case(gather, table, ids, tile=256):
+    """K4 against its plain version on one input, bit for bit, timed as
+    phase 2. Raises on a disagreement."""
+    b = ids.shape[0]
+    row_bytes = table.shape[1] * table.element_size()
+    before = gather.KERNEL.launches
+    got = gather.gather(table, ids, tile)
+    want = gather.gather_plain(table, ids, tile)
+    torch.cuda.synchronize()
+    if gather.KERNEL.launches != before + 1:
+        raise AssertionError("K4: the wrapper did not launch the kernel")
+    if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+        raise AssertionError(f"K4 differs from its plain version at "
+                             f"{tuple(table.shape)} {table.dtype}")
+    del got, want
+    bms, by = bound_ms(2 * b * row_bytes + b * 4, 0)
+    # the copy unit the wrapper picks (its output, a fresh allocation, is
+    # 256-byte aligned)
+    vec = gather.vector_bytes(row_bytes, table.stride(0)
+                              * table.element_size(), table.data_ptr(), 256)
+    return {"shape": [*table.shape, b], "dtype": str(table.dtype),
+            "tile": tile, "vector_bytes": vec,
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: gather.gather(table, ids, tile)),
+            "host_ms": host_ms(lambda: gather.gather(table, ids, tile)),
+            "plain_ms": time_ms(lambda: gather.gather_plain(table, ids,
+                                                            tile)),
+            "library_ms": time_ms(lambda: torch.index_select(table, 0, ids)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_gather(gather, embed, state, batches):
+    """K4 at decision 4's shape and at the headline table with its routed
+    ids (module docstring, phase 13)."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    big = torch.randn((1 << 22, 128), generator=gen, device="cuda")
+    uniform = torch.from_numpy(
+        rng.integers(0, 1 << 22, 53248).astype(np.int32)).cuda()
+    table = state.embed["part0"]["table"]
+    _, aux = embed.gather(state.embed, batches[0][1])
+    routed = aux["part0"][1].reshape(-1).to(torch.int32)
+    n = 1 << 18
+    some = torch.from_numpy(rng.integers(0, n, 53248).astype(np.int32)).cuda()
+    words = torch.randn((n, 129), generator=gen, device="cuda")[:, 1:]
+    halves = torch.randn((n, 65), generator=gen, device="cuda").to(
+        torch.bfloat16)[:, 1:]
+    cases = {"decision4": gather_case(gather, big, uniform),
+             "b_eq_tile": gather_case(gather, big, uniform[:256])}
+    del big
+    cases.update(
+        headline=gather_case(gather, table, routed),
+        headline_bf16=gather_case(gather, table.to(torch.bfloat16), routed),
+        view_words=gather_case(gather, words, some),
+        view_bytes=gather_case(gather, halves, some, tile=128))
+    widths = {k: v["vector_bytes"] for k, v in cases.items()}
+    if (widths["decision4"], widths["view_words"],
+            widths["view_bytes"]) != (16, 4, 1):
+        raise AssertionError(f"K4 cases miss a vector width: {widths}")
+    torch.cuda.empty_cache()
+    return cases
+
+
 def write_criteo_memmap(make_criteo_arrays, path, rows):
     """A Criteo-Kaggle-shaped dataset in the reference's binary format."""
     a = make_criteo_arrays(rows)
@@ -779,6 +859,135 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def load_tool(name):
+    """A root tool script (tools/<name>.py) as a module."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def tool_log(name):
+    """A tool's own prints, kept in chiprun_out/tools_<name>.txt."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"tools_{name}.txt"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        yield
+
+
+AB_WINDOWS, AB_STEPS = 3, 20
+
+
+def check_donate_off(build_all, build_multi_step, Config, data, batches,
+                     device="cuda"):
+    """The donate_off arm of decision 1: one 8-step dispatch from a state
+    leaves that state's tensors unchanged on the card."""
+    from cafe_tpu_torch.utils.timing import fence
+    cfg = headline_cfg(Config, donate_state=False)
+    _, _, state, step, _ = build_all(cfg, data, device=device)
+    multi = build_multi_step(step, 8, donate=False)
+    fused = tuple(torch.cat([b[j] for b in batches[:8]]) for j in range(3))
+    table0 = state.embed["part0"]["table"].clone()
+    cnt0 = state.embed["part0"]["sketch"]["cnt"].clone()
+    w0 = state.params["top"][0]["w"].clone()
+    new, _ = multi(state, *fused, 8 * 2048)
+    fence(new)
+    unchanged = (torch.equal(state.embed["part0"]["table"], table0)
+                 and torch.equal(state.embed["part0"]["sketch"]["cnt"], cnt0)
+                 and torch.equal(state.params["top"][0]["w"], w0))
+    moved = not torch.equal(new.embed["part0"]["table"], table0)
+    if not (unchanged and moved):
+        raise AssertionError(f"donate_off: input unchanged {unchanged}, "
+                             f"output moved {moved}")
+    return {"input_state_unchanged": True, "output_moved": True}
+
+
+def phase_ab_decisions(ab, kernels, donate_check):
+    """The four decisions at full width, AB_WINDOWS x AB_STEPS each, with
+    each one's launch counts checked (module docstring, phase 14)."""
+    warm, timed = ab.WARMUP, AB_WINDOWS * AB_STEPS
+    k = ab.DISPATCH_K
+    steps_1 = 2 * (warm + AB_WINDOWS * (AB_STEPS // k)) * k
+    want = {1: {"land_max": steps_1, "gather": 0},
+            2: {"land_max": 2 * (warm + timed),
+                "scatter_add": 2 * (warm + timed), "gather": 0},
+            3: {"land_max": 2 * (warm + timed), "gather": 0},
+            4: {"gather": warm + timed, "land_max": 0}}
+    rec = {"windows": AB_WINDOWS, "steps": AB_STEPS,
+           "donate_off_check": donate_check, "decisions": [],
+           "launches": {name: 0 for name in kernels}}
+    for d in (1, 2, 3, 4):
+        for kern in kernels.values():
+            kern.launches = 0
+        with tool_log(f"ab_decisions_{d}"):
+            line = ab.DECISIONS[d](AB_WINDOWS, steps=AB_STEPS,
+                                   device="cuda")
+        torch.cuda.empty_cache()
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        bad = {n: (launches[n], v) for n, v in want[d].items()
+               if launches[n] != v}
+        if bad:
+            raise AssertionError(f"ab_decisions {d}: launches (got, want) "
+                                 f"{bad}")
+        rec["decisions"].append({**line, "launches": launches})
+        for name, v in launches.items():
+            rec["launches"][name] += v
+    return rec
+
+
+def phase_ab_insert_land(land_tool, kernels):
+    """tools/ab_insert_land_torch.py at full width (module docstring,
+    phase 15); the tool itself raises if an arm's state differs."""
+    for kern in kernels.values():
+        kern.launches = 0
+    args = land_tool.parse_args(["--windows", str(AB_WINDOWS), "--steps",
+                                 str(AB_STEPS)])
+    with tool_log("ab_insert_land"):
+        records = land_tool.run(args)
+    torch.cuda.empty_cache()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    eq = [r for r in records if r["level"] == "equal_state"]
+    if [r["impl"] for r in eq] != land_tool.IMPLS[1:] or not all(
+            r["equal"] for r in eq):
+        raise AssertionError(f"ab_insert_land: equal_state {eq}")
+    # the pallas arm's inserts only: 6 warm-up + windows x steps at
+    # level 1 and again at level 2, and the 4 inserts of the check
+    want = 2 * (6 + AB_WINDOWS * AB_STEPS) + 4
+    if launches["land_max"] != want:
+        raise AssertionError(f"ab_insert_land: K1 launched "
+                             f"{launches['land_max']} times, not {want}")
+    return {"windows": AB_WINDOWS, "steps": AB_STEPS, "records": records,
+            "launches": launches}
+
+
+def phase_roofline(roofline, kernels):
+    """cafe_tpu_torch.tools.roofline at its defaults (phase 16)."""
+    for kern in kernels.values():
+        kern.launches = 0
+    with tool_log("roofline"):
+        out = roofline.main([])
+    torch.cuda.empty_cache()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    iters = 100
+    if launches["scatter_add"] != 2 * iters:
+        raise AssertionError(f"roofline: K2 launched "
+                             f"{launches['scatter_add']} times, not "
+                             f"{2 * iters} (optimizer_apply)")
+    fracs = {k: v["frac_of_peak"] for k, v in out.items()
+             if isinstance(v, dict) and "frac_of_peak" in v}
+    stages = [v for v in out.values() if isinstance(v, dict) and "ms" in v]
+    if not all(f <= 1.05 for f in fracs.values()) or not all(
+            v["ms"] > 0 for v in stages):
+        raise AssertionError(f"roofline: a share of the peak above 1.05 "
+                             f"(the window's clock is wrong) or a stage "
+                             f"without time: {out}")
+    return {**out, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -789,10 +998,11 @@ def main() -> int:
     from cafe_tpu_torch.config import Config
     import main_torch
     from cafe_tpu_torch.data import make_criteo_arrays, make_criteo_batches
-    from cafe_tpu_torch.kernels import (KERNELS, a2a, build, land, rowsum,
-                                        scatter_add)
+    from cafe_tpu_torch.kernels import (KERNELS, a2a, build, gather, land,
+                                        rowsum, scatter_add)
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
-    from cafe_tpu_torch.train import build_all
+    from cafe_tpu_torch.tools import roofline
+    from cafe_tpu_torch.train import build_all, build_multi_step
     from cafe_tpu_torch.utils.timing import fence
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 towers stay f32
@@ -833,6 +1043,8 @@ def main() -> int:
 
     kern["rowsum"] = phase_rowsum(rowsum, embed, state, batches)
     emit({"phase": "kernels_rowsum", **kern["rowsum"]})
+    kern["gather"] = phase_gather(gather, embed, state, batches)
+    emit({"phase": "kernels_gather", **kern["gather"]})
     del state, embed
 
     state, _, dense = drive(build_all, fence,
@@ -900,6 +1112,21 @@ def main() -> int:
     mesh_gpu.close()
     mesh_cpu.close()
     dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- the measurement tools of the hot path (K4's path)
+    abd = phase_ab_decisions(
+        load_tool("ab_decisions_torch"), KERNELS,
+        check_donate_off(build_all, build_multi_step, Config, data,
+                         batches))
+    by_path["ab_decisions"] = abd["launches"]
+    emit({"phase": "ab_decisions", **abd})
+    abl = phase_ab_insert_land(load_tool("ab_insert_land_torch"), KERNELS)
+    by_path["ab_insert_land"] = abl["launches"]
+    emit({"phase": "ab_insert_land", **abl})
+    roof = phase_roofline(roofline, KERNELS)
+    by_path["roofline"] = roof["launches"]
+    emit({"phase": "roofline", **roof})
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",
@@ -910,6 +1137,9 @@ def main() -> int:
                "rowsum": ("cafe_tpu_torch/kernels/rowsum.cu",
                           "cafe_tpu/ops/pallas_rowsum.py:100",
                           kern["rowsum"]["routed"]),
+               "gather": ("cafe_tpu_torch/kernels/gather.cu",
+                          "cafe_tpu/ops/pallas_gather.py:67",
+                          kern["gather"]["decision4"]),
                "a2a": ("cafe_tpu_torch/kernels/a2a.cu",
                        "cafe_tpu/ops/pallas_a2a.py:126",
                        kern["a2a"]["n1"]["rows"])}

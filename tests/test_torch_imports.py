@@ -44,7 +44,8 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
 # files the card's machine (no jax) runs besides the package
 JAX_FREE = ["chip_smoke.py", "main_torch.py", "tests/torch_dist_worker.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
-            "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py"]
+            "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",
+            "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py"]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -61,6 +62,25 @@ def test_no_import_names_jax_or_cafe_tpu(path):
         for name in names:
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{path}:{node.lineno} {name}"
+
+
+def test_tools_import_with_jax_blocked():
+    """cafe_tpu_torch.tools and the port's root tool scripts import (and
+    parse their flags) with jax and cafe_tpu blocked."""
+    assert "cafe_tpu_torch.tools.roofline" in _all_modules()
+    code = ("import sys, importlib.util\n"
+            "for name in ('jax', 'jaxlib', 'cafe_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import cafe_tpu_torch.tools.roofline\n"
+            "for name in ('ab_decisions_torch', 'ab_insert_land_torch'):\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            "        name, f'tools/{name}.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):

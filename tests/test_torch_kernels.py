@@ -1,6 +1,6 @@
 """Port kernels (kernels/land.py K1, kernels/scatter_add.py K2,
-kernels/rowsum.py K3, kernels/a2a.py K5) against numpy oracles, with no
-JAX in the process.
+kernels/rowsum.py K3, kernels/gather.py K4, kernels/a2a.py K5) against
+numpy oracles, with no JAX in the process.
 
 The plain versions run here on the CPU. The CUDA kernels have no CPU
 mode: the `cuda` tests skip without a card and run on one with
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import torch_dist_worker as w
-from cafe_tpu_torch.kernels import a2a, land, rowsum, scatter_add
+from cafe_tpu_torch.kernels import a2a, gather, land, rowsum, scatter_add
 
 torch.set_num_threads(1)
 
@@ -110,6 +110,32 @@ def test_rowsum_plain_vs_oracle():
     np.testing.assert_array_equal(got.numpy(), _oracle_add(table, ids, upd))
 
 
+def _gather_cases(device="cpu"):
+    """(name, table, ids, tile) on `device`: K4's shapes and layouts. The
+    views make the kernel copy in 4-byte words (a 516-byte row stride, a
+    4-byte offset) and in bytes (a 130-byte stride, a 2-byte offset)."""
+    gen = torch.Generator().manual_seed(11)
+    f32 = torch.randn((4096, 128), generator=gen).to(device)
+    words = torch.randn((4096, 129), generator=gen).to(device)
+    halves = torch.randn((4096, 65), generator=gen).to(torch.bfloat16)
+    ids = torch.randint(0, 4096, (1024,), dtype=torch.int32, generator=gen)
+    ids[:4] = torch.tensor([0, 4095, 4095, 17], dtype=torch.int32)
+    ids = ids.to(device)
+    return [("f32", f32, ids, 256),
+            ("bf16", f32.to(torch.bfloat16), ids, 256),
+            ("view_words", words[:, 1:], ids, 256),
+            ("view_bytes", halves.to(device)[:, 1:], ids, 128),
+            ("b_eq_tile", f32, ids[:256], 256)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_gather_plain_vs_oracle(case):
+    name, table, ids, tile = _gather_cases()[case]
+    got = gather.gather_plain(table, ids, tile)
+    want = table.float().numpy()[ids.numpy()]
+    np.testing.assert_array_equal(got.float().numpy(), want, err_msg=name)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -195,3 +221,18 @@ def test_a2a_kernel_processes_one_card(card, tmp_path):
                                                  rank)
             np.testing.assert_array_equal(ids, want_ids)
             np.testing.assert_array_equal(rows, want_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_gather_kernel_on_card(card, case):
+    """K4 copies rows bit for bit at every vector width, one launch a
+    call."""
+    name, table, ids, tile = _gather_cases(card)[case]
+    before = gather.KERNEL.launches
+    got = gather.gather(table, ids, tile)
+    torch.cuda.synchronize()
+    assert gather.KERNEL.launches == before + 1
+    want = gather.gather_plain(table, ids, tile)
+    assert got.dtype == table.dtype and got.is_contiguous()
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), name

@@ -16,7 +16,7 @@ import torch
 from cafe_tpu.ops import sorted_update as jsu
 from cafe_tpu.ops.pallas_apply import pallas_scatter_add
 from cafe_tpu.ops.sparse import sparse_sgd
-from cafe_tpu_torch.kernels import land, scatter_add
+from cafe_tpu_torch.kernels import gather, land, scatter_add
 from cafe_tpu_torch.ops import sorted_update as tsu
 from cafe_tpu_torch.ops.sparse import apply_rows
 from test_torch_kernels import LAND_CASES, _land_case, _oracle_add
@@ -116,8 +116,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         scatter_add.scatter_add_(table, keys, torch.zeros((4, 2),
                                                           device="meta"))
-    with pytest.raises(NotImplementedError):
-        tsu.land_max(enc, keys, 3, "scan")
+    with pytest.raises(ValueError):
+        gather.gather(table, keys, tile=4)
+    with pytest.raises(ValueError, match="unknown"):
+        tsu.land_max(enc, keys, 3, "nope")
 
 
 @pytest.mark.parametrize("optimizer", ["adagrad", "adam"])
