@@ -1,33 +1,46 @@
-"""K3 — SGD sparse apply over sorted row keys (kernel: rowsum.cu).
+"""K3 — SGD sparse apply as a tiled segmented row sum (kernel: rowsum.cu).
 
 Replaces cafe_tpu/ops/pallas_rowsum.py `sparse_add_dense` and its Pallas
 kernel `pallas_rowsum_t`. Semantics: table[idx[k]] += upd[k] for every
 lane with 0 <= idx[k] < N, duplicate rows summed; other lanes, negative
 ones included, are dropped. The table is updated IN PLACE and returned.
 
-As in the JAX package, the lanes are first sorted by row (a stable
-`torch.sort`) and the updates permuted to match; both are library calls
-outside the kernel there too. The TPU's [B, D] -> [D, B] transpose is a
-layout for its MXU and has no counterpart here. Each run of equal keys is
-summed in lane order starting from 0 and added to its row once.
+On the card one C entry runs the whole function (rowsum.cu): a prep
+kernel maps the ids to keys, CUB's radix sort groups the lanes by key
+over bit_length(N) bits, and the ported kernel sums each run of equal
+keys tile by tile, reading the updates through the sorted lane order
+(no permuted copy), with a fix-up kernel for the runs that cross tiles.
+Its workspace is one torch allocation, sized by a query entry and kept
+per device and stream. The TPU's [B, D] -> [D, B] transpose is a layout
+for its MXU and has no counterpart here.
 
-`sparse_add_dense_` launches the CUDA kernel for a CUDA table and runs
+`sparse_add_dense_` launches the kernel for a CUDA table and runs
 `sparse_add_dense_plain_` for a CPU table; it never falls back from one
 to the other. The kernel is deterministic (no atomics; see rowsum.cu).
+`add_sorted_tiled_plain_` is a model of the kernel's tile, carry and
+fix-up decomposition for the CPU tests; no path of the port runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .build import CudaKernel
+from .build import CudaKernel, load
 
 KERNEL = CudaKernel("rowsum.cu", "rowsum_add_launch",
-                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                     ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                      ctypes.c_void_p])
+
+# sorted lanes a block of the kernel's sum stage (kTile in rowsum.cu)
+TILE = 256
+
+# (device index, stream handle) -> the uint8 workspace last used there
+_WORKSPACES: dict = {}
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor,
@@ -50,63 +63,131 @@ def _check(table: torch.Tensor, idx: torch.Tensor,
                          "(it is updated in place)")
 
 
-def sort_lanes(n_rows: int, idx: torch.Tensor, upd: torch.Tensor):
-    """(sorted int32 keys [B], updates [B, D] in their order): lanes
-    outside [0, n_rows) get key n_rows and sort last."""
+def sort_lanes(n_rows: int, idx: torch.Tensor):
+    """The plain version of the kernel's prep and sort stages: (sorted
+    int32 keys [B], int64 lane order [B]), where lanes outside
+    [0, n_rows) get key n_rows and sort last; a stable sort, so each run
+    keeps its lanes' batch order."""
     safe = torch.where((idx >= 0) & (idx < n_rows), idx,
                        n_rows).to(torch.int32)
-    keys, order = torch.sort(safe, stable=True)
-    return keys, upd[order].contiguous()
+    return torch.sort(safe, stable=True)
 
 
 def add_sorted_plain_(table: torch.Tensor, keys: torch.Tensor,
-                      upd: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version on sorted lanes: per-row sums
-    into a zero accumulator with one spare row for dropped keys, then one
-    add (the JAX package's table + acc.T)."""
+                      perm: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of upd[perm] by the sorted keys into a zero
+    accumulator with one spare row for dropped keys, then one add (the
+    JAX package's table + acc.T)."""
     n = table.shape[0]
     acc = torch.zeros((n + 1, table.shape[1]), dtype=table.dtype,
                       device=table.device)
-    acc.index_add_(0, keys.clamp(0, n).long(), upd)
+    acc.index_add_(0, keys.clamp(0, n).long(), upd[perm.long()])
     table += acc[:n]
     return table
 
 
-def add_sorted_(table: torch.Tensor, keys: torch.Tensor,
-                upd: torch.Tensor) -> torch.Tensor:
-    """One launch of the CUDA kernel on lanes as sort_lanes returns them
-    (keys sorted ascending: a key split into two runs would have two
-    owners). CUDA tensors only."""
-    _check(table, keys, upd)
-    if table.device.type != "cuda":
-        raise ValueError(f"add_sorted_: a CUDA table expected, got "
-                         f"{table.device}")
-    if keys.dtype != torch.int32 or not (keys.is_contiguous()
-                                         and upd.is_contiguous()):
-        raise ValueError("add_sorted_: contiguous int32 keys and "
-                         "contiguous updates expected")
-    with torch.cuda.device(table.device):
-        KERNEL(table.data_ptr(), keys.data_ptr(), upd.data_ptr(),
-               keys.shape[0], table.shape[1], table.shape[0],
-               torch.cuda.current_stream().cuda_stream)
+def add_sorted_tiled_plain_(table: torch.Tensor, keys: torch.Tensor,
+                            perm: torch.Tensor, upd: torch.Tensor,
+                            tile: int) -> torch.Tensor:
+    """The kernel's decomposition in plain PyTorch, for the CPU tests:
+    each tile of `tile` sorted lanes sums its runs in lane order; a run
+    wholly inside the tile is added to its row, a run crossing the
+    tile's start becomes the tile's head carry, one starting in the tile
+    and crossing its end the tail carry; then the tile holding a
+    crossing run's head adds its tail carry and the following tiles'
+    head carries, in tile order, to the row once."""
+    n, d = table.shape
+    b = keys.shape[0]
+    keys = keys.tolist()
+    rows = upd[perm.long()]
+    tiles = -(-b // tile)
+    head = torch.zeros((tiles, d), dtype=table.dtype, device=table.device)
+    tail = torch.zeros_like(head)
+    for t in range(tiles):
+        s, e = t * tile, min(b, (t + 1) * tile)
+        lo = s
+        while lo < e:
+            key, hi = keys[lo], lo
+            acc = torch.zeros_like(head[0])
+            while hi < e and keys[hi] == key:
+                acc = acc + rows[hi]
+                hi += 1
+            if key < n:
+                if lo == s and s > 0 and keys[s - 1] == key:
+                    head[t] = acc
+                elif hi == e and e < b and keys[e] == key:
+                    tail[t] = acc
+                else:
+                    table[key] += acc
+            lo = hi
+    for t in range(tiles - 1):
+        s, e = t * tile, (t + 1) * tile
+        key = keys[e - 1]
+        if key >= n or keys[e] != key or (t > 0 and keys[s - 1] == key):
+            continue
+        total, j = tail[t], t + 1
+        while j < tiles and keys[j * tile] == key:
+            total = total + head[j]
+            j += 1
+        table[key] += total
     return table
+
+
+@functools.lru_cache(maxsize=64)
+def workspace_bytes(lanes: int, dim: int, n_rows: int, device: int) -> int:
+    """Bytes of workspace the kernel needs at this shape on `device`
+    (the query entry of rowsum.cu)."""
+    fn = load("rowsum.cu").rowsum_workspace_bytes
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                   ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int64()
+    with torch.cuda.device(device):
+        err = fn(lanes, dim, n_rows, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"rowsum_workspace_bytes: CUDA error {err} at "
+                           f"lanes {lanes}, dim {dim}, rows {n_rows}")
+    return out.value
+
+
+def _workspace(device: torch.device, stream, nbytes: int) -> torch.Tensor:
+    """The workspace kept for this device and stream, grown to `nbytes`.
+    Work on one stream runs in order, so the next call may reuse it."""
+    key = (device.index, stream.cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def sparse_add_dense_plain_(table: torch.Tensor, idx: torch.Tensor,
                             upd: torch.Tensor) -> torch.Tensor:
     """The wrapper's plain PyTorch version, in place."""
     _check(table, idx, upd)
-    return add_sorted_plain_(table, *sort_lanes(table.shape[0], idx, upd))
+    return add_sorted_plain_(table, *sort_lanes(table.shape[0], idx), upd)
 
 
 def sparse_add_dense_(table: torch.Tensor, idx: torch.Tensor,
                       upd: torch.Tensor) -> torch.Tensor:
-    """table[idx] += upd in place: the CUDA kernel on the card, the plain
-    version for CPU tensors."""
+    """table[idx] += upd in place: one launch of the CUDA entry on the
+    card, the plain version for CPU tensors."""
     _check(table, idx, upd)
     if table.device.type == "cpu":
         return sparse_add_dense_plain_(table, idx, upd)
     if table.device.type != "cuda":
         raise ValueError(f"sparse_add_dense_: unsupported device "
                          f"{table.device}")
-    return add_sorted_(table, *sort_lanes(table.shape[0], idx, upd))
+    (n, d), b = table.shape, idx.shape[0]
+    if b >= 2**31 or n >= 2**31 - 1:
+        raise ValueError(f"sparse_add_dense_: at most 2^31 - 1 lanes and "
+                         f"2^31 - 2 rows, got {b} and {n}")
+    idx, upd = idx.contiguous(), upd.contiguous()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream()
+        ws = _workspace(table.device, stream,
+                        workspace_bytes(b, d, n, table.device.index))
+        KERNEL(table.data_ptr(), idx.data_ptr(), idx.element_size(),
+               upd.data_ptr(), b, d, n, ws.data_ptr(), ws.numel(),
+               stream.cuda_stream)
+    return table

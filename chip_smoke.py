@@ -16,9 +16,11 @@ Phases, each printing one JSON line and raising on failure:
    steps through build_all / train_step; K1 must launch once per step;
 4. kernels_rowsum: K3 against its plain version at the headline table
    (27,136 x 16) with 53,248 lanes: the ids the trained CafePart routes
-   a batch to, and duplicate-heavy Zipf ids — within the f32 reordering
-   bound of the longest run, bit-equal on dyadic payloads, and two
-   launches bit-equal to each other; timed as phase 2;
+   a batch to, duplicate-heavy Zipf ids, and one row taking every kept
+   lane (a run over 208 tiles) — within the f32 reordering bound of the
+   longest run, bit-equal on dyadic payloads, and two launches bit-equal
+   to each other; timed as phase 2, with each stage's device time (prep,
+   sort, sum, fix-up) read by kernel name from a torch.profiler window;
 5. headline_dense: the headline with --sparse_apply_impl dense; K1 and K3
    must each launch once per step;
 6. parity: 3 headline steps on the card and on the CPU from one state
@@ -379,7 +381,8 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None):
     busy_us = sum(x[1] for x in dev)
     ours = [x for x in dev if "land_max_kernel" in x[0]
             or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
-            or "rowsum_add_kernel" in x[0] or "a2a_send_kernel" in x[0]]
+            or "rowsum_" in x[0] or "cafe_rowsum" in x[0]
+            or "a2a_send_kernel" in x[0]]
     os.makedirs(OUT_DIR, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(avgs[0], "self_device_time_total")
@@ -395,9 +398,41 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None):
                             for k, t, c in dev[:10] + ours]}
 
 
+# K3's stages by kernel name: the prep kernel, CUB's radix sort (its
+# kernels carry rowsum.cu's wrapped namespace; in this window nothing
+# else sorts), the tile kernel and the fix-up kernel
+ROWSUM_STAGES = (("prep", "rowsum_prep_kernel"),
+                 ("sort", "DeviceRadixSort"),
+                 ("sum", "rowsum_tile_kernel"),
+                 ("fixup", "rowsum_fixup_kernel"))
+
+
+def stage_ms(fn, stages, reps=20):
+    """Device ms a call of fn() per stage, summed over the kernels whose
+    names hold the stage's pattern, from a torch.profiler window of
+    `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {f"{name}_ms": 0.0 for name, _ in stages}
+    for a in prof.key_averages():
+        if a.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(a, "self_device_time_total",
+                    getattr(a, "self_cuda_time_total", 0))
+        for name, pattern in stages:
+            if pattern in a.key:
+                out[f"{name}_ms"] += t / reps / 1e3
+    return out
+
+
 def rowsum_case(rowsum, table, ids, upd):
-    """K3 against its plain version on one input: (record, timing
-    closures). Raises on a disagreement."""
+    """K3 against its plain version on one input: a record with its
+    times. Raises on a disagreement."""
     n, d = table.shape
     b = ids.shape[0]
     keep = (ids >= 0) & (ids < n)
@@ -428,17 +463,21 @@ def rowsum_case(rowsum, table, ids, upd):
         raise AssertionError(f"K3 differs from its plain version on exact "
                              f"dyadic sums: {err_exact}")
     del got, again, want, table_q, upd_q, got_q, want_q
-    keys, upd_sorted = rowsum.sort_lanes(n, ids, upd)
     lib_upd = upd[keep].contiguous()
     work = table.clone()
+    stages = stage_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd),
+                      ROWSUM_STAGES)
+    if not all(v > 0 for v in stages.values()):
+        raise AssertionError(f"K3: a stage without device time in the "
+                             f"trace: {stages}")
     bms, by = bound_ms(b * 4 + b * d * 4 + 2 * uniq * d * 4, b * d)
     return {"shape": [n, d, b], "max_run": g_max, "distinct_rows": uniq,
             "dropped_lanes": int(b - kept.numel()),
+            "tiles": -(-b // rowsum.TILE), "sort_bits": n.bit_length(),
             "max_abs_err": err, "tolerance": tol,
             "max_abs_err_dyadic": err_exact, "deterministic": True,
             "ms": time_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd)),
-            "kernel_ms": time_ms(
-                lambda: rowsum.add_sorted_(work, keys, upd_sorted)),
+            "kernel_ms": stages["sum_ms"] + stages["fixup_ms"], **stages,
             "host_ms": host_ms(
                 lambda: rowsum.sparse_add_dense_(work, ids, upd)),
             "plain_ms": time_ms(
@@ -450,9 +489,10 @@ def rowsum_case(rowsum, table, ids, upd):
 
 def phase_rowsum(rowsum, embed, state, batches):
     """K3 at the headline table: the rows the trained CafePart routes one
-    batch to (hot and hashed ids of the 26 fields), and Zipf ids drawn as
-    the sibling's K2 check draws them (runs of thousands of lanes), with
-    dropped lanes below 0 and at N."""
+    batch to (hot and hashed ids of the 26 fields), Zipf ids drawn as
+    the sibling's K2 check draws them (runs of thousands of lanes), and
+    one row taking every kept lane, with dropped lanes below 0 and at N
+    in the last two."""
     rng = np.random.default_rng(2)
     table = state.embed["part0"]["table"].clone()
     n, d = table.shape
@@ -461,13 +501,17 @@ def phase_rowsum(rowsum, embed, state, batches):
     b = routed.shape[0]
     ranks = (rng.random(b) ** 6 * n).astype(np.int64)
     zipf = ((ranks * 1000000007) % n).astype(np.int32)
-    zipf[rng.choice(b, 24, replace=False)] = -1
-    zipf[rng.choice(b, 24, replace=False)] = n
+    dropped = [rng.choice(b, 24, replace=False) for _ in range(2)]
+    zipf[dropped[0]], zipf[dropped[1]] = -1, n
+    one_row = np.full(b, n // 3, np.int32)
+    one_row[dropped[0]], one_row[dropped[1]] = -1, n
     upd = torch.from_numpy(
         rng.normal(0, 0.01, (b, d)).astype(np.float32)).cuda()
     cases = {"routed": rowsum_case(rowsum, table, routed, upd),
              "zipf": rowsum_case(rowsum, table,
-                                 torch.from_numpy(zipf).cuda(), upd)}
+                                 torch.from_numpy(zipf).cuda(), upd),
+             "one_row": rowsum_case(rowsum, table,
+                                    torch.from_numpy(one_row).cuda(), upd)}
     return cases
 
 

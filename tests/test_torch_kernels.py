@@ -165,16 +165,27 @@ def test_scatter_add_kernel_on_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,b", [(1000, 16, 5000), (27136, 16, 53248),
-                                   (512, 128, 16384), (64, 8, 3)])
-def test_rowsum_kernel_on_card(card, n, d, b):
+@pytest.mark.parametrize("n,d,b,one_row", [
+    (1000, 16, 5000, False), (27136, 16, 53248, False),
+    (512, 128, 16384, False), (64, 8, 3, False),
+    (1000, 16, 300 * 256 + 17, True),      # one run over 301 tiles
+    (1000, 128, 300 * 256 + 17, True),     # ... and 10 fix-up chunks
+    (4096, 64, 20000, False), (2048, 128, 30000, False),
+    (2048, 256, 20000, False),             # more channels than fix-up threads
+    (27136, 16, 262144, False), (196608, 8, 53248, False)])
+def test_rowsum_kernel_on_card(card, n, d, b, one_row):
     """Dyadic values: the kernel must match the oracle bit for bit, and
-    two launches must agree bit for bit (no atomics)."""
+    two launches must agree bit for bit (no atomics), the second with
+    the same ids as int64."""
     table, ids, upd = _zipf_case(n, d, b)
-    args = [torch.from_numpy(x).to(card) for x in (ids, upd)]
+    if one_row:
+        ids = np.where((ids >= 0) & (ids < n), 7, ids).astype(np.int32)
+    tids, tupd = (torch.from_numpy(x).to(card) for x in (ids, upd))
     before = rowsum.KERNEL.launches
-    got = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card), *args)
-    again = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card), *args)
+    got = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card), tids,
+                                   tupd)
+    again = rowsum.sparse_add_dense_(torch.from_numpy(table).to(card),
+                                     tids.long(), tupd)
     torch.cuda.synchronize()
     assert rowsum.KERNEL.launches == before + 2
     np.testing.assert_array_equal(got.cpu().numpy(),
