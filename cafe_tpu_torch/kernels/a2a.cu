@@ -7,36 +7,59 @@
 // Computes, on rank `me` of n: out[s] = in_s[me] for every source rank s,
 // where in_s is rank s's input [n, chunk] (chunk j destined for rank j);
 // out[me] = in[me] is the local copy. Dtype-blind: it moves bytes, 16 at
-// a time where the chunk and the pointers allow.
+// a time where both pointers allow.
 //
 // The TPU kernel issued n-1 remote DMAs behind a barrier semaphore. On
 // Hopper a kernel can store straight into another process's device
 // memory through a CUDA IPC mapping (over NVLink between cards; in the
 // same memory on one card), so the design is:
 //
+//   * the grid is sized to the card, not to the bytes: each chunk is cut
+//     into P parts (contiguous, 16-byte aligned byte ranges), one block a
+//     part and one 16-byte vector a thread, so every vector of the call
+//     is in flight at once. Blocks shrink from 256 to 64 threads until
+//     the P * n blocks make at least one wave over the SMs (read once
+//     from the device attributes). No block is launched without bytes to
+//     move, and no thread loops unless the chunk needs more than
+//     kMaxParts parts; then a thread moves several vectors, kUnroll loads
+//     before their stores;
 //   * every rank owns a symmetric WORKSPACE (plain cudaMalloc, exported
 //     once with cudaIpcGetMemHandle and opened once by each peer): two
-//     parities of n receive slots of `stride` bytes, 2*n int32 flags and
-//     one block counter;
-//   * the SEND kernel copies in[j] into peer j's receive slot for `me`
-//     (in[me] straight into the output). Each block fences its stores at
-//     system scope; the last block to finish (a ticket counter) then
-//     release-stores the call's epoch into each peer's flag for `me`, so
-//     no flag can overtake any block's writes;
-//   * the RECV kernel's blocks each acquire-spin on the flag of their
-//     source rank until it reaches the epoch, then copy that slot into
-//     the output (L2 loads: the bytes came from another device).
+//     parities of n receive slots of `stride` bytes, then two parities
+//     of n x P int32 arrival flags, one per (source, part);
+//   * the SEND kernel's block (p, j) copies part p of in[j] into peer
+//     j's receive slot for `me` (in[me] straight into the output). After
+//     __syncthreads() its thread 0 alone fences at system scope and
+//     release-stores the call's epoch into peer j's flag (me, p). The
+//     barrier orders every thread's stores before thread 0's fence, and
+//     the fence is cumulative, so one fence a block covers the block's
+//     stores; no thread waits for any other block;
+//   * the RECV kernel's block (p, s) acquire-spins on its flag (s, p)
+//     until it reaches the epoch, then copies part p of slot s into the
+//     output (L2 loads: another device wrote those bytes). A receiving
+//     block waits for the one part it copies, not for the whole chunk.
 //
 // Epochs grow by one per call and never need resetting. The two parities
 // alternate by epoch, so a peer may run one call ahead of this rank
-// without touching the slots this rank still reads: to start call e+2 on
-// the same parity a peer must have seen this rank's e+1 flag, which this
-// rank stores only after its call-e RECV finished (stream order). n = 1
-// has no workspace and no flags: the SEND kernel is the local copy.
+// without touching the slots this rank still reads. The argument: a peer
+// Q writes this rank's parity-e slots again only in call e+2. Q's SEND of
+// e+2 starts after Q's RECV of e+1 has finished (stream order on Q),
+// which waited for at least one flag that this rank stores in its SEND of
+// e+1. That SEND starts after this rank's RECV of e has finished (stream
+// order here), and that RECV is the last reader of the parity-e slots.
+// So every read of call e's slots ends before any write of call e+2's.
+// The flags of the two parities are apart, so a flag of e+1 never
+// satisfies a wait of e, and a flag only grows.
+//
+// n = 1 has no workspace and no flags: the SEND launch is the local copy
+// alone (a2a_send_kernel_local: a flat index, no peer table and no part
+// arithmetic), with no host state, so a call can be captured in a CUDA
+// graph.
 //
 // Bound on the H100: bytes. Each rank reads its input once and writes its
 // output once (plus the receive slots it fills on its peers); at n = 1
-// that is 2 * bytes at 3.35 TB/s.
+// that is 2 * bytes at 3.35 TB/s, and at n > 1 the (n-1)/n of the input
+// that leaves the card also crosses NVLink at 450 GB/s each way.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -44,14 +67,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // most threads a block
+constexpr int kMinThreads = 64;   // fewest, for a chunk of few vectors
 constexpr int kMaxPeers = 8;
-constexpr int64_t kVecsPerBlock = 4 * kThreads;   // 16 KB a block
-constexpr int64_t kMaxBlocks = 132 * 8;
+constexpr int kUnroll = 4;        // 16-byte vectors a thread keeps in flight
+constexpr int64_t kMaxParts = 8192;
+constexpr int kMaxDevices = 64;
 
 struct Peers {
   char* dst[kMaxPeers];  // where chunk j of the input goes
-  int* flag[kMaxPeers];  // peer j's flag slot for this rank
+  int* flag[kMaxPeers];  // peer j's P flags for this rank
 };
 
 __device__ __forceinline__ void st_release_sys(int* p, int v) {
@@ -68,77 +93,137 @@ __device__ __forceinline__ int ld_acquire_sys(const int* p) {
   return v;
 }
 
-// This block's share (part `part` of `parts`) of a `bytes` copy.
-// `l2` reads through L2 only (bytes another device wrote).
+// The block's copy of part `part` (bytes [part * part_bytes, ...) of a
+// `chunk`-byte copy; part_bytes is a multiple of 16). `l2` reads through
+// L2 only (bytes another device wrote). A part of at most one vector a
+// thread is one predicated copy, with no loop.
 template <bool l2>
-__device__ __forceinline__ void copy_share(char* dst, const char* src,
-                                           int64_t bytes, bool vec,
-                                           int part, int parts) {
-  const int64_t step = static_cast<int64_t>(parts) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(part) * blockDim.x +
-                        threadIdx.x;
-  int64_t done = 0;
-  if (vec) {
-    const int64_t nv = bytes / 16;
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (int64_t i = first; i < nv; i += step)
-      d[i] = l2 ? __ldcg(s + i) : s[i];
+__device__ __forceinline__ void copy_part(char* __restrict__ dst,
+                                          const char* __restrict__ src,
+                                          int64_t chunk, int64_t part_bytes,
+                                          int part) {
+  const int64_t b0 = part_bytes * part;
+  if (b0 >= chunk) return;
+  const int len = static_cast<int>(b0 + part_bytes < chunk ? part_bytes
+                                                           : chunk - b0);
+  const char* s = src + b0;
+  char* d = dst + b0;
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d)) &
+       15) == 0) {
+    const int nv = len / 16;
+    const int4* s4 = reinterpret_cast<const int4*>(s);
+    int4* d4 = reinterpret_cast<int4*>(d);
+    if (nv <= static_cast<int>(blockDim.x)) {
+      const int i = threadIdx.x;
+      if (i < nv) d4[i] = l2 ? __ldcg(s4 + i) : s4[i];
+    } else {
+      for (int i0 = threadIdx.x; i0 < nv; i0 += kUnroll * blockDim.x) {
+        int4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * blockDim.x;
+          if (i < nv) v[u] = l2 ? __ldcg(s4 + i) : s4[i];
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * blockDim.x;
+          if (i < nv) d4[i] = v[u];
+        }
+      }
+    }
     done = nv * 16;
   }
-  for (int64_t i = done + first; i < bytes; i += step)
-    dst[i] = l2 ? __ldcg(reinterpret_cast<const signed char*>(src) + i)
-                : src[i];
+  for (int i = done + threadIdx.x; i < len; i += blockDim.x) {
+    d[i] = l2 ? __ldcg(reinterpret_cast<const signed char*>(s) + i) : s[i];
+  }
 }
 
-// __grid_constant__: blocks index the peer table by blockIdx.y, which
-// would otherwise copy the whole parameter struct to each thread's stack
-__global__ void a2a_send_kernel(const char* __restrict__ in,
-                                const __grid_constant__ Peers peers,
-                                int n, int me, int64_t chunk_bytes, bool vec,
-                                unsigned int* counter, int epoch) {
-  const int j = blockIdx.y;
-  copy_share<false>(peers.dst[j], in + j * chunk_bytes, chunk_bytes, vec,
-                    blockIdx.x, gridDim.x);
-  if (n == 1) return;
-  __threadfence_system();  // this thread's stores, before the ticket
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int total = gridDim.x * gridDim.y;
-    if (atomicAdd(counter, 1u) == total - 1) {
-      atomicExch(counter, 0u);  // ready for the next call on this stream
-      __threadfence_system();
-      for (int k = 0; k < n; ++k)
-        if (k != me) st_release_sys(peers.flag[k], epoch);
+// n = 1: the local copy alone, one 16-byte vector a thread over the
+// whole chunk (the byte tail to the first threads), with no peer table,
+// no flags and no part arithmetic; bytes where the pointers are not
+// 16-byte aligned (each thread its 16).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+a2a_send_kernel_local(const char* __restrict__ in, char* __restrict__ out,
+                      int64_t bytes) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (kVec) {
+    const int64_t nv = bytes >> 4;
+    if (i < nv) {
+      reinterpret_cast<int4*>(out)[i] = reinterpret_cast<const int4*>(in)[i];
+    }
+    if (i < (bytes & 15)) out[nv * 16 + i] = in[nv * 16 + i];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (i * 16 + k < bytes) out[i * 16 + k] = in[i * 16 + k];
     }
   }
 }
 
-__global__ void a2a_recv_kernel(const char* __restrict__ slots,
-                                char* __restrict__ out,
-                                const int* __restrict__ flags, int me,
-                                int64_t chunk_bytes, int64_t stride, bool vec,
-                                int epoch) {
+// __grid_constant__: blocks index the peer table by blockIdx.y, which
+// would otherwise copy the whole parameter struct to each thread's stack
+__global__ void __launch_bounds__(kThreads)
+a2a_send_kernel(const char* __restrict__ in,
+                const __grid_constant__ Peers peers, int me,
+                int64_t chunk_bytes, int64_t part_bytes, int epoch) {
+  const int j = blockIdx.y;
+  const int p = blockIdx.x;
+  copy_part<false>(peers.dst[j], in + j * chunk_bytes, chunk_bytes,
+                   part_bytes, p);
+  if (j == me) return;   // the local chunk: no flag
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    st_release_sys(peers.flag[j] + p, epoch);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+a2a_recv_kernel(const char* __restrict__ slots, char* __restrict__ out,
+                const int* __restrict__ flags, int me, int64_t chunk_bytes,
+                int64_t part_bytes, int64_t stride, int epoch) {
   const int s = blockIdx.y;
+  const int p = blockIdx.x;
   if (s == me) return;  // the SEND kernel wrote the local chunk
   if (threadIdx.x == 0) {
-    while (ld_acquire_sys(flags + s) < epoch) __nanosleep(100);
+    const int* f = flags + static_cast<int64_t>(s) * gridDim.x + p;
+    while (ld_acquire_sys(f) < epoch) {
+    }
   }
   __syncthreads();
-  copy_share<true>(out + s * chunk_bytes, slots + s * stride, chunk_bytes,
-                   vec, blockIdx.x, gridDim.x);
+  copy_part<true>(out + s * chunk_bytes, slots + s * stride, chunk_bytes,
+                  part_bytes, p);
 }
 
-dim3 grid_for(int64_t chunk_bytes, int n) {
-  int64_t per = (chunk_bytes / 16 + kVecsPerBlock - 1) / kVecsPerBlock;
-  int64_t cap = kMaxBlocks / n;
-  if (per > cap) per = cap;
-  if (per < 1) per = 1;
-  return dim3(static_cast<unsigned int>(per), static_cast<unsigned int>(n));
+int sm_count() {
+  static int cached[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev < 0 || dev >= kMaxDevices) dev = 0;
+  if (cached[dev] == 0) {
+    int v = 0;
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = v > 0 ? v : 132;
+  }
+  return cached[dev];
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// Bytes of one part when a chunk is cut into `parts` (a multiple of 16),
+// and the threads of its block: one a vector, a multiple of 32.
+int64_t part_bytes_of(int64_t chunk_bytes, int parts) {
+  return ceil_div(ceil_div(chunk_bytes, 16), parts) * 16;
+}
+
+int threads_of(int64_t part_bytes) {
+  int64_t t = ceil_div(part_bytes / 16, 32) * 32;
+  if (t > kThreads) t = kThreads;
+  if (t < 32) t = 32;
+  return static_cast<int>(t);
 }
 
 }  // namespace
@@ -147,6 +232,26 @@ static_assert(sizeof(cudaIpcMemHandle_t) == 64, "IPC handle is 64 bytes");
 
 extern "C" const char* cafe_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Parts a chunk of `chunk_bytes` is cut into over a mesh of n on the
+// current device: one vector a thread in blocks of 256 threads, halved
+// down to 64 while the P * n blocks fall short of one wave over the SMs;
+// at most kMaxParts (a thread then moves several vectors). Every rank of
+// a mesh must use the same P (a2a.py takes the smallest over the ranks).
+extern "C" int a2a_parts(int64_t chunk_bytes, int n) {
+  if (n < 1) n = 1;
+  const int64_t vecs = ceil_div(chunk_bytes, 16);
+  const int64_t sms = sm_count();
+  int64_t threads = kThreads;
+  int64_t parts = ceil_div(vecs, threads);
+  while (threads > kMinThreads && parts * n < sms) {
+    threads /= 2;
+    parts = ceil_div(vecs, threads);
+  }
+  if (parts > kMaxParts) parts = kMaxParts;
+  if (parts < 1) parts = 1;
+  return static_cast<int>(parts);
 }
 
 // A zeroed workspace of `bytes` on the current device.
@@ -180,43 +285,63 @@ extern "C" int a2a_ipc_close(void* p) {
 }
 
 // in [n * chunk_bytes]; dst[j]: where chunk j goes (for j == me, this
-// rank's output); flags[j]: peer j's flag slot for this rank (unused at
-// n == 1, like `counter`). Returns cudaGetLastError().
+// rank's output); flags[j]: peer j's `parts` flags for this rank (unused
+// at n == 1). parts <= 0 picks a2a_parts(chunk_bytes, n) on this device
+// (n == 1 only: at n > 1 every rank must pass the same count). Returns
+// cudaGetLastError().
 extern "C" int a2a_send_launch(const void* in, void* const* dst,
                                int* const* flags, int n, int me,
-                               int64_t chunk_bytes, void* counter, int epoch,
+                               int64_t chunk_bytes, int parts, int epoch,
                                void* stream) {
-  if (n < 1 || n > kMaxPeers || me < 0 || me >= n)
+  if (n < 1 || n > kMaxPeers || me < 0 || me >= n || (n > 1 && parts < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunk_bytes <= 0) return static_cast<int>(cudaGetLastError());
+  if (parts < 1) parts = a2a_parts(chunk_bytes, n);
+  const int64_t part_bytes = part_bytes_of(chunk_bytes, parts);
+  if (n == 1) {   // part p is block p: its threads' vectors, in order
+    const auto* src = static_cast<const char*>(in);
+    auto* out = static_cast<char*>(dst[0]);
+    const int threads = threads_of(part_bytes);
+    const auto blocks = static_cast<unsigned>(
+        ceil_div(ceil_div(chunk_bytes, 16), threads));
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (((reinterpret_cast<uintptr_t>(src) |
+          reinterpret_cast<uintptr_t>(out)) & 15) == 0) {
+      a2a_send_kernel_local<true><<<blocks, threads, 0, s>>>(src, out,
+                                                             chunk_bytes);
+    } else {
+      a2a_send_kernel_local<false><<<blocks, threads, 0, s>>>(src, out,
+                                                              chunk_bytes);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   Peers peers;
-  bool vec = chunk_bytes % 16 == 0 && aligned16(in);
   for (int j = 0; j < kMaxPeers; ++j) {
     peers.dst[j] = j < n ? static_cast<char*>(dst[j]) : nullptr;
     peers.flag[j] = (j < n && flags != nullptr) ? flags[j] : nullptr;
-    if (j < n) vec = vec && aligned16(peers.dst[j]);
   }
-  a2a_send_kernel<<<grid_for(chunk_bytes, n), kThreads, 0,
+  a2a_send_kernel<<<dim3(parts, n), threads_of(part_bytes), 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(in), peers, n, me, chunk_bytes, vec,
-      static_cast<unsigned int*>(counter), epoch);
+      static_cast<const char*>(in), peers, me, chunk_bytes, part_bytes,
+      epoch);
   return static_cast<int>(cudaGetLastError());
 }
 
 // slots: this rank's receive slots of the call's parity (n slots of
-// `stride` bytes); flags: its n flags of that parity; out [n * chunk_bytes]
-// (the local chunk already written by the SEND kernel).
+// `stride` bytes); flags: its n x parts flags of that parity; out [n *
+// chunk_bytes] (the local chunk already written by the SEND kernel).
 extern "C" int a2a_recv_launch(const void* slots, void* out, const void* flags,
                                int n, int me, int64_t chunk_bytes,
-                               int64_t stride, int epoch, void* stream) {
-  if (n < 2 || n > kMaxPeers || me < 0 || me >= n)
+                               int64_t stride, int parts, int epoch,
+                               void* stream) {
+  if (n < 2 || n > kMaxPeers || me < 0 || me >= n || parts < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunk_bytes <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = chunk_bytes % 16 == 0 && stride % 16 == 0 &&
-                   aligned16(slots) && aligned16(out);
-  a2a_recv_kernel<<<grid_for(chunk_bytes, n), kThreads, 0,
+  const int64_t part_bytes = part_bytes_of(chunk_bytes, parts);
+  a2a_recv_kernel<<<dim3(parts, n), threads_of(part_bytes), 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char*>(slots), static_cast<char*>(out),
-      static_cast<const int*>(flags), me, chunk_bytes, stride, vec, epoch);
+      static_cast<const int*>(flags), me, chunk_bytes, part_bytes, stride,
+      epoch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,23 @@ copy).
 `all_to_all` launches the CUDA kernels for a CUDA tensor and runs
 `all_to_all_plain` (`dist.all_to_all_single` on the mesh's group) for a
 CPU tensor; it never falls back from one to the other. A copy is exact,
-so the kernel's output equals the plain version's bit for bit.
+so the kernel's output equals the plain version's bit for bit. On the
+card it is `receive(send(xs, mesh))`: the SEND kernel, then the RECV
+kernel, one launch count a call (a measurement may run the two halves
+apart).
 
 Each rank keeps one workspace per chunk size on its Mesh
 (`mesh.a2a_workspaces`): made at the first call of that size (a
 collective: every rank makes it in the same call), freed by
-`Mesh.close()`. See a2a.cu for the protocol.
+`Mesh.close()`. See a2a.cu for the protocol. At n = 1 a call is one copy
+kernel with no workspace and no host state, so it can be captured in a
+CUDA graph; at n > 1 the workspace's host epoch keeps it eager.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -28,12 +34,12 @@ from . import build
 from .build import CudaKernel
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 SEND = CudaKernel("a2a.cu", "a2a_send_launch",
-                  [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   _P, ctypes.c_int, _P])
+                  [_P, _P, _P, _I, _I, ctypes.c_int64, _I, _I, _P])
 RECV = CudaKernel("a2a.cu", "a2a_recv_launch",
-                  [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, _P])
+                  [_P, _P, _P, _I, _I, ctypes.c_int64, ctypes.c_int64, _I,
+                   _I, _P])
 # one SEND launch per all-to-all: the count a run reads
 KERNEL = SEND
 
@@ -52,7 +58,8 @@ def _lib() -> ctypes.CDLL:
                        ("a2a_ws_free", [_P]),
                        ("a2a_ipc_handle", [_P, _P]),
                        ("a2a_ipc_open", [_P, ctypes.POINTER(_P)]),
-                       ("a2a_ipc_close", [_P])):
+                       ("a2a_ipc_close", [_P]),
+                       ("a2a_parts", [ctypes.c_int64, _I])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
@@ -69,7 +76,9 @@ class Workspace:
     chunks over `mesh`, and its peers' buffers mapped through CUDA IPC.
 
     Layout (every rank the same): receive slots [2 parities][n][stride],
-    then flags int32 [2][n], then one uint32 block counter."""
+    then arrival flags int32 [2][n sources][parts]. `parts` is the
+    smallest part count any rank's card picks (a2a.cu `a2a_parts`), so
+    every SEND block has one RECV block that waits for it."""
 
     def __init__(self, mesh, chunk_bytes: int):
         n = mesh.size
@@ -80,11 +89,14 @@ class Workspace:
         self.n, self.me = n, mesh.rank
         self.stride = _round_up(chunk_bytes)
         self.flag_off = 2 * n * self.stride
-        self.counter_off = self.flag_off + _round_up(2 * n * 4)
         base = _P()
         with torch.cuda.device(mesh.device):
-            _ok(self.lib, self.lib.a2a_ws_alloc(self.counter_off + _ALIGN,
-                                                ctypes.byref(base)),
+            mine = self.lib.a2a_parts(chunk_bytes, n)
+            gathered = [None] * n
+            dist.all_gather_object(gathered, mine, group=mesh.group)
+            self.parts = min(gathered)
+            size = self.flag_off + _round_up(2 * n * self.parts * 4)
+            _ok(self.lib, self.lib.a2a_ws_alloc(size, ctypes.byref(base)),
                 "a2a workspace alloc")
             handle = ctypes.create_string_buffer(64)
             _ok(self.lib, self.lib.a2a_ipc_handle(base, handle),
@@ -114,8 +126,21 @@ class Workspace:
         """Address of `rank`'s receive slot for chunks from `src`."""
         return self.base[rank] + (parity * self.n + src) * self.stride
 
-    def flag(self, rank: int, parity: int, src: int) -> int:
-        return self.base[rank] + self.flag_off + (parity * self.n + src) * 4
+    def flags(self, rank: int, parity: int, src: int) -> int:
+        """Address of `rank`'s `parts` arrival flags for chunks from
+        `src`."""
+        return (self.base[rank] + self.flag_off
+                + (parity * self.n + src) * self.parts * 4)
+
+
+class Pending(NamedTuple):
+    """A sent all-to-all whose RECV kernel is still to launch."""
+
+    out: torch.Tensor
+    ws: Optional[Workspace]   # None at n = 1: the SEND kernel did it all
+    chunk: int
+    epoch: int
+    stream: int
 
 
 def _check(xs: torch.Tensor, mesh) -> None:
@@ -133,14 +158,13 @@ def all_to_all_plain(xs: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
-def all_to_all(xs: torch.Tensor, mesh) -> torch.Tensor:
-    """out[s] = chunk `rank` of rank s's xs: the CUDA kernels on the
-    card, the plain version for CPU tensors."""
+def send(xs: torch.Tensor, mesh) -> Pending:
+    """The SEND half on the card: the local chunk into a new output and
+    every other chunk into its peer's receive slot, each part flagged."""
     _check(xs, mesh)
-    if xs.device.type == "cpu":
-        return all_to_all_plain(xs, mesh)
     if xs.device.type != "cuda":
-        raise ValueError(f"all_to_all: unsupported device {xs.device}")
+        raise ValueError(f"all_to_all send: a CUDA tensor expected, got "
+                         f"{xs.device}")
     xs = xs.contiguous()
     out = torch.empty_like(xs)
     n, me = mesh.size, mesh.rank
@@ -149,8 +173,8 @@ def all_to_all(xs: torch.Tensor, mesh) -> torch.Tensor:
     with torch.cuda.device(xs.device):
         if n == 1:
             SEND(xs.data_ptr(), (_P * 1)(out.data_ptr()), None, 1, 0, chunk,
-                 None, 0, stream)
-            return out
+                 0, 0, stream)
+            return Pending(out, None, chunk, 0, stream)
         ws = mesh.a2a_workspaces.get(chunk)
         if ws is None:
             ws = mesh.a2a_workspaces[chunk] = Workspace(mesh, chunk)
@@ -158,9 +182,32 @@ def all_to_all(xs: torch.Tensor, mesh) -> torch.Tensor:
         par = ws.epoch & 1
         dst = (_P * n)(*[out.data_ptr() + me * chunk if j == me
                          else ws.slot(j, par, me) for j in range(n)])
-        flags = (_P * n)(*[ws.flag(j, par, me) for j in range(n)])
-        SEND(xs.data_ptr(), dst, flags, n, me, chunk,
-             ws.base[me] + ws.counter_off, ws.epoch, stream)
-        RECV(ws.slot(me, par, 0), out.data_ptr(), ws.flag(me, par, 0), n,
-             me, chunk, ws.stride, ws.epoch, stream)
-    return out
+        flags = (_P * n)(*[ws.flags(j, par, me) for j in range(n)])
+        SEND(xs.data_ptr(), dst, flags, n, me, chunk, ws.parts, ws.epoch,
+             stream)
+    return Pending(out, ws, chunk, ws.epoch, stream)
+
+
+def receive(pending: Pending) -> torch.Tensor:
+    """The RECV half: wait for each part of every peer's chunk and copy
+    it out of the receive slot. Returns the all-to-all's output."""
+    ws = pending.ws
+    if ws is None or pending.chunk == 0:
+        return pending.out
+    par = pending.epoch & 1
+    with torch.cuda.device(pending.out.device):
+        RECV(ws.slot(ws.me, par, 0), pending.out.data_ptr(),
+             ws.flags(ws.me, par, 0), ws.n, ws.me, pending.chunk, ws.stride,
+             ws.parts, pending.epoch, pending.stream)
+    return pending.out
+
+
+def all_to_all(xs: torch.Tensor, mesh) -> torch.Tensor:
+    """out[s] = chunk `rank` of rank s's xs: the CUDA kernels on the
+    card, the plain version for CPU tensors."""
+    _check(xs, mesh)
+    if xs.device.type == "cpu":
+        return all_to_all_plain(xs, mesh)
+    if xs.device.type != "cuda":
+        raise ValueError(f"all_to_all: unsupported device {xs.device}")
+    return receive(send(xs, mesh))

@@ -9,8 +9,11 @@ Phases, each printing one JSON line and raising on failure:
 1. build + device: the kernels are compiled from the repo's .cu sources
    (one nvcc per source, all at once); the card's name and power limit;
 2. kernels: K1 and K2 against their plain PyTorch versions on the card
-   at the slice's shapes (K1 bit-exact; K2 within its f32 bound), timed
-   beside the plain version, one library call and the memory bound;
+   at the slice's shapes (K1 bit-exact, on its edge cases too: a
+   20,000-lane run, empty row bands, no rows, every lane dropped; two
+   launches bit-equal; K2 within its f32 bound), timed beside the plain
+   version, one library call and the memory bound; K1 also inside a
+   replayed CUDA graph of 20 calls (`graph_ms`);
 3. headline: DLRM + CAFE, Criteo-Kaggle's 26 vocabularies, batch 2048,
    dim 16, cr 1e-3, bf16 towers, SGD, a sketch insert every step — timed
    steps through build_all / train_step; K1 must launch once per step;
@@ -31,7 +34,8 @@ Phases, each printing one JSON line and raising on failure:
    Kaggle vocabularies; a 3.2M-row table) — K1 and K2 must launch;
 8. profile: 5 headline steps (auto and dense) under torch.profiler —
    device busy time, idle share, kernels per step (tables in
-   chiprun_out/);
+   chiprun_out/); the landing must be one kernel a step (K1's
+   land_max_kernel, no fill kernel);
 9. cli: main_torch.main on a Criteo-Kaggle-shaped memmap in the
    reference's binary format (114,688 rows: 48 train and 8 test batches
    of 2048) with the headline flags, --sparse_apply_impl dense and an lr
@@ -41,7 +45,8 @@ Phases, each printing one JSON line and raising on failure:
 10. kernels_a2a: K5 at n = 1 at the headline's exchange shapes (ids
    [1, 53,248] int32, rows [1, 53,248, 16] f32), bit-equal to its plain
    version (NCCL all_to_all_single) and timed beside it, `copy_` and the
-   memory bound; then K5 between 4 processes on the one card through
+   memory bound, and inside a replayed CUDA graph of 20 calls
+   (`graph_ms`); then K5 between 4 processes on the one card through
    CUDA IPC over 3 successive calls, bit-equal on every rank (not timed:
    processes on one card without MPS are time-sliced);
 11. sharded: the headline through build_all(mesh=make_mesh(1)) on NCCL
@@ -49,7 +54,7 @@ Phases, each printing one JSON line and raising on failure:
    times and K1 once per step); the same state through explicit, a2a and
    pallas, and on the CPU (a gloo group of 1), 3 steps each with
    frequency scores: sketch and routing equal, tables within the bound;
-   5 traced steps;
+   5 traced steps, the landing one kernel a step;
 12. cli_sharded: main_torch.main on the memmap with --mesh_shape 1
    --shard_embeddings true --shard_exchange pallas: 48 steps and 2 evals,
    with the launch counts checked;
@@ -72,8 +77,9 @@ Phases, each printing one JSON line and raising on failure:
 The tools' own prints go to chiprun_out/tools_*.txt.
 
 Then the kernels line (every kernel's launches on the main path, error,
-times and bound) and, last, the device line. Exits non-zero without a
-CUDA card or without the cafe_tpu_torch package beside it.
+times, bound and, for K1 and K5, graph_ms) and, last, the device line.
+Exits non-zero without a CUDA card or without the cafe_tpu_torch package
+beside it.
 """
 
 import contextlib
@@ -140,6 +146,35 @@ def host_ms(fn, reps=30) -> float:
     return t
 
 
+def graph_ms(fn, calls=20, reps=10) -> float:
+    """Per-call device time of `calls` fn() calls captured in one CUDA
+    graph: median over `reps` replays, each queued behind a device sleep
+    and timed with events around the replay. A capture that fails
+    raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in ev:
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    del graph
+    return float(np.median([s.elapsed_time(e) for s, e in ev])) / calls
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -147,12 +182,20 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def land_case(rng, b, c, n, kind="random"):
-    if kind == "all_dropped":
-        keys = rng.integers(n, n + 50, b)
+    if kind == "all_dropped":            # below 0 and at or past n
+        keys = np.concatenate([rng.integers(-60, 0, b // 3),
+                               rng.integers(n, n + 50, b - b // 3)])
     elif kind == "key_eq_n":
         keys = np.concatenate([rng.integers(0, n, b - 8), np.full(8, n)])
     elif kind == "sparse_rows":
         keys = rng.choice(np.arange(0, n, 7), b)
+    elif kind == "band":                 # empty rows before and after
+        keys = rng.integers(n // 3, 2 * n // 3, b)
+    elif kind == "hot_run":              # one row takes 20,000 lanes
+        keys = np.concatenate([rng.integers(0, n, b - 20000),
+                               np.full(20000, n // 2)])
+    elif kind == "rows_zero":            # n == 0: every lane dropped
+        keys = rng.integers(-5, 50, b)
     else:
         keys = rng.integers(0, n + 7, b)
     keys = np.sort(keys).astype(np.int32)
@@ -164,21 +207,30 @@ def land_case(rng, b, c, n, kind="random"):
 def phase_kernels(land, scatter_add):
     rng = np.random.default_rng(0)
     out = {}
-    # ---- K1: both slice shapes + the edge cases of the CPU tests
+    # ---- K1: both slice shapes + the edge cases of the card tests
     k1 = []
     for b, c, n, kind in [(53248, 5, 9646, "random"),
                           (36864, 5, 1543432, "random"),
                           (100, 4, 128, "random"), (512, 2, 64, "all_dropped"),
                           (333, 5, 97, "key_eq_n"),
-                          (256, 3, 4096, "sparse_rows")]:
+                          (256, 3, 4096, "sparse_rows"),
+                          (30000, 5, 5000, "hot_run"),
+                          (4096, 5, 200000, "band"),
+                          (777, 5, 0, "rows_zero")]:
         keys, enc = land_case(rng, b, c, n, kind)
         got = land.land_max(enc, keys, n)
+        again = land.land_max(enc, keys, n)
         want = land.land_max_plain(enc, keys, n)
+        torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max()) if n else 0
-        if err != 0:
+        if err != 0 or got.shape != want.shape:
             raise AssertionError(f"K1 differs from its plain version at "
                                  f"{(b, c, n, kind)}: max err {err}")
-        row = {"shape": [b, c, n], "kind": kind, "max_abs_err": err}
+        if not torch.equal(got, again):
+            raise AssertionError(f"K1: two launches differ at "
+                                 f"{(b, c, n, kind)}")
+        row = {"shape": [b, c, n], "kind": kind, "max_abs_err": err,
+               "two_launches_equal": True}
         if kind == "random":
             out_lib = torch.full((n, c), -1, dtype=torch.int32,
                                  device="cuda")
@@ -188,6 +240,7 @@ def phase_kernels(land, scatter_add):
             bms, by = bound_ms((b * c + b + n * c) * 4, b * c)
             row.update(
                 ms=time_ms(lambda: land.land_max(enc, keys, n)),
+                graph_ms=graph_ms(lambda: land.land_max(enc, keys, n)),
                 host_ms=host_ms(lambda: land.land_max(enc, keys, n)),
                 plain_ms=time_ms(lambda: land.land_max_plain(enc, keys, n)),
                 library_ms=time_ms(lambda: out_lib.scatter_reduce_(
@@ -383,6 +436,12 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None):
             or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
             or "rowsum_" in x[0] or "cafe_rowsum" in x[0]
             or "a2a_send_kernel" in x[0]]
+    # the sketch insert's landing: K1's one kernel a step, no fill pass
+    landing = sum(c for k, _, c in dev if "land_max_kernel" in k) / 5
+    fills = [k for k, _, _ in dev if "fill_kernel" in k]
+    if landing != 1 or fills:
+        raise AssertionError(f"profile {name}: {landing} landing kernels a "
+                             f"step (want 1), fill kernels {fills}")
     os.makedirs(OUT_DIR, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(avgs[0], "self_device_time_total")
@@ -393,6 +452,7 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None):
             "device_busy_ms_per_step": busy_us / 5e3,
             "device_idle_share": (1.0 - busy_us / wall_us) if dev else None,
             "kernels_per_step": sum(x[2] for x in dev) / 5,
+            "landing_kernels_per_step": landing,
             "top_kernels": [{"name": k[:80], "ms_per_step": t / 5e3,
                              "calls_per_step": c / 5}
                             for k, t, c in dev[:10] + ours]}
@@ -749,6 +809,7 @@ def phase_a2a(a2a, mesh):
         rec["n1"][name] = {
             "shape": list(x.shape), "bytes": nbytes, "max_abs_err": 0.0,
             "ms": time_ms(lambda: a2a.all_to_all(x, mesh)),
+            "graph_ms": graph_ms(lambda: a2a.all_to_all(x, mesh)),
             "host_ms": host_ms(lambda: a2a.all_to_all(x, mesh)),
             "plain_ms": time_ms(lambda: a2a.all_to_all_plain(x, mesh)),
             "library_ms": time_ms(lambda: out.copy_(x)),
@@ -1194,7 +1255,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "graph_ms": rec.get("graph_ms"),
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
     emit({"kernels": lines})

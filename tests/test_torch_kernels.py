@@ -19,25 +19,44 @@ from cafe_tpu_torch.kernels import a2a, gather, land, rowsum, scatter_add
 torch.set_num_threads(1)
 
 
-def _land_case(seed, b, c, n, kind="random"):
-    rng = np.random.default_rng(seed)
-    if kind == "all_dropped":
-        keys = np.sort(rng.integers(n, n + 50, b))
+def _land_keys(rng, b, n, kind):
+    """Sorted int32 keys [b] of one K1 case kind."""
+    if kind == "all_dropped":            # every lane below 0 or >= n
+        keys = np.concatenate([rng.integers(-60, 0, b // 3),
+                               rng.integers(n, n + 50, b - b // 3)])
     elif kind == "key_eq_n":
-        keys = np.sort(np.concatenate([rng.integers(0, n, b - 8),
-                                       np.full(8, n)]))
+        keys = np.concatenate([rng.integers(0, n, b - 8), np.full(8, n)])
+    elif kind == "many_eq_n":            # half the lanes keyed to n
+        keys = np.concatenate([rng.integers(0, n, b - b // 2),
+                               np.full(b // 2, n)])
     elif kind == "sparse_rows":       # most rows empty
-        keys = np.sort(rng.choice(np.arange(0, n, 7), b))
+        keys = rng.choice(np.arange(0, n, 7), b)
+    elif kind == "band":              # empty rows before and after
+        keys = rng.integers(n // 3, 2 * n // 3, b)
+    elif kind == "hot_run":           # one row holds 20,000 lanes
+        keys = np.concatenate([rng.integers(0, n, b - 20000),
+                               np.full(20000, n // 2)])
+    elif kind == "rows_zero":         # n == 0: every lane dropped
+        keys = rng.integers(-5, 50, b)
     else:
-        keys = np.sort(rng.integers(0, n + 7, b))
-    keys = keys.astype(np.int32)
-    enc = np.where(rng.random((b, c)) < 0.6,
-                   rng.integers(0, 1 << 30, (b, c)), -1).astype(np.int32)
-    want = np.full((n, c), -1, np.int64)
-    m = keys < n
+        keys = rng.integers(0, n + 7, b)
+    return np.sort(keys).astype(np.int32)
+
+
+def _land_oracle(keys, enc, n):
+    want = np.full((n, enc.shape[1]), -1, np.int64)
+    m = (keys >= 0) & (keys < n)
     if m.any():
         np.maximum.at(want, keys[m], enc[m])
-    return keys, enc, want
+    return want
+
+
+def _land_case(seed, b, c, n, kind="random"):
+    rng = np.random.default_rng(seed)
+    keys = _land_keys(rng, b, n, kind)
+    enc = np.where(rng.random((b, c)) < 0.6,
+                   rng.integers(0, 1 << 30, (b, c)), -1).astype(np.int32)
+    return keys, enc, _land_oracle(keys, enc, n)
 
 
 LAND_CASES = [
@@ -47,6 +66,11 @@ LAND_CASES = [
     (512, 2, 64, "all_dropped"),
     (333, 5, 97, "key_eq_n"),
     (256, 3, 4096, "sparse_rows"),
+    (30000, 5, 5000, "hot_run"),      # a run over many lane rounds
+    (4096, 5, 200000, "band"),        # 66,667 empty rows at each end
+    (777, 5, 0, "rows_zero"),
+    (2000, 4, 1000, "many_eq_n"),
+    (36864, 5, 1543432, "random"),    # the sibling's landing shape
 ]
 
 
@@ -146,10 +170,67 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,n,kind", LAND_CASES)
 def test_land_kernel_on_card(card, b, c, n, kind):
+    """Bit-equal to the oracle, one launch a call, and two launches
+    bit-equal to each other."""
     keys, enc, want = _land_case(b + n, b, c, n, kind)
+    tk, te = torch.from_numpy(keys).to(card), torch.from_numpy(enc).to(card)
+    before = land.KERNEL.launches
+    got = land.land_max(te, tk, n)
+    again = land.land_max(te, tk, n)
+    torch.cuda.synchronize()
+    assert land.KERNEL.launches == before + 2
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,run", [(9646, 5, 4096), (9646, 5, 9000),
+                                     (1543432, 5, 4096), (5000, 2, 20000),
+                                     (300, 33, 4096)])
+def test_land_kernel_hot_runs_at_tile_edges(card, n, c, run):
+    """Runs of `run` lanes on the last row of the first row tile the
+    kernel picks, the first row of the next and the last row of the
+    second: each crosses many lane rounds of its block and sits at a
+    block edge, beside random lanes and dropped ones."""
+    r = land.rows_per_block(n, c)
+    rng = np.random.default_rng(n + run)
+    hot = [x for x in (r - 1, r, 2 * r - 1) if x < n]
+    keys = np.sort(np.concatenate(
+        [rng.integers(-3, n + 3, 5000)]
+        + [np.full(run, x) for x in hot])).astype(np.int32)
+    enc = np.where(rng.random((keys.size, c)) < 0.7,
+                   rng.integers(0, 1 << 30, (keys.size, c)),
+                   -1).astype(np.int32)
     got = land.land_max(torch.from_numpy(enc).to(card),
                         torch.from_numpy(keys).to(card), n)
-    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _land_oracle(keys, enc, n))
+
+
+@pytest.mark.cuda
+def test_land_kernel_traps_on_a_descent(card, tmp_path):
+    """Unsorted keys trip the kernel's device-side assert: the process's
+    next synchronize raises instead of returning a landing. Run in a
+    child process, since a device assert ends the CUDA context."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    script = tmp_path / "descent.py"
+    script.write_text(
+        "import sys, torch\n"
+        f"sys.path.insert(0, {str(repo)!r})\n"
+        "from cafe_tpu_torch.kernels import land\n"
+        "keys = torch.arange(4096, dtype=torch.int32, device='cuda')\n"
+        "keys[2000] = 5\n"
+        "enc = torch.zeros((4096, 3), dtype=torch.int32, device='cuda')\n"
+        "land.land_max(enc, keys, 4096)\n"
+        "torch.cuda.synchronize()\n"
+        "print('LANDED')\n")
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0 and "LANDED" not in res.stdout
+    assert "assert" in (res.stdout + res.stderr).lower()
 
 
 @pytest.mark.cuda
@@ -213,6 +294,28 @@ def test_a2a_kernel_n1_on_card(card):
         torch.cuda.synchronize()
         assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
     assert a2a.KERNEL.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbytes,offset", [(1, 0), (13, 0), (4096, 0),
+                                           (213000, 0), (213000, 1),
+                                           (53248 * 64, 0)])
+def test_a2a_kernel_n1_sizes_on_card(card, nbytes, offset):
+    """K5 at n = 1 over chunks of 1, 13, 4,096 and 213,000 bytes (16-byte
+    vectors with a byte tail; a view one byte off alignment, copied in
+    bytes) and the headline's rows leg (3.4 MB): bit-equal, one launch a
+    call."""
+    from cafe_tpu_torch.parallel import Mesh
+    mesh = Mesh(size=1, rank=0, device=card, group=None)
+    gen = torch.Generator(device="cpu").manual_seed(nbytes + offset)
+    base = torch.randint(0, 256, (1, nbytes + offset), dtype=torch.uint8,
+                         generator=gen).to(card)
+    x = base[:, offset:]
+    before = a2a.KERNEL.launches
+    got = a2a.all_to_all(x, mesh)
+    torch.cuda.synchronize()
+    assert a2a.KERNEL.launches == before + 1
+    assert got.shape == x.shape and torch.equal(got, x)
 
 
 @pytest.mark.cuda

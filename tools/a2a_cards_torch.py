@@ -2,7 +2,7 @@
 """K5 and the sharded headline step across the cards of one host, for the
 PyTorch / CUDA port (cafe_tpu_torch; no jax).
 
-    python3 tools/a2a_cards_torch.py [--world N]
+    python3 tools/a2a_cards_torch.py [--world N] [--phases a2a,steps]
 
 Starts one process per card (N = every visible card, at most 8), joined
 by NCCL, and prints one JSON line per phase from rank 0:
@@ -11,11 +11,23 @@ by NCCL, and prints one JSON line per phase from rank 0:
    batch 2048 over Criteo-Kaggle's 26 fields, so m = 53,248 / N lanes a
    rank and C = a2a_cap(m, N)): ids [N, C] int32 and rows [N, C, 16] f32.
    K5 (kernels/a2a.py) must equal its plain version (NCCL
-   all_to_all_single) bit for bit on every rank; both are timed with
-   CUDA events over windows of back-to-back calls (median of 5 windows
-   of 20, each window started after a barrier), beside the least time:
-   the larger of 2 x (N*C*row bytes) at 3.35 TB/s and the (N-1)/N of it
-   that leaves the card at 450 GB/s (NVLink, one direction);
+   all_to_all_single) bit for bit on every rank. Both are timed with
+   CUDA events over windows of 20 back-to-back calls, median of 5
+   windows, each started after a barrier: `ms` queues the window behind
+   a device sleep, so it is device time and not the host's enqueue;
+   `eager_ms` starts at once (the host's launch cost shows where it is
+   the longer). Beside them the least time: the larger of 2 x (N*C*row
+   bytes) at 3.35 TB/s and the (N-1)/N of it that leaves the card at
+   450 GB/s (NVLink, one direction). Then K5's breakdown, device time a
+   call (median) read by kernel name from a torch.profiler window of 20
+   calls:
+   `send_ms` (a2a_send_kernel), `recv_ms` (a2a_recv_kernel: the wait
+   for the peers' parts and the copy out of the receive slots), and
+   `copy_out_ms`, the RECV kernel's time when every rank's SEND has
+   finished before it starts (kernels/a2a.py `send`, a device
+   synchronize and a barrier, then `receive`), so `wait_ms` = recv_ms -
+   copy_out_ms. A tree whose a2a.py has no `send` / `receive` reports
+   copy_out_ms and wait_ms as null;
 2. steps: the sharded headline (DLRM + CAFE, dim 16, cr 1e-3, bf16
    towers, SGD) on the N-card mesh in each exchange mode: ms/step (host
    clock around 3 windows of 10 steps ended by a device synchronize and
@@ -45,13 +57,18 @@ NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink, one direction
 BATCH, FIELDS, DIM = 2048, 26, 16
 
 
-def _window_ms(fn, mesh, calls=20, windows=5) -> float:
+SLEEP_CYCLES = 20_000_000       # ~11 ms at 1.75 GHz: longer than 20 enqueues
+
+
+def _window_ms(fn, mesh, calls=20, windows=5, behind_sleep=True) -> float:
     out = []
     for _ in range(windows):
         torch.cuda.synchronize()
         dist.barrier(group=mesh.group)
         start, end = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
+        if behind_sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -59,6 +76,53 @@ def _window_ms(fn, mesh, calls=20, windows=5) -> float:
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / calls)
     return float(np.median(out))
+
+
+def _kernel_ms(fn, patterns, mesh, calls=20) -> dict:
+    """Median device ms of each kernel-name pattern's launches in a
+    profiler window of `calls` fn() calls, started after a barrier (the
+    median keeps the first call's wait for the slowest rank out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {name: [] for name in patterns}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, pattern in patterns.items():
+            if pattern in e.name:
+                times[name].append(e.time_range.elapsed_us() / 1e3)
+    return {name: float(np.median(t)) if t else None
+            for name, t in times.items()}
+
+
+def breakdown(a2a, x, mesh) -> dict:
+    """K5's send / recv device time a call back to back, and the RECV
+    kernel's time alone when the peers' parts have all arrived."""
+    names = {"send_ms": "a2a_send_kernel", "recv_ms": "a2a_recv_kernel"}
+    rec = _kernel_ms(lambda: a2a.all_to_all(x, mesh), names, mesh)
+    rec.update(copy_out_ms=None, wait_ms=None)
+    if hasattr(a2a, "send") and hasattr(a2a, "receive"):
+        def apart():
+            pending = a2a.send(x, mesh)
+            torch.cuda.synchronize()
+            dist.barrier(group=mesh.group)
+            a2a.receive(pending)
+        alone = _kernel_ms(apart, names, mesh)
+        rec["copy_out_ms"] = alone["recv_ms"]
+        rec["send_alone_ms"] = alone["send_ms"]
+        if rec["recv_ms"] is not None and alone["recv_ms"] is not None:
+            rec["wait_ms"] = rec["recv_ms"] - alone["recv_ms"]
+    every = [None] * mesh.size
+    dist.all_gather_object(every, rec, group=mesh.group)
+    rec["recv_ms_every_rank"] = [r["recv_ms"] for r in every]
+    return rec
 
 
 def phase_a2a(mesh):
@@ -91,6 +155,13 @@ def phase_a2a(mesh):
                      "ms": _window_ms(lambda: a2a.all_to_all(x, mesh), mesh),
                      "plain_ms": _window_ms(
                          lambda: a2a.all_to_all_plain(x, mesh), mesh),
+                     "eager_ms": _window_ms(
+                         lambda: a2a.all_to_all(x, mesh), mesh,
+                         behind_sleep=False),
+                     "plain_eager_ms": _window_ms(
+                         lambda: a2a.all_to_all_plain(x, mesh), mesh,
+                         behind_sleep=False),
+                     "breakdown": breakdown(a2a, x, mesh),
                      "bound_ms": max(t_hbm, t_link) * 1e3,
                      "bound_by": "bytes (HBM)" if t_hbm >= t_link
                      else "bytes (NVLink)"}
@@ -136,15 +207,18 @@ def phase_steps(mesh):
     return rec
 
 
-def rank_main(rank, world, store):
+PHASES = {"a2a": phase_a2a, "steps": phase_steps}
+
+
+def rank_main(rank, world, store, phases):
     os.environ["LOCAL_RANK"] = str(rank)
     sys.path.insert(0, REPO)
     from cafe_tpu_torch.parallel import make_mesh
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     mesh = make_mesh(world, device="cuda")
-    for name, fn in (("a2a", phase_a2a), ("steps", phase_steps)):
-        rec = fn(mesh)
+    for name in phases:
+        rec = PHASES[name](mesh)
         if rank == 0:
             print(json.dumps({"phase": name, **rec}), flush=True)
     mesh.close()
@@ -158,6 +232,13 @@ def main() -> int:
     world = min(torch.cuda.device_count(), 8)
     if "--world" in sys.argv:
         world = int(sys.argv[sys.argv.index("--world") + 1])
+    phases = list(PHASES)
+    if "--phases" in sys.argv:
+        phases = sys.argv[sys.argv.index("--phases") + 1].split(",")
+        if not set(phases) <= set(PHASES):
+            print(f"a2a_cards_torch: phases are {list(PHASES)}",
+                  file=sys.stderr)
+            return 2
     sys.path.insert(0, REPO)
     from cafe_tpu_torch.kernels import build
     build.build()              # once, before the ranks load the libraries
@@ -166,7 +247,8 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="a2a_cards_",
                             dir=os.path.join(REPO, "build"))
     procs = [ctx.Process(target=rank_main,
-                         args=(r, world, os.path.join(root, "store")))
+                         args=(r, world, os.path.join(root, "store"),
+                               phases))
              for r in range(world)]
     for p in procs:
         p.start()
