@@ -21,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "cafe_tpu_torch"
 SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu", "gather.cu", "a2a.cu")
@@ -86,14 +88,20 @@ def load(source: str) -> ctypes.CDLL:
 class CudaKernel:
     """One C entry point of a `.cu` source, loaded at its first launch.
 
-    `launches` counts the launches that went through this object and
-    nothing else, so a run can show that its path reached the kernel."""
+    `launches` counts the launches of this kernel and nothing else, so a
+    run can show that its path reached the kernel. A call made while the
+    current stream captures a CUDA graph launches nothing: it adds to
+    `captured` instead, and the graph adds what its capture added to
+    `launches`, and to `graph_launches`, at every replay
+    (train/capture.py)."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.captured = 0
+        self.graph_launches = 0
         self._fn = None
 
     def __call__(self, *args) -> None:
@@ -107,4 +115,7 @@ class CudaKernel:
             msg = load(self.source).cafe_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: launch failed with CUDA "
                                f"error {err} ({msg})")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1

@@ -11,7 +11,8 @@ over bit_length(N) bits, and the ported kernel sums each run of equal
 keys tile by tile, reading the updates through the sorted lane order
 (no permuted copy), with a fix-up kernel for the runs that cross tiles.
 Its workspace is one torch allocation, sized by a query entry and kept
-per device and stream. The TPU's [B, D] -> [D, B] transpose is a layout
+per device and stream, made before any CUDA graph captures a call
+(`_workspace`). The TPU's [B, D] -> [D, B] transpose is a layout
 for its MXU and has no counterpart here.
 
 `sparse_add_dense_` launches the kernel for a CUDA table and runs
@@ -152,10 +153,22 @@ def workspace_bytes(lanes: int, dim: int, n_rows: int, device: int) -> int:
 
 def _workspace(device: torch.device, stream, nbytes: int) -> torch.Tensor:
     """The workspace kept for this device and stream, grown to `nbytes`.
-    Work on one stream runs in order, so the next call may reuse it."""
+    Work on one stream runs in order, so the next call may reuse it.
+
+    A stream that captures a CUDA graph must find it made: an eager call
+    at the same shape on that stream allocates it before the capture
+    (train/capture.py warms up on the stream it captures on), and the
+    graph then reuses it at every replay. Allocating it inside the
+    capture would take it from that graph's private pool and hand it to
+    the next capture on the stream as well, so this raises instead."""
     key = (device.index, stream.cuda_stream)
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < nbytes:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"sparse_add_dense_: no {nbytes}-byte workspace on the "
+                f"capturing stream; run one eager call at this shape on "
+                f"that stream before capturing")
         ws = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
         _WORKSPACES[key] = ws
     return ws

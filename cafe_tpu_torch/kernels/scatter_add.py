@@ -47,11 +47,13 @@ def _check(table: torch.Tensor, ids: torch.Tensor,
 
 def scatter_add_plain_(table: torch.Tensor, ids: torch.Tensor,
                        upd: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version: index_add_ of the in-range
-    lanes, in place."""
+    """The kernel's plain PyTorch version, in place: one index_add_, in
+    which each dropped lane adds +0.0 to row 0 (no boolean mask, whose
+    output shape would depend on the data)."""
     _check(table, ids, upd)
     keep = (ids >= 0) & (ids < table.shape[0])
-    table.index_add_(0, ids[keep].long(), upd[keep])
+    table.index_add_(0, torch.where(keep, ids, 0).long(),
+                     torch.where(keep[:, None], upd, 0.0))
     return table
 
 

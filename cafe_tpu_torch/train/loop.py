@@ -70,11 +70,13 @@ def model_arch(cfg: Config, num_dense: int, num_sparse: int):
 
 
 def build_all(cfg: Config, train_data=None, device="cuda", params=None,
-              mesh=None):
+              mesh=None, capture=True):
     """Construct (model, embed_layer, state, train_step, eval_step) on
     `device` (default the card; raises without CUDA unless device='cpu').
     `params` replaces the model's own dense init (bridge.py brings the
-    JAX package's over).
+    JAX package's over). On the card the steps replay CUDA graphs where
+    the configuration allows (train/step.capture_blockers); `capture`
+    False keeps them eager.
 
     With `mesh` (parallel.make_mesh; its device replaces `device`), the
     layer works on this rank's batch slice; with cfg.shard_embeddings the
@@ -114,8 +116,9 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
                        params=params)
     if mesh is not None:
         state = shard_state(state, mesh, embed)
-    return model, embed, state, build_train_step(model, embed, cfg, mesh), \
-        build_eval_step(model, embed)
+    return model, embed, state, \
+        build_train_step(model, embed, cfg, mesh, capture=capture), \
+        build_eval_step(model, embed, capture=capture)
 
 
 def get_dataset(cfg: Config, phase: str) -> CTRArrays:
@@ -213,7 +216,9 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
             p = eval_step(state, dense, sparse)
             if mesh is not None:
                 p, label = all_gather(p, mesh), all_gather(label, mesh)
-            scores.append(p[:valid])
+            # a graphed eval step returns one output tensor, which its
+            # next replay overwrites: keep a copy of each batch's scores
+            scores.append(p[:valid].clone())
             targets.append(label[:valid])
         return binary_metrics(torch.cat(targets).cpu().numpy(),
                               torch.cat(scores).cpu().numpy()), 0.0
@@ -254,7 +259,7 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
         p = eval_step(state, _on(dense, dev), _on(sparse, dev))
         if it >= 10:
             n_timed += 1
-            acc = p[0] if acc is None else acc + p[0]
+            acc = p[0].clone() if acc is None else acc + p[0]
             if n_timed % qbound == 0:
                 fence(acc)
         if it == 1023:
@@ -279,7 +284,10 @@ def _quiet(*args, **kwargs) -> None:
     """print() of the ranks other than 0."""
 
 
-def run(cfg: Config) -> Dict:
+def run(cfg: Config, capture: bool = True) -> Dict:
+    """Train / evaluate as main.py does. On the card the steps replay
+    CUDA graphs where the configuration allows; `capture` False keeps
+    them eager (build_all)."""
     t_build = time.time()
     check_supported(cfg)
     device = resolve_device("cpu" if cfg.force_platform == "cpu"
@@ -297,7 +305,7 @@ def run(cfg: Config) -> Dict:
                     raise ValueError(f"--{nm} {bs} must divide by the "
                                      f"{mesh.size}-device mesh")
             device = mesh.device
-        result = _run(cfg, t_build, device, mesh)
+        result = _run(cfg, t_build, device, mesh, capture)
         # close() is collective: a rank that failed skips it, so that it
         # exits instead of waiting for ranks that may never arrive
         if mesh is not None:
@@ -308,13 +316,13 @@ def run(cfg: Config) -> Dict:
             dist.destroy_process_group()
 
 
-def _run(cfg: Config, t_build: float, device, mesh) -> Dict:
+def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
     main = mesh is None or mesh.rank == 0
     print_ = print if main else _quiet
     train_data = get_dataset(cfg, "train")
     test_data = get_dataset(cfg, "test")
     model, embed, state, train_step, eval_step = build_all(
-        cfg, train_data, device=device, mesh=mesh)
+        cfg, train_data, device=device, mesh=mesh, capture=capture)
     if mesh is not None:
         print_(f"sharded over {mesh.size} ranks ({mesh.backend}; "
                f"shard_embeddings={cfg.shard_embeddings}, "

@@ -24,15 +24,27 @@ max(sum(w), 1): each rank weights its lanes by their global positions,
 divides its local sum by the global weight, and the dense gradients are
 summed over the mesh. That is exactly the global gradient, so the
 embedding row gradients need no rescaling; the metrics come back global.
+
+`valid` may be a Python int or an int32 tensor; the step turns it into a
+tensor on the batch's device and computes the weights from it there, so
+no value is read back to the host and one CUDA graph serves every
+`valid`, as one jit trace does.
+
+On the card the three builders return CUDA-graph steps
+(train/capture.GraphedStep, `.graphed` True) when the configuration
+allows it: `capture_blockers` lists what keeps a train step eager,
+decided when the step is built. CPU steps and `capture=False` are eager
+(`.graphed` False).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .capture import GraphedStep
 from .lr_schedule import lr_policy
 
 EPS = 1e-7
@@ -117,12 +129,22 @@ def _leaves(tree) -> list:
     return [tree]
 
 
-def _bce(p, y, w, w_total: float):
+def _bce(p, y, w, w_total: torch.Tensor):
     """sum(losses * w) / max(w_total, 1): w_total is the whole (global)
-    batch's weight, so an all-padding (sub-)batch returns 0, not 0/0."""
+    batch's weight, an f32 tensor, so an all-padding (sub-)batch returns
+    0, not 0/0."""
     p = p.clamp(EPS, 1.0 - EPS)
     losses = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p))
-    return (losses * w).sum() / max(w_total, 1.0)
+    return (losses * w).sum() / w_total.clamp_min(1.0)
+
+
+def _valid_tensor(valid, device) -> torch.Tensor:
+    """`valid` as an int32 scalar on `device`: a tensor is moved, an int
+    is written by a fill kernel (a tensor made from host memory would be
+    a copy that waits for the card)."""
+    if isinstance(valid, torch.Tensor):
+        return valid.to(device=device, dtype=torch.int32)
+    return torch.full((), int(valid), dtype=torch.int32, device=device)
 
 
 def _psum_(tensors, mesh) -> None:
@@ -159,16 +181,52 @@ def _dense_update(params, grads, opt, lr, kind):
     return opt
 
 
-def build_train_step(model, embed_layer, cfg, mesh=None):
+_UNDONATED = ("donate_state False: each replay would have to clone the "
+              "whole state")
+
+
+def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
+    """What keeps the train step of `cfg` from replaying a CUDA graph,
+    each with the code that keeps it eager; empty when nothing does.
+    Decided from the configuration when the step is built, never from a
+    failed capture."""
+    out = []
+    if mesh is not None:
+        out.append("a mesh: the step's collectives run on a process group "
+                   "this port does not capture, its a2a and pallas legs "
+                   "read an overflow flag back to the host "
+                   "(parallel/exchange.py any_rank), and K5 at n > 1 keeps "
+                   "a host epoch (kernels/a2a.py)")
+    if cfg.optimizer != "sgd":
+        out.append(f"optimizer {cfg.optimizer}: the per-row sparse apply "
+                   f"keeps rows through a boolean mask, a shape that "
+                   f"depends on the data (ops/sparse.py _kept_rows)")
+    if any(getattr(p, "insert_interval", 1) > 1 for p in embed_layer.parts):
+        out.append("cafe_insert_interval > 1: the insert reads the tick "
+                   "back to the host every step (embeddings/cafe.py "
+                   "apply_grads)")
+    if not cfg.donate_state:
+        out.append(_UNDONATED)
+    return out
+
+
+def _eager(fn, blockers):
+    fn.graphed = False
+    fn.capture_blockers = blockers
+    return fn
+
+
+def build_train_step(model, embed_layer, cfg, mesh=None, capture=True):
     """The step on one device, or with `mesh` this rank's share of the
     mesh's step: `ids` etc. are this rank's slice and `valid` counts the
     valid rows of the GLOBAL batch. In place unless cfg.donate_state is
-    False (module docstring)."""
+    False (module docstring). On the card, with `capture` and no
+    capture_blockers, a GraphedStep; else the eager step."""
     base_lr = cfg.learning_rate
     use_sched = cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0
     n, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
 
-    def train_step(state: TrainState, dense_x, ids, labels, valid: int
+    def train_step(state: TrainState, dense_x, ids, labels, valid
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = ids.shape[0]
         if use_sched:
@@ -176,9 +234,10 @@ def build_train_step(model, embed_layer, cfg, mesh=None):
                            cfg.lr_decay_start_step, cfg.lr_num_decay_steps)
         else:
             lr = base_lr
+        valid = _valid_tensor(valid, ids.device)
         lanes = torch.arange(rank * b, (rank + 1) * b, device=ids.device)
         w = (lanes < valid).float()
-        w_total = float(min(max(int(valid), 0), n * b))
+        w_total = valid.clamp(0, n * b).float()
         raws, auxs = embed_layer.gather(state.embed, ids)
         raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
         dense = [state.params, state.embed_dense]
@@ -209,7 +268,11 @@ def build_train_step(model, embed_layer, cfg, mesh=None):
         return TrainState(state.params, embed, state.embed_dense, opt,
                           state.step + 1), metrics
 
-    return train_step if cfg.donate_state else _undonated(train_step)
+    blockers = capture_blockers(cfg, embed_layer, mesh)
+    if capture and not blockers and embed_layer.device.type == "cuda":
+        return GraphedStep(train_step, carry=True)
+    return _eager(train_step if cfg.donate_state else _undonated(train_step),
+                  blockers)
 
 
 def _weighted(name: str) -> bool:
@@ -218,24 +281,28 @@ def _weighted(name: str) -> bool:
 
 def build_multi_step(train_step, k: int, donate: bool = False):
     """k sequential train steps per call over a flat [k*B] batch: sub-batch
-    i takes rows [i*B, (i+1)*B) and valid_i = clip(valid - i*B, 0, B).
-    Metrics come back as one step's: weighted means (by each sub-batch's
-    weight) for loss and *_frac, sums for the counters.
+    i takes rows [i*B, (i+1)*B) and valid_i = clip(valid - i*B, 0, B),
+    computed on the device. Metrics come back as one step's: weighted
+    means (by each sub-batch's weight) for loss and *_frac, sums for the
+    counters.
 
-    The sub-steps run the in-place step (`train_step.__wrapped__` when the
-    step was built un-donated). `donate` False clones the incoming state
-    once per call, so the caller's state stays valid; True updates it in
-    place, as the JAX package's donate_argnums does."""
+    The sub-steps run the in-place step (`train_step.__wrapped__`: the
+    eager step under a GraphedStep or an un-donated step). `donate` False
+    clones the incoming state once per call, so the caller's state stays
+    valid; True updates it in place, as the JAX package's donate_argnums
+    does. With `donate` and a graphed `train_step`, the k steps are one
+    GraphedStep: one replay a call."""
     inner = getattr(train_step, "__wrapped__", train_step)
 
-    def multi_step(state: TrainState, dense_x, ids, labels, valid: int):
+    def multi_step(state: TrainState, dense_x, ids, labels, valid):
         if not donate:
             state = clone_state(state)
         b = ids.shape[0] // k
+        valid = _valid_tensor(valid, ids.device)
         agg = None
         for i in range(k):
             sl = slice(i * b, (i + 1) * b)
-            v_i = min(max(valid - i * b, 0), b)
+            v_i = (valid - i * b).clamp(0, b)
             dx = None if dense_x is None else dense_x[sl]
             state, m = inner(state, dx, ids[sl], labels[sl], v_i)
             m = {name: v * m["weight"] if _weighted(name) else v
@@ -246,14 +313,25 @@ def build_multi_step(train_step, k: int, donate: bool = False):
         return state, {name: v / denom if _weighted(name) else v
                        for name, v in agg.items()}
 
-    return multi_step
+    if donate and getattr(train_step, "graphed", False):
+        return GraphedStep(multi_step, carry=True)
+    blockers = list(getattr(train_step, "capture_blockers", []))
+    if not donate:
+        blockers.append(_UNDONATED)
+    return _eager(multi_step, list(dict.fromkeys(blockers)))
 
 
-def build_eval_step(model, embed_layer):
+def build_eval_step(model, embed_layer, capture=True):
+    """Scores [B] of a batch. On the card, with `capture` and no mesh, a
+    GraphedStep whose output tensor the next call overwrites."""
     @torch.no_grad()
     def eval_step(state: TrainState, dense_x, ids):
         raws, _ = embed_layer.gather(state.embed, ids)
         feats = embed_layer.transform(state.embed_dense, raws)
         return model.apply(state.params, dense_x, feats)
 
-    return eval_step
+    blockers = [] if embed_layer.mesh is None else [
+        "a mesh: the exchange's collectives are not captured"]
+    if capture and not blockers and embed_layer.device.type == "cuda":
+        return GraphedStep(eval_step, carry=False)
+    return _eager(eval_step, blockers)

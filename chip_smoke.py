@@ -16,7 +16,9 @@ Phases, each printing one JSON line and raising on failure:
    replayed CUDA graph of 20 calls (`graph_ms`);
 3. headline: DLRM + CAFE, Criteo-Kaggle's 26 vocabularies, batch 2048,
    dim 16, cr 1e-3, bf16 towers, SGD, a sketch insert every step — timed
-   steps through build_all / train_step; K1 must launch once per step;
+   eager steps through build_all(capture=False) / train_step; K1 must
+   launch once per step (phases 3, 5, 7 and 8 drive the eager step, as
+   before the steps were graphed; phases 17-21 the graphed one);
 4. kernels_rowsum: K3 against its plain version at the headline table
    (27,136 x 16) with 53,248 lanes: the ids the trained CafePart routes
    a batch to, duplicate-heavy Zipf ids, and one row taking every kept
@@ -26,7 +28,9 @@ Phases, each printing one JSON line and raising on failure:
    sort, sum, fix-up) read by kernel name from a torch.profiler window;
 5. headline_dense: the headline with --sparse_apply_impl dense; K1 and K3
    must each launch once per step;
-6. parity: 3 headline steps on the card and on the CPU from one state
+6. parity: 3 headline steps on the card (build_all's default step: 2
+   eager warm-up calls, then a captured CUDA graph) and on the CPU from
+   one state
    (frequency scores, low threshold so ids promote), for the auto and the
    dense sparse apply: sketch and routing equal, loss / params / table
    within a stated tolerance;
@@ -36,12 +40,14 @@ Phases, each printing one JSON line and raising on failure:
    device busy time, idle share, kernels per step (tables in
    chiprun_out/); the landing must be one kernel a step (K1's
    land_max_kernel, no fill kernel);
-9. cli: main_torch.main on a Criteo-Kaggle-shaped memmap in the
+9. cli (run after phase 21): main_torch.main, whose train and eval
+   steps replay CUDA graphs, on a Criteo-Kaggle-shaped memmap in the
    reference's binary format (114,688 rows: 48 train and 8 test batches
    of 2048) with the headline flags, --sparse_apply_impl dense and an lr
    schedule: run A trains, evaluates twice and checkpoints (K1 and K3
-   must launch 48 times); run B loads the best checkpoint and must
-   reproduce run A's metrics there; run C measures the latency protocol;
+   must launch 48 times, counted per replay); run B loads the best
+   checkpoint into a graphed eval step and must reproduce run A's
+   metrics there; run C measures the latency protocol;
 10. kernels_a2a: K5 at n = 1 at the headline's exchange shapes (ids
    [1, 53,248] int32, rows [1, 53,248, 16] f32), bit-equal to its plain
    version (NCCL all_to_all_single) and timed beside it, `copy_` and the
@@ -74,15 +80,47 @@ Phases, each printing one JSON line and raising on failure:
    the pallas arm launches K1, once an insert;
 16. roofline: cafe_tpu_torch.tools.roofline at its default shapes: K2
    launched by optimizer_apply, every frac_of_peak <= 1.05.
-The tools' own prints go to chiprun_out/tools_*.txt.
+The tools' own prints go to OUT_DIR/tools_*.txt; the tools time eager
+steps.
 
-Then the kernels line (every kernel's launches on the main path, error,
-times, bound and, for K1 and K5, graph_ms) and, last, the device line.
+The compiled step (CUDA graphs, train/capture.py), run before phase 9:
+
+17-19. headline_graph, headline_dense_graph, sibling_graph: the step of
+   phases 3, 5 and 7 built graphed (it must report `.graphed`) and eager
+   on one state, in alternating windows of 20 steps ended by a
+   synchronize, 5 each: ms/step and windows of each, peak memory,
+   capture time, and the launches a graphed step makes, counted per
+   replay, which must equal what the capture recorded (K1 once; K3 or
+   K2 once in dense and sibling). Then the gate `replay_equals_eager`,
+   with frequency scores and a low threshold (ids promote) over 12
+   batches with a tail and an empty one: from one start state the
+   sketch, tick, step, promotions and routed rows bit-equal between the
+   eager and the replayed trajectory (and, in dense, whose K3 apply is
+   deterministic, the tables, params and metrics); and step by step from
+   one cloned state every tensor and metric bit-equal, the tables
+   bit-equal in dense and, in headline (index_add_) and sibling (K2),
+   whose scatter-adds sum in float atomics, within twice the reordering
+   bound of the step's scatter-add (each order within it of the exact
+   sums), beside the gap between two eager steps;
+20. eval_graph: the graphed eval step's scores equal the eager one's
+   batch for batch, then alternating windows of 20 calls, 5 each;
+21. profile_headline_graph: phase 8's trace of 5 replayed headline
+   steps (device busy, idle share, kernels a step, one K1 a step);
+22. cli_timing (after phase 9): main_torch.main graphed and eager, in
+   turns, on a 630,784-row memmap (264 train batches) at
+   --steps_per_dispatch 1 and 8: train ms/it from the printed 32-it
+   windows after it 128, and each one's latency protocol (eval ms/it);
+   K1 and K3 once a step.
+
+Then the kernels line (every kernel's launches on the main path, those
+made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
+and, last, the device line.
 Exits non-zero without a CUDA card or without the cafe_tpu_torch package
 beside it.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import multiprocessing
@@ -103,6 +141,7 @@ HEADLINE_STEPS, WINDOWS = 20, 5
 SIBLING_STEPS = 5
 OUT_DIR = "chiprun_out"
 CLI_ROWS = 114688             # 6/7 train: 48 batches of 2048; 8 test ones
+CLI_TIMING_ROWS = 630784      # 264 train batches of 2048; 44 test ones
 CLI_FLAGS = ["--dataset", "criteo", "--embedding_dim", "16",
              "--compress_method", "cafe", "--compress_rate", "0.001",
              "--cafe_sketch_threshold", "500", "--cafe_hash_rate", "0.5",
@@ -323,12 +362,12 @@ def headline_cfg(Config, **kw):
 
 def drive(build_all, fence, cfg, data, batches, kernels, steps, windows,
           device="cuda", mesh=None):
-    """Build on `device` (or on `mesh`), reset the kernel counts, run 2
-    warm-up steps and `windows` timed windows of `steps` steps, each
-    ended by the port's fence (a device synchronize); return (state,
-    embed, phase record)."""
+    """Build the EAGER step on `device` (or on `mesh`), reset the kernel
+    counts, run 2 warm-up steps and `windows` timed windows of `steps`
+    steps, each ended by the port's fence (a device synchronize); return
+    (state, embed, phase record). The graphed steps: phase_graph."""
     _, embed, state, step, _ = build_all(cfg, data, device=device,
-                                         mesh=mesh)
+                                         mesh=mesh, capture=False)
     fence(state)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -411,10 +450,16 @@ def phase_parity(build_all, from_reference, to_numpy, Config, data,
     return rec
 
 
-def phase_profile(build_all, cfg, data, batches, name, mesh=None):
-    """Trace 5 steps of `cfg`; write the kernel table to chiprun_out/."""
+def phase_profile(build_all, cfg, data, batches, name, mesh=None,
+                  capture=False):
+    """Trace 5 steps of `cfg` (eager, or with `capture` the replayed
+    graph: 3 calls before the window warm it up and capture it); write
+    the kernel table to OUT_DIR."""
     from torch.profiler import ProfilerActivity, profile
-    _, _, state, step, _ = build_all(cfg, data, device="cuda", mesh=mesh)
+    _, _, state, step, _ = build_all(cfg, data, device="cuda", mesh=mesh,
+                                     capture=capture)
+    if capture and not step.graphed:
+        raise AssertionError(f"profile {name}: the step is not graphed")
     for i in range(3):
         state, _ = step(state, *batches[i])
     torch.cuda.synchronize()
@@ -456,6 +501,301 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None):
             "top_kernels": [{"name": k[:80], "ms_per_step": t / 5e3,
                              "calls_per_step": c / 5}
                             for k, t, c in dev[:10] + ours]}
+
+
+GRAPH_STEPS, GRAPH_WINDOWS = 20, 5
+# the replay gates' 12 batches: full ones, a tail and an empty batch
+GATE_VALIDS = [2048, 2048, 2048, 2048 - 301, 2048, 0, 2048, 2048, 2047,
+               2048, 2048, 2048]
+
+
+def _order(windows):
+    """Eager and graphed windows in turns, each pair's order flipped:
+    e g g e e g ..."""
+    return [m for w in range(windows)
+            for m in (("eager", "graphed") if w % 2 == 0
+                      else ("graphed", "eager"))]
+
+
+def phase_graph(build_all, build_train_step, warmup_calls, fence, cfg, data,
+                batches, kernels, steps=GRAPH_STEPS, windows=GRAPH_WINDOWS):
+    """The eager and the graphed train step of `cfg` on one state, in
+    alternating windows of `steps` steps that end in a synchronize:
+    ms/step (median of `windows` each, and the windows), peak memory,
+    capture time, and the kernel launches a graphed step counted per
+    replay, which must equal what its capture recorded."""
+    model, embed, state, g_step, _ = build_all(cfg, data, device="cuda")
+    if not g_step.graphed:
+        raise AssertionError(f"{cfg.embedding_dim}-dim step not graphed: "
+                             f"{g_step.capture_blockers}")
+    e_step = build_train_step(model, embed, cfg, capture=False)
+    steppers = {"eager": e_step, "graphed": g_step}
+    n = 0
+
+    def run(step, count):
+        nonlocal state, n
+        for _ in range(count):
+            state, m = step(state, *batches[n % len(batches)])
+            n += 1
+        fence(state, m)
+        return m
+
+    for k in kernels.values():
+        k.launches = 0
+    run(g_step, warmup_calls + 1)          # warm-up calls, then capture
+    run(e_step, 2)
+    per_replay = g_step.launches_per_replay()
+    times = {"eager": [], "graphed": []}
+    peak = {"eager": [0, 0], "graphed": [0, 0]}
+    graphed_launches = {name: 0 for name in kernels}
+    for mode in _order(windows):
+        before = {name: k.launches for name, k in kernels.items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = run(steppers[mode], steps)
+        times[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+        peak[mode] = [max(peak[mode][0], torch.cuda.max_memory_allocated()),
+                      max(peak[mode][1], torch.cuda.max_memory_reserved())]
+        if mode == "graphed":
+            for name, k in kernels.items():
+                graphed_launches[name] += k.launches - before[name]
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    per_step = {name: v / (windows * steps)
+                for name, v in graphed_launches.items() if v}
+    if per_step != {name: float(v) for name, v in per_replay.items()}:
+        raise AssertionError(f"graphed launches a step {per_step} differ "
+                             f"from the capture's {per_replay}")
+    if per_replay.get("land_max") != 1:
+        raise AssertionError(f"K1 launched {per_replay} a replay, not once")
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    return {"graphed": True, "steps": n, "windows": windows,
+            "steps_per_window": steps,
+            "eager_ms_per_step": med["eager"],
+            "graphed_ms_per_step": med["graphed"],
+            "eager_window_ms": times["eager"],
+            "graphed_window_ms": times["graphed"],
+            "speedup": med["eager"] / med["graphed"],
+            "graphed_examples_per_s": cfg.mini_batch_size * 1e3
+            / med["graphed"],
+            "peak_allocated_gb": {k: v[0] / 2**30 for k, v in peak.items()},
+            "peak_reserved_gb": {k: v[1] / 2**30 for k, v in peak.items()},
+            "capture_s": g_step.capture_s,
+            "launches_per_replay": per_replay, "loss": loss,
+            "launches": {name: k.launches for name, k in kernels.items()}}
+
+
+def lane_grads(model, embed, state, dense, ids, labels, valid, bce):
+    """d loss / d gathered rows of every part, as the train step takes
+    them (its weights, loss and autograd leaves), from `state`."""
+    raws, auxs = embed.gather(state.embed, ids)
+    raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
+    w = (torch.arange(ids.shape[0], device=ids.device) < valid).float()
+    with torch.enable_grad():
+        p = model.apply(state.params, dense,
+                        embed.transform(state.embed_dense, raws))
+        grads = torch.autograd.grad(bce(p, labels, w, w.sum()),
+                                    [raws[k] for k in sorted(raws)])
+    return dict(zip(sorted(raws), grads)), auxs
+
+
+def reorder_bound(table, rows, upd):
+    """The f32 reordering bound of one scatter-add of `upd` into `table`
+    at `rows` (phase_kernels' K2 bound): each of the g_max adds of the
+    largest group may round by 2^-24 of its running sum."""
+    _, groups = torch.unique(rows.reshape(-1), return_counts=True)
+    g_max = int(groups.max())
+    return g_max * 2.0 ** -24 * (float(table.abs().max())
+                                 + g_max * float(upd.abs().max()))
+
+
+def _bits(t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+def _equal_except(a, b, skip):
+    """Paths of the tensors of two TrainStates that differ bit for bit,
+    those in `skip` left out."""
+    out = []
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{path}[{i}]")
+        elif isinstance(x, torch.Tensor) and path not in skip \
+                and not torch.equal(_bits(x), _bits(y)):
+            out.append(path)
+    walk(a._asdict(), b._asdict(), "")
+    return out
+
+
+def gate_replay(build_all, build_train_step, clone_state, from_reference,
+                to_numpy, bce, cfg, data, batches, exact_tables):
+    """Replayed steps against eager ones, with frequency scores (integer
+    counts, so no float sum can move the sketch):
+
+    * trajectory: from one start state, the eager and the graphed step
+      over the 12 GATE_VALIDS batches (a tail, an empty batch): sketch,
+      tick, step, promotions and routed rows bit-equal; with
+      `exact_tables` (a deterministic apply) the tables, params and
+      metrics too; else their largest differences are recorded;
+    * per step: before each of the 12 steps the graphed state is cloned,
+      the eager step runs on the clone and the graphed one on the state:
+      every tensor and metric bit-equal, the tables bit-equal with
+      `exact_tables`, else apart by at most twice the reordering bound of
+      the step's scatter-add (reorder_bound: float atomics in index_add_
+      and K2 sum in no fixed order, and each order lies within the bound
+      of the exact sums)."""
+    model, embed, state0, g_step, _ = build_all(cfg, data, device="cuda")
+    if not g_step.graphed:
+        raise AssertionError("gate: the step is not graphed")
+    e_step = build_train_step(model, embed, cfg, capture=False)
+    start = to_numpy(state0)
+    del state0
+
+    def batch(i):
+        return (*batches[i % len(batches)][:3], GATE_VALIDS[i])
+
+    def routed(state):
+        _, aux = embed.gather(state.embed, batches[0][1])
+        return aux["part0"][1]
+
+    runs = {}
+    for name, step in (("eager", e_step), ("graphed", g_step)):
+        st, ms = from_reference(start, "cuda"), []
+        for i in range(len(GATE_VALIDS)):
+            st, m = step(st, *batch(i))
+            ms.append({k: v.clone() for k, v in m.items()})
+        runs[name] = (st, ms)
+    torch.cuda.synchronize()
+    (e_st, e_ms), (g_st, g_ms) = runs["eager"], runs["graphed"]
+    ints = [f"/embed/{p}/{k}" for p in e_st.embed
+            for k in ("tick", "sketch") if k in e_st.embed[p]]
+    diff = _equal_except(e_st, g_st, skip=())
+    bad_int = [d for d in diff if d == "/step"
+               or any(d.startswith(i) for i in ints)]
+    promos = [[float(m["cafe_promotions"]) for m in ms]
+              for ms in (e_ms, g_ms)]
+    if bad_int or promos[0] != promos[1] \
+            or not torch.equal(routed(e_st), routed(g_st)):
+        raise AssertionError(f"gate trajectory: integer state differs "
+                             f"{bad_int}, promotions {promos}")
+    if sum(promos[0]) == 0:
+        raise AssertionError("gate: no id promoted")
+    metric_diff = max(float((em[k] - gm[k]).abs().max())
+                      for em, gm in zip(e_ms, g_ms) for k in em)
+    if exact_tables and (diff or metric_diff != 0.0):
+        raise AssertionError(f"gate trajectory: {diff} differ, metrics by "
+                             f"{metric_diff}")
+    e_np, g_np = to_numpy(e_st), to_numpy(g_st)
+    traj = {"steps": len(GATE_VALIDS), "valids": GATE_VALIDS,
+            "integer_state_equal": True, "promotions": promos[1],
+            "float_leaves_differing": diff,
+            "max_abs_diff_metrics": metric_diff,
+            "max_abs_diff_tables": {
+                p: float(np.max(np.abs(e_np["embed"][p]["table"]
+                                       - g_np["embed"][p]["table"])))
+                for p in e_np["embed"]},
+            "max_abs_diff_params": float(max(
+                np.max(np.abs(a[k] - b[k]))
+                for t in ("bot", "top")
+                for a, b in zip(e_np["params"][t], g_np["params"][t])
+                for k in ("w", "b")))}
+    del runs, e_st, e_np, g_np
+
+    tables = {p: f"/embed/{p}/table" for p in g_st.embed}
+    per_step = []
+    eager_twice = []
+    for i in range(len(GATE_VALIDS)):
+        x = clone_state(g_st)
+        # a second eager step from the same state: how far two eager
+        # steps' float-atomic sums land apart (0 where none are)
+        x2 = None if exact_tables else clone_state(g_st)
+        grads, auxs = lane_grads(model, embed, x, *batch(i), bce)
+        bounds = {}
+        for p, g in grads.items():
+            rows = auxs[p][1] if isinstance(auxs[p], tuple) else auxs[p]
+            bounds[p] = reorder_bound(x.embed[p]["table"], rows,
+                                      cfg.learning_rate * g)
+        ex, em = e_step(x, *batch(i))
+        if x2 is not None:
+            x2, _ = e_step(x2, *batch(i))
+            eager_twice.append(max(float(
+                (ex.embed[p]["table"] - x2.embed[p]["table"]).abs().max())
+                for p in tables))
+        g_st, gm = g_step(g_st, *batch(i))
+        torch.cuda.synchronize()
+        diff = _equal_except(ex, g_st, skip=set(tables.values()))
+        bad_m = [k for k in em if not torch.equal(_bits(em[k]),
+                                                  _bits(gm[k]))]
+        errs = {p: float((ex.embed[p]["table"] - g_st.embed[p]["table"])
+                         .abs().max()) for p in tables}
+        # each order lies within the bound of the exact sums, so two
+        # orders lie within twice it of each other
+        bad_t = [p for p, e in errs.items()
+                 if e > (0.0 if exact_tables else 2.0 * bounds[p])]
+        if diff or bad_m or bad_t:
+            raise AssertionError(f"gate step {i}: {diff} and metrics "
+                                 f"{bad_m} differ; tables {errs} against "
+                                 f"{bounds}")
+        per_step.append({"table_max_abs_diff": errs, "bound": bounds})
+        del x, x2, ex
+    return {"exact_tables": exact_tables, "trajectory": traj,
+            "per_step": {"steps": len(per_step),
+                         "other_state_and_metrics_equal": True,
+                         "eager_vs_eager_table_max_abs_diff": eager_twice,
+                         "table_max_abs_diff": max(
+                             max(r["table_max_abs_diff"].values())
+                             for r in per_step),
+                         "largest_share_of_allowed": max(
+                             e / (2.0 * r["bound"][p]) if not exact_tables
+                             else 0.0 for r in per_step
+                             for p, e in r["table_max_abs_diff"].items()),
+                         "tightest_bound": min(min(r["bound"].values())
+                                               for r in per_step)}}
+
+
+def phase_eval_graph(build_all, cfg, data, batches, warmup_calls,
+                     calls=GRAPH_STEPS, windows=GRAPH_WINDOWS):
+    """The eager and the graphed eval step on one trained headline state:
+    scores bit-equal batch for batch, then alternating windows of
+    `calls` calls (ms a call, median of `windows` each)."""
+    model, embed, state, step, g_eval = build_all(cfg, data, device="cuda")
+    _, _, _, _, e_eval = build_all(cfg, data, device="cuda", capture=False)
+    if not g_eval.graphed or e_eval.graphed:
+        raise AssertionError("eval_graph: the eval steps are not "
+                             "(graphed, eager)")
+    for i in range(4):
+        state, _ = step(state, *batches[i])
+    for i in range(warmup_calls + len(batches)):
+        dense, sparse, _, _ = batches[i % len(batches)]
+        got = g_eval(state, dense, sparse).clone()
+        want = e_eval(state, dense, sparse)
+        if not torch.equal(got, want):
+            raise AssertionError(f"eval_graph: scores of batch {i} differ")
+    times = {"eager": [], "graphed": []}
+    for mode in _order(windows):
+        ev = g_eval if mode == "graphed" else e_eval
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            p = ev(state, *batches[i % len(batches)][:2])
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3 / calls)
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    del p
+    return {"graphed": True, "scores_equal_batches": warmup_calls
+            + len(batches), "calls_per_window": calls, "windows": windows,
+            "eager_ms_per_call": med["eager"],
+            "graphed_ms_per_call": med["graphed"],
+            "eager_window_ms": times["eager"],
+            "graphed_window_ms": times["graphed"],
+            "speedup": med["eager"] / med["graphed"],
+            "capture_s": g_eval.capture_s}
 
 
 # K3's stages by kernel name: the prep kernel, CUB's radix sort (its
@@ -660,9 +1000,56 @@ def run_cli(main_fn, argv, log_name):
     return result, buf.getvalue().splitlines()
 
 
+def cli_timing(main_fn, eager_fn, make_criteo_arrays, kernels):
+    """main_torch.main (graphed) and its eager twin in turns on a
+    CLI_TIMING_ROWS memmap (264 train batches): one epoch each at
+    --steps_per_dispatch 1 and 8, train ms/it the median of the printed
+    32-it windows after it 128 (the driver prints every it up to 100,
+    each print a synchronize); then the latency protocol of each (eval
+    ms/it). K1 and K3 must launch once a step."""
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_timing_", dir=scratch)
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_TIMING_ROWS)
+        base = CLI_FLAGS + ["--data_path", root, "--print_freq", "32"]
+        out = {"rows": CLI_TIMING_ROWS}
+        for mode, k in (("eager", 1), ("graphed", 1), ("graphed", 8),
+                        ("eager", 8)):
+            for kern in kernels.values():
+                kern.launches = 0
+            _, lines = run_cli(main_fn if mode == "graphed" else eager_fn,
+                               base + ["--steps_per_dispatch", str(k),
+                                       "--test_freq", "0"],
+                               f"cli_timing_{mode}_k{k}.txt")
+            its = [(int(w[3].split("/")[0]), float(w[7]))
+                   for w in (ln.split() for ln in lines
+                             if ln.startswith("Finished training it "))]
+            windows = [ms for it, ms in its if it > 128 and it % 32 == 0]
+            launches = {n: kern.launches for n, kern in kernels.items()}
+            if len(windows) != 4 or not (launches["land_max"]
+                                         == launches["rowsum"] == 264):
+                raise AssertionError(f"cli {mode} k={k}: windows {its}, "
+                                     f"launches {launches}")
+            out[f"{mode}_k{k}"] = {"train_ms_per_it": float(np.median(
+                windows)), "windows_ms": windows, "launches": launches}
+        for mode in ("graphed", "eager"):
+            tb = os.path.join(root, f"tb_latency_{mode}")
+            res, _ = run_cli(main_fn if mode == "graphed" else eager_fn,
+                             base + ["--test_throughput", "true",
+                                     "--tensor_board_filename", tb],
+                             f"cli_latency_{mode}.txt")
+            out[f"{mode}_latency"] = res["latency"]
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
     """Runs A (train + eval + checkpoints), B (inference from the best
-    checkpoint) and C (latency protocol) of main_torch.main."""
+    checkpoint) and C (latency protocol) of main_torch.main, whose steps
+    replay CUDA graphs on the card (train and eval)."""
     here = os.path.dirname(os.path.abspath(__file__))
     scratch = os.path.join(here, "build")
     os.makedirs(scratch, exist_ok=True)
@@ -1100,14 +1487,16 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cafe_tpu_torch.bridge import from_reference, to_numpy
-    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.config import Config, parse_args
     import main_torch
     from cafe_tpu_torch.data import make_criteo_arrays, make_criteo_batches
     from cafe_tpu_torch.kernels import (KERNELS, a2a, build, gather, land,
                                         rowsum, scatter_add)
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from cafe_tpu_torch.tools import roofline
-    from cafe_tpu_torch.train import build_all, build_multi_step
+    from cafe_tpu_torch.train import build_all, build_multi_step, run
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    from cafe_tpu_torch.train.step import _bce, build_train_step, clone_state
     from cafe_tpu_torch.utils.timing import fence
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 towers stay f32
@@ -1182,10 +1571,55 @@ def main() -> int:
         emit({"phase": f"profile_{name}", **phase_profile(
             build_all, cfg, data, batches, name)})
 
+    # ---- the compiled step: CUDA graphs beside the eager steps
+    in_graphs = {}
+
+    def graph_launches():
+        return {name: k.graph_launches for name, k in KERNELS.items()}
+
+    def count_in_graphs(path, before):
+        in_graphs[path] = {name: n - before[name]
+                           for name, n in graph_launches().items()}
+
+    for name, cfg in (("headline_graph", headline_cfg(Config)),
+                      ("headline_dense_graph",
+                       headline_cfg(Config, sparse_apply_impl="dense")),
+                      ("sibling_graph", cfg128)):
+        before = graph_launches()
+        rec = phase_graph(build_all, build_train_step, WARMUP_CALLS, fence,
+                          cfg, data, batches, KERNELS)
+        count_in_graphs(name, before)
+        by_path[name] = rec["launches"]
+        torch.cuda.empty_cache()
+        rec["replay_equals_eager"] = gate_replay(
+            build_all, build_train_step, clone_state, from_reference,
+            to_numpy, _bce, dataclasses.replace(
+                cfg, cafe_use_freq=True, cafe_sketch_threshold=2.0),
+            data, batches, exact_tables=cfg.sparse_apply_impl == "dense")
+        torch.cuda.empty_cache()
+        emit({"phase": name, **rec})
+    emit({"phase": "eval_graph", **phase_eval_graph(
+        build_all, headline_cfg(Config), data, batches, WARMUP_CALLS)})
+    emit({"phase": "profile_headline_graph", **phase_profile(
+        build_all, headline_cfg(Config), data, batches, "headline_graph",
+        capture=True)})
+
+    before = graph_launches()
     cli = phase_cli(main_torch.main, make_criteo_arrays, KERNELS)
+    count_in_graphs("cli", before)
     by_path["cli"] = cli["run_a"]["launches"]
     by_path["cli_throughput"] = cli["run_c"]["launches"]
     emit({"phase": "cli", **cli})
+    before = graph_launches()
+    timing = cli_timing(
+        main_torch.main, lambda argv: run(parse_args(argv), capture=False),
+        make_criteo_arrays, KERNELS)
+    count_in_graphs("cli_timing", before)
+    by_path["cli_timing"] = {
+        name: sum(r["launches"][name] for r in timing.values()
+                  if isinstance(r, dict) and "launches" in r)
+        for name in KERNELS}
+    emit({"phase": "cli_timing", **timing})
 
     # ---- the sharded slice at world size 1: NCCL on the card, and a
     # gloo group of 1 for the CPU side of the parity
@@ -1251,10 +1685,15 @@ def main() -> int:
     lines = []
     for name, (src, replaces, rec) in sources.items():
         launches = {path: counts[name] for path, counts in by_path.items()}
+        graphed = {path: counts[name] for path, counts in in_graphs.items()
+                   if counts[name]}
         lines.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": sum(launches.values()),
-            "launches_by_path": launches, "max_abs_err": rec["max_abs_err"],
+            "launches_by_path": launches,
+            "launches_in_graphs": sum(graphed.values()),
+            "launches_in_graphs_by_path": graphed,
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "graph_ms": rec.get("graph_ms"),
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],

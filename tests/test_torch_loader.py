@@ -93,6 +93,19 @@ def _consume(batches, sleep_cycles=0):
     return sums
 
 
+def _copy_stream_is(monkeypatch, side):
+    """Make device_prefetch's `torch.cuda.Stream(dev)` return `side`.
+    Only that positional call: torch.cuda.current_stream() builds its
+    answer with Stream(stream_id=..., ...), so a factory that returned
+    `side` for every call would make every stream look like `side`, the
+    consumer would queue its reads behind the copies, and the tests
+    below could not fail."""
+    make_stream = torch.cuda.Stream
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda *a, **k: side if a and not k
+                        else make_stream(*a, **k))
+
+
 @pytest.mark.cuda
 def test_card_prefetch_waits_for_a_slow_copy(monkeypatch):
     """The side stream is held up before every copy (~50 ms, longer than
@@ -100,7 +113,7 @@ def test_card_prefetch_waits_for_a_slow_copy(monkeypatch):
     every batch must still arrive whole."""
     _card()
     side = torch.cuda.Stream()
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: side)
+    _copy_stream_is(monkeypatch, side)
 
     def slow_copies():
         for batch in _batches(N_CARD, B_CARD, 1):
@@ -126,3 +139,46 @@ def test_card_prefetch_keeps_batches_alive_for_a_slow_consumer():
         _check_sums(_consume(device_prefetch(
             _batches(N_CARD, B_CARD, seed), "cuda", depth=1), 50_000_000),
             seed)
+
+
+def _warm_allocators(side, n):
+    """Cache, before a pass of `n` batches: n device blocks of each batch
+    array on the copy stream, n pinned host blocks of each, and the
+    consumer's checksum outputs. With every block cached no allocation
+    in the pass reaches cudaMalloc or cudaHostAlloc, either of which
+    could wait for the card and so order the streams by accident."""
+    dense, sparse, label, _ = next(_batches(1, B_CARD))
+    arrays = [torch.from_numpy(a) for a in (dense, sparse, label)]
+    pinned = [a.pin_memory() for a in arrays for _ in range(n)]
+    with torch.cuda.stream(side):
+        blocks = [a.to("cuda", non_blocking=True) for a in pinned]
+    _sums(*blocks[::n])
+    torch.cuda.synchronize()
+    del pinned, blocks
+
+
+@pytest.mark.cuda
+def test_card_prefetch_waits_for_each_copy_event(monkeypatch):
+    """The slow-copy test with the consumer on a stream of its own, the
+    batches made beforehand and warm caching allocators: the host then
+    stages every batch within microseconds, no allocation waits for the
+    card, and the consumer's stream waits for no other by itself, so
+    only its wait on each batch's copy event keeps it from reading a
+    batch the side stream has not copied yet (~100 ms behind). Without
+    that wait this test fails."""
+    _card()
+    consumer, side = torch.cuda.Stream(), torch.cuda.Stream()
+    _copy_stream_is(monkeypatch, side)
+    made = list(_batches(N_CARD, B_CARD, 3))
+
+    def slow_copies():
+        for batch in made:
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(200_000_000)
+            yield batch
+
+    with torch.cuda.stream(consumer):
+        _warm_allocators(side, 2 * N_CARD)
+        assert torch.cuda.current_stream() == consumer
+        sums = _consume(device_prefetch(slow_copies(), "cuda", depth=1))
+    _check_sums(sums, 3)

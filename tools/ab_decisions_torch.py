@@ -20,8 +20,10 @@ tools/ab_decisions.py: the same decisions, protocol and JSON lines.
 Protocol: every arm of a decision is built and warmed (10 runs) first,
 then timed in INTERLEAVED windows (A, B, A, B, ...) within one process,
 so every arm samples the same host load; each window ends with the
-port's fence (a device synchronize). Eager steps are mostly launch cost:
-compare arms only by their medians within one run.
+port's fence (a device synchronize). The arms build eager steps
+(build_all(..., capture=False)), not the CUDA graphs the port replays
+by default, so decision 1 compares donation alone. Eager steps are
+mostly launch cost: compare arms only by their medians within one run.
 
     python3 tools/ab_decisions_torch.py [--decisions 1 2 3 4] [--windows 5]
         [--steps 120] [--device cuda]
@@ -118,7 +120,8 @@ def decision_donate(windows, steps=STEPS, device="cuda", batch=BATCH,
     arms = {}
     for name, donate in (("donate_off", False), ("donate_on", True)):
         cfg = headline_config(mini_batch_size=batch, donate_state=donate)
-        _, _, state, step, _ = build_all(cfg, train_data, device=device)
+        _, _, state, step, _ = build_all(cfg, train_data, device=device,
+                                         capture=False)
         multi = build_multi_step(step, k, donate=donate)
 
         def run(carry, multi=multi):
@@ -149,7 +152,8 @@ def decision_migration_cap(windows, steps=STEPS, device="cuda", batch=BATCH,
         cfg = headline_config(dataset=dataset, embedding_dim=dim,
                               compress_rate=compress_rate,
                               mini_batch_size=batch, cafe_mig_lanes=lanes)
-        _, _, state, step, _ = build_all(cfg, train_data, device=device)
+        _, _, state, step, _ = build_all(cfg, train_data, device=device,
+                                         capture=False)
 
         def run(carry, step=step):
             st, i = carry

@@ -16,8 +16,8 @@ Three parts:
      4,096-bucket sketch; every arm must give the first arm's state bit
      for bit, or the run fails (the JAX tool only prints);
   3. the headline train step (DLRM + CAFE, dim 16, cr 1e-3, bf16 towers,
-     SGD, batch 2048, an insert every step) per arm (--skip_level2 skips
-     it).
+     SGD, batch 2048, an insert every step) per arm, eager
+     (build_all(..., capture=False)) (--skip_level2 skips it).
 
 Protocol: all arms built and warmed (6 runs) first, then timed in
 interleaved windows within one process, each ended by the port's fence.
@@ -162,7 +162,8 @@ def run(args) -> list:
                      mini_batch_size=2048, learning_rate=0.1,
                      optimizer="sgd", bf16=True, cafe_insert_interval=1,
                      cafe_land_impl=impl)
-        _, _, state, train_step, _ = build_all(cfg, train_data, device=dev)
+        _, _, state, train_step, _ = build_all(cfg, train_data, device=dev,
+                                                 capture=False)
 
         def step(carry, train_step=train_step):
             st, i = carry
