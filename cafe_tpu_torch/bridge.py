@@ -11,6 +11,14 @@ The port's state mirrors the reference one-to-one: params
 ("table", the sketch's fields as a dict under "sketch", "tick"),
 embed_dense, opt and step.
 
+AdaEmbed's sample key. The JAX AdaPart keeps a `jax.random` key (two
+uint32 words, split every step); the port keeps a fixed int64 seed and
+seeds each churn check's sample from (seed, step) (embeddings/ada.py).
+The bridge packs the key's words into that seed, hi << 32 | lo, and back:
+`PRNGKey(s)` is [0, s], so a fresh JAX state crosses as seed s, the very
+value the port's own init draws. The samples still differ between the
+packages (torch cannot run jax.random); the tests pin them.
+
 A sharded JAX state is one global state; under a mesh each port rank
 holds its slices (parallel/sharding.py). `from_reference_sharded` cuts
 rank r's state from the global arrays, and `to_reference_sharded`
@@ -32,15 +40,35 @@ def _fields(node):
     return node._asdict() if hasattr(node, "_asdict") else node
 
 
+def _is_prng_key(name, value) -> bool:
+    return (name == "key" and getattr(value, "dtype", None) == np.uint32
+            and tuple(value.shape) == (2,))
+
+
+def _key_to_seed(key) -> int:
+    """A jax.random key's two uint32 words as one int64 seed."""
+    hi, lo = (int(x) for x in np.asarray(key, dtype=np.uint32))
+    return np.int64(np.uint64((hi << 32) | lo))
+
+
+def _seed_to_key(seed) -> np.ndarray:
+    """_key_to_seed's inverse: the two uint32 words."""
+    u = int(np.uint64(np.int64(seed)))
+    return np.array([u >> 32, u & 0xFFFFFFFF], dtype=np.uint32)
+
+
 def to_torch(node, device="cuda"):
     """Any reference subtree (NamedTuples, dicts, lists, array leaves) as
-    dicts / lists of tensors on `device` (every leaf copied)."""
+    dicts / lists of tensors on `device` (every leaf copied; an AdaEmbed
+    key becomes its int64 seed)."""
     dev = resolve_device(device)
     node = _fields(node)
     if node is None:
         return None
     if isinstance(node, dict):
-        return {k: to_torch(v, dev) for k, v in node.items()}
+        return {k: (torch.tensor(_key_to_seed(v), dtype=torch.int64,
+                                 device=dev) if _is_prng_key(k, v)
+                    else to_torch(v, dev)) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [to_torch(v, dev) for v in node]
     return torch.from_numpy(np.array(node)).to(dev)
@@ -92,7 +120,9 @@ def to_reference(state, like):
         return type(like)(**{k: to_reference(state[k], v)
                              for k, v in like._asdict().items()})
     if isinstance(like, dict):
-        return {k: to_reference(state[k], v) for k, v in like.items()}
+        return {k: (_seed_to_key(state[k].item()) if _is_prng_key(k, v)
+                    else to_reference(state[k], v))
+                for k, v in like.items()}
     if isinstance(like, (list, tuple)):
         return type(like)(to_reference(s, v) for s, v in zip(state, like))
     return state.detach().cpu().numpy().astype(np.asarray(like).dtype)

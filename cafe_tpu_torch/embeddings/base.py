@@ -1,5 +1,6 @@
-"""Composite embedding layer (port of cafe_tpu/embeddings/base.py, the
-single-device parts on the ported path).
+"""Composite embedding layer (port of cafe_tpu/embeddings/base.py):
+hashed / full tables (weighted pooling too), quotient-remainder (QR),
+mixed-dimension (MDE) and offline hot/cold (Off) parts, and the layer.
 
 Fields with the same treatment are grouped into a *part* backed by one
 concatenated table, so each part is one gather and one scatter however
@@ -89,6 +90,9 @@ class Part:
     # (all-gather + owner-compute + reduce-scatter), 'a2a' (request-routed
     # dist.all_to_all_single) or 'pallas' (the same through kernel K5)
     exchange_mode = "explicit"
+    # why this part's step cannot replay a CUDA graph (the code that reads
+    # a value back to the host), or None (train/step.capture_blockers)
+    capture_blocker = None
 
     def enable_mesh(self, mesh) -> bool:
         """Opt this part into the explicit exchange. Default: stay
@@ -163,18 +167,31 @@ class Part:
 
 class HashedTablePart(Part):
     """Full and hash-compressed fields: row = offset_f + (id % real_n_f).
-    Weighted pooling is not ported yet."""
 
-    def __init__(self, field_idx, counts, real_ns, dim, optimizer="sgd"):
+    `weighted` is the legacy v_W_l weighted pooling: a per-RAW-ID scalar
+    weight `w` (gathered by the raw id before hashing, init 1) multiplies
+    the looked-up row; "learned" trains it with the part's sparse
+    optimizer, "fixed" keeps it at 1. A weighted part stays replicated
+    under a mesh (its update needs the whole batch's raw ids)."""
+
+    def __init__(self, field_idx, counts, real_ns, dim, optimizer="sgd",
+                 weighted: str = ""):
         self.field_idx = list(field_idx)
         self.counts = [int(c) for c in counts]
         self.real_ns = [int(r) for r in real_ns]
         self.dim = dim
         self.optimizer = optimizer
+        assert weighted in ("", "fixed", "learned"), weighted
+        self.weighted = weighted
         self.np_offsets = _offsets(self.real_ns)
         self.rows = int(sum(self.real_ns))
+        # the raw-id keyed weight table spans the full vocabulary
+        self.w_offsets = _offsets(self.counts)
+        self.w_rows = int(sum(self.counts))
 
     def enable_mesh(self, mesh) -> bool:
+        if self.weighted:
+            return False
         n = mesh.size
         rows_pad = round_up(self.rows)
         if rows_pad % n or rows_pad < max(n, _MIN_SHARD_ROWS):
@@ -187,15 +204,30 @@ class HashedTablePart(Part):
         state = {"table": torch.from_numpy(
             _uniform_init(rng, self.real_ns, scales, self.dim)).to(
                 self.device)}
+        if self.weighted:
+            state["w"] = torch.ones((round_up(self.w_rows), 1),
+                                    dtype=torch.float32, device=self.device)
+            if self.weighted == "learned":
+                state = self._maybe_acc(state, "w")
         return self._maybe_acc(state, "table")
+
+    def _w_index(self, ids):
+        return ids + self._const("w_offsets")
 
     def gather(self, state, ids):
         flat = (ids % self._const("real_ns")) + self._const("np_offsets")
         if self.mesh is not None:
             return self._sharded_fetch(state["table"], flat), flat
-        return state["table"][flat.long()], flat
+        rows = state["table"][flat.long()]
+        if not self.weighted:
+            return rows, flat
+        out = rows * state["w"][self._w_index(ids).long()]
+        # "learned" needs the rows before weighting in apply_grads
+        return out, ((flat, rows) if self.weighted == "learned" else flat)
 
     def apply_grads(self, state, ids, g_raw, aux, lr):
+        if self.weighted:
+            return self._apply_weighted(state, ids, g_raw, aux, lr), {}
         if self.mesh is not None:
             table, slots = self._sharded_apply(
                 state["table"], self._slots_of(state, "table"), aux, g_raw,
@@ -204,6 +236,193 @@ class HashedTablePart(Part):
                                    slots), {}
         b, f, d = g_raw.shape
         state = self._table_update(state, "table", aux.reshape(b * f),
+                                   g_raw.reshape(b * f, d), lr)
+        return state, {}
+
+    def _apply_weighted(self, state, ids, g_raw, aux, lr):
+        """raw = table[hash(i)] * w[i]: the chain rule through both
+        factors, both from the weights before this step's update."""
+        b, f, d = g_raw.shape
+        flat = aux[0] if self.weighted == "learned" else aux
+        widx = self._w_index(ids).reshape(b * f)
+        g = g_raw.reshape(b * f, d)
+        g_table = g * state["w"][widx.long()]
+        if self.weighted == "learned":
+            g_w = (g * aux[1].reshape(b * f, d)).sum(-1, keepdim=True)
+            state = self._table_update(state, "w", widx, g_w, lr)
+        return self._table_update(state, "table", flat.reshape(b * f),
+                                  g_table, lr)
+
+
+class QRPart(Part):
+    """Quotient-remainder fields: the feature vector combines
+    q[id // coll] and r[id % coll] by `operation`: "add", "mult"
+    (elementwise product) or "concat" (the two tables hold the halves of
+    the dim, q_dim = (dim + 1) // 2, so the output dim stays `dim`)."""
+
+    def __init__(self, field_idx, counts, collisions, dim, optimizer="sgd",
+                 operation: str = "add"):
+        self.field_idx = list(field_idx)
+        self.counts = [int(c) for c in counts]
+        self.collisions = int(collisions)
+        self.dim = dim
+        self.optimizer = optimizer
+        assert operation in ("add", "mult", "concat"), operation
+        self.operation = operation
+        self.q_dim = (dim + 1) // 2 if operation == "concat" else dim
+        self.r_dim = dim - self.q_dim if operation == "concat" else dim
+        self.q_rows = [int(np.ceil(n / collisions)) + 1 for n in self.counts]
+        self.r_rows = [self.collisions] * len(self.counts)
+        self.q_off = _offsets(self.q_rows)
+        self.r_off = _offsets(self.r_rows)
+
+    def init(self, rng):
+        scales = [np.sqrt(1.0 / n) for n in self.counts]
+        state = {"q": _uniform_init(rng, self.q_rows, scales, self.q_dim),
+                 "r": _uniform_init(rng, self.r_rows, scales, self.r_dim)}
+        state = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in state.items()}
+        state = self._maybe_acc(state, "q")
+        return self._maybe_acc(state, "r")
+
+    def gather(self, state, ids):
+        qi = ids // self.collisions + self._const("q_off")
+        ri = ids % self.collisions + self._const("r_off")
+        qv = state["q"][qi.long()]
+        rv = state["r"][ri.long()]
+        if self.operation == "add":
+            raw = qv + rv
+        elif self.operation == "mult":
+            raw = qv * rv
+        else:
+            raw = torch.cat([qv, rv], dim=-1)
+        # mult's backward needs both factors: carried, not re-gathered
+        return raw, ((qi, ri, qv, rv) if self.operation == "mult"
+                     else (qi, ri))
+
+    def apply_grads(self, state, ids, g_raw, aux, lr):
+        b, f, _ = g_raw.shape
+        qi, ri = aux[:2]
+        if self.operation == "add":
+            gq = gr = g_raw
+        elif self.operation == "mult":
+            gq, gr = g_raw * aux[3], g_raw * aux[2]
+        else:
+            gq, gr = g_raw[..., :self.q_dim], g_raw[..., self.q_dim:]
+        state = self._table_update(state, "q", qi.reshape(-1),
+                                   gq.reshape(b * f, -1), lr)
+        state = self._table_update(state, "r", ri.reshape(-1),
+                                   gr.reshape(b * f, -1), lr)
+        return state, {}
+
+
+class MDEGroupPart(Part):
+    """Mixed-dimension fields sharing one reduced dim: a low-dim table
+    gather and a per-field projection back to the base dim. The
+    projections are dense params (init_dense) that train through autograd
+    like the tower weights."""
+
+    def __init__(self, field_idx, counts, low_dim, base_dim, optimizer="sgd"):
+        self.field_idx = list(field_idx)
+        self.counts = [int(c) for c in counts]
+        self.low_dim = int(low_dim)
+        self.dim = base_dim
+        self.optimizer = optimizer
+        self.np_offsets = _offsets(self.counts)
+
+    def init(self, rng):
+        scales = [np.sqrt(6.0 / (n + self.low_dim)) for n in self.counts]
+        state = {"table": torch.from_numpy(_uniform_init(
+            rng, self.counts, scales, self.low_dim)).to(self.device)}
+        return self._maybe_acc(state, "table")
+
+    def init_dense(self, rng):
+        if self.low_dim == self.dim:
+            return {}
+        bound = np.sqrt(6.0 / (self.low_dim + self.dim))
+        proj = rng.uniform(-bound, bound, size=(
+            len(self.field_idx), self.low_dim, self.dim)).astype(np.float32)
+        return {"proj": torch.from_numpy(proj).to(self.device)}
+
+    def gather(self, state, ids):
+        flat = ids + self._const("np_offsets")
+        return state["table"][flat.long()], flat
+
+    def transform(self, dense_params, raw):
+        if self.low_dim == self.dim:
+            return raw
+        return torch.einsum("bfd,fde->bfe", raw, dense_params["proj"])
+
+    def apply_grads(self, state, ids, g_raw, aux, lr):
+        b, f, d = g_raw.shape
+        state = self._table_update(state, "table", aux.reshape(b * f),
+                                   g_raw.reshape(b * f, d), lr)
+        return state, {}
+
+
+class OffPart(Part):
+    """Offline hot/cold fields: a precomputed frequency-ranked hot
+    dictionary (data/datasets.generate_hot_features) routes each id to a
+    dedicated hot row or to its field's hashed cold rows. A field left no
+    cold budget (num_cold <= 0) serves its non-hot ids from the hot rows
+    by modulo.
+
+    Layout: one table, hot rows first and cold rows from `cold_base`, so
+    the forward is one routed gather and the backward one scatter."""
+
+    def __init__(self, field_idx, counts, hot_dicts, num_colds, dim,
+                 optimizer="sgd"):
+        self.field_idx = list(field_idx)
+        self.counts = [int(c) for c in counts]
+        self.dim = dim
+        self.optimizer = optimizer
+        self.num_hots = [int((hd >= 0).sum()) for hd in hot_dicts]
+        self.num_colds = [max(int(c), 0) for c in num_colds]
+        self.hot_fallback = [int(c <= 0) for c in self.num_colds]
+        self.hot_n = [max(h, 1) for h in self.num_hots]
+        self.cold_n = [max(c, 1) for c in self.num_colds]
+        self.hot_off = _offsets(self.hot_n)
+        self.cold_off = _offsets(self.cold_n)
+        self.dict_off = _offsets(self.counts)
+        self._hot_dict_np = np.concatenate(hot_dicts).astype(np.int32)
+        self.hot_rows = int(sum(self.hot_n))
+        self.cold_rows = int(sum(self.cold_n))
+        self.cold_base = round_up(self.hot_rows)
+        self.total_rows = self.cold_base + round_up(self.cold_rows)
+
+    def init(self, rng):
+        scales = [np.sqrt(1.0 / max(n, 5)) for n in self.counts]
+        hd = self._hot_dict_np
+        hd_pad = np.full(round_up(len(hd)), -1, dtype=np.int32)
+        hd_pad[: len(hd)] = hd
+        table = np.zeros((self.total_rows, self.dim), dtype=np.float32)
+        hot = _uniform_init(rng, self.hot_n, scales, self.dim)
+        cold = _uniform_init(rng, self.cold_n, scales, self.dim)
+        table[: hot.shape[0]] = hot
+        table[self.cold_base: self.cold_base + cold.shape[0]] = cold
+        state = {"table": torch.from_numpy(table).to(self.device),
+                 "hot_dict": torch.from_numpy(hd_pad).to(self.device)}
+        return self._maybe_acc(state, "table")
+
+    def _route(self, ids, hd):
+        """(ids, dict values) -> (unified row, use_hot), both [B, F]."""
+        is_hot = hd >= 0
+        # non-hot ids of a fallback field route into the hot rows
+        use_hot = is_hot | (self._const("hot_fallback") != 0)
+        hrow = torch.where(is_hot, hd.clamp_min(0),
+                           ids % self._const("hot_n")) + self._const("hot_off")
+        crow = (ids % self._const("cold_n") + self._const("cold_off")
+                + self.cold_base)
+        return torch.where(use_hot, hrow, crow), use_hot
+
+    def gather(self, state, ids):
+        gid = ids + self._const("dict_off")
+        row, use_hot = self._route(ids, state["hot_dict"][gid.long()])
+        return state["table"][row.long()], (row, use_hot)
+
+    def apply_grads(self, state, ids, g_raw, aux, lr):
+        b, f, d = g_raw.shape
+        state = self._table_update(state, "table", aux[0].reshape(b * f),
                                    g_raw.reshape(b * f, d), lr)
         return state, {}
 

@@ -1,7 +1,8 @@
+from .dcn import DCN
 from .dlrm import DLRM
 from .mlp import apply_mlp, init_mlp
+from .wdl import WDL
 
-# wdl and dcn are not ported yet
-MODELS = {"dlrm": DLRM}
+MODELS = {"dlrm": DLRM, "wdl": WDL, "dcn": DCN}
 
-__all__ = ["init_mlp", "apply_mlp", "DLRM", "MODELS"]
+__all__ = ["init_mlp", "apply_mlp", "DLRM", "WDL", "DCN", "MODELS"]

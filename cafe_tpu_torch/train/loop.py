@@ -35,6 +35,7 @@ from ..data.datasets import process_batch_iterator
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..embeddings import build_embedding_layer
+from ..embeddings.ae import AEGroupPart, pretrain_batches
 from ..models import MODELS
 from ..parallel import make_mesh, maybe_init_distributed, shard_state
 from ..parallel.exchange import all_gather
@@ -84,9 +85,6 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
     state is made (the state layout depends on it), and the returned
     state is this rank's slice of the global one."""
     dev = resolve_device(device) if mesh is None else mesh.device
-    if cfg.model not in MODELS:
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet "
-                                  f"(ROADMAP queue Q3)")
     if train_data is None:
         train_data = get_dataset(cfg, "train")
     counts = np.asarray(train_data.counts)
@@ -94,13 +92,16 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
         counts = np.minimum(counts, cfg.max_ind_range)
     ln_bot, ln_top = model_arch(cfg, train_data.num_dense,
                                 train_data.num_sparse)
+    kwargs = {}
+    if cfg.model == "dlrm":
+        kwargs = dict(interaction_op=cfg.arch_interaction_op,
+                      interaction_itself=cfg.arch_interaction_itself,
+                      loss_threshold=cfg.loss_threshold)
     model = MODELS[cfg.model](
         cfg.embedding_dim, train_data.num_sparse, train_data.num_dense,
         ln_bot, ln_top,
         compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
-        interaction_op=cfg.arch_interaction_op,
-        interaction_itself=cfg.arch_interaction_itself,
-        loss_threshold=cfg.loss_threshold, device=dev)
+        device=dev, **kwargs)
     embed = build_embedding_layer(cfg, counts, cfg.embedding_dim, train_data,
                                   device=dev)
     if mesh is not None:
@@ -155,8 +156,7 @@ def wants_mesh(cfg: Config) -> bool:
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for the configurations the port lacks
-    (the embedding builder raises for the methods and options it lacks,
-    'ae' and its pretraining included)."""
+    (the embedding builder raises for the options it lacks)."""
     if wants_mesh(cfg):
         unported = [
             (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)"),
@@ -171,6 +171,13 @@ def check_supported(cfg: Config) -> None:
              "mesh"),
             (cfg.cafe_plus, "CAFE+ sharded"),
         ]
+        if cfg.shard_embeddings and cfg.method in ("qr", "off", "ada"):
+            # replicated parts would be another result for ada: the JAX
+            # package's sharded AdaPart runs a shard-local admission
+            raise NotImplementedError(
+                f"compress method {cfg.method} under --shard_embeddings "
+                f"(its sharded part) is not ported yet (ROADMAP queue 1 "
+                f"item 6.5)")
         for bad, what in unported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet "
@@ -268,6 +275,33 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
     if t_start is None:  # fewer than 11 batches seen: nothing to time
         return {}, 0.0
     return {}, (time.time() - t_start) * 1000.0 / max(n_timed, 1)
+
+
+def pretrain_autoencoders(embed, state: TrainState, train_data,
+                          batch: int, nbatches: int, device, mesh=None
+                          ) -> int:
+    """The AE pretraining phase: the first pretrain_batches(nbatches)
+    batches train only the AE parts (in place), whose embeddings the main
+    run then serves frozen. Every rank trains on the whole batch; under a
+    mesh of several ranks they then take rank 0's result. Returns the
+    number of batches."""
+    n_pre = pretrain_batches(nbatches)
+    parts = [(f"part{i}", p) for i, p in enumerate(embed.parts)
+             if isinstance(p, AEGroupPart)]
+    for it, (_, sparse, _, _) in enumerate(batch_iterator(train_data,
+                                                          batch)):
+        if it >= n_pre:
+            break
+        ids = torch.from_numpy(np.ascontiguousarray(sparse)).to(device)
+        for key, p in parts:
+            p.pretrain_step(state.embed[key],
+                            ids[:, torch.as_tensor(p.field_idx,
+                                                   device=device)])
+    if mesh is not None and mesh.size > 1:
+        for key, _ in parts:
+            for t in state.embed[key].values():
+                dist.broadcast(t, src=0, group=mesh.group)
+    return n_pre
 
 
 def _start_profile(dev):
@@ -370,6 +404,13 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
                flush=True)
         logger.close()
         return {"metrics": metrics}
+
+    if cfg.method == "ae" and not cfg.load_model:
+        n_pre = pretrain_autoencoders(embed, state, train_data,
+                                      cfg.mini_batch_size, nbatches, device,
+                                      mesh)
+        print_(f"autoencoder pretraining done ({n_pre} batches)",
+               flush=True)
 
     result = {}
     # the loss accumulates ON THE DEVICE: one host read per print window

@@ -207,6 +207,8 @@ def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
                    "apply_grads)")
     if not cfg.donate_state:
         out.append(_UNDONATED)
+    out += list(dict.fromkeys(p.capture_blocker for p in embed_layer.parts
+                              if p.capture_blocker))
     return out
 
 

@@ -112,6 +112,38 @@ The compiled step (CUDA graphs, train/capture.py), run before phase 9:
    windows after it 128, and each one's latency protocol (eval ms/it);
    K1 and K3 once a step.
 
+The baseline methods and the other towers, at full Kaggle width (run
+after phase 16), each built through build_all and graphed unless
+train/step.capture_blockers names a reason (AdaEmbed's step stays
+eager):
+
+23. methods: QR (add, mult, concat), MDE, Off (hot dictionaries from the
+   batches' dataset), weighted pooling (hash, learned) and AE
+   (--max_ind_range 65536, one batch of pretraining first) at the
+   headline flags with --sparse_apply_impl dense; QR and AdaEmbed at the
+   sibling's (dim 128, cr 0.1, lr 1.0; AdaEmbed's first step runs its
+   check and rebuild over all 33.76 M ids: the admitted count and a
+   rebuild's time). Each: 3 windows of 20 steps after the first step and
+   the warm-up calls, ms/step, its own peak allocated memory, graphed or
+   not, and the kernels it launched, each as often as the apply routes
+   of ops/sparse.py predict (K3 per dense-apply table, K2 per table of
+   >= 2^20 rows at dim 128); then K2 against its plain version at the
+   sibling QR's q table and AdaEmbed's pool (lanes at n_rows included)
+   and K3 at the headline QR's q and r tables and Off's table, with the
+   rows each routes a batch to; then `card_vs_cpu`: 3 steps (2 warm-up
+   calls and a replay) on the card and on the CPU, each from one state,
+   with AE's pretraining first: integer state and routed rows equal,
+   every scatter-added table within twice its reordering bound plus the
+   lanes' card-vs-CPU gradient gap, other embedding state bit-equal,
+   dense params within 1e-3 (bf16 towers), AE's pretrained tensors
+   within 1e-5;
+24. towers: WDL and DCN over CAFE at the headline flags (dense apply), as
+   phase 23; the gate with frequency scores and a low threshold, so the
+   sketch compares exactly;
+25. cli_qr_dcn: main_torch.main --compress_method qr --model dcn at the
+   headline flags on the CLI_ROWS memmap: 48 steps, 2 evals, K3 twice a
+   step.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
 and, last, the device line.
@@ -121,6 +153,7 @@ beside it.
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import multiprocessing
@@ -295,59 +328,77 @@ def phase_kernels(land, scatter_add):
     ids = ((ranks * 1000000007) % n).astype(np.int32)
     ids[rng.choice(b, 24, replace=False)] = -1          # dropped lanes
     ids[rng.choice(b, 24, replace=False)] = n
-    _, group_sizes = np.unique(ids[(ids >= 0) & (ids < n)],
-                               return_counts=True)
-    g_max = int(group_sizes.max())
-    if g_max <= 1000:
-        raise AssertionError(f"K2 oracle needs a group > 1000 lanes, "
-                             f"got {g_max}")
     table0 = torch.rand((n, d), generator=torch.Generator().manual_seed(1))
     table0 = (table0 - 0.5).cuda()
     upd = torch.from_numpy(
         rng.normal(0, 0.01, (b, d)).astype(np.float32)).cuda()
-    tids = torch.from_numpy(ids).cuda()
-    got = scatter_add.scatter_add_(table0.clone(), tids, upd)
-    want = scatter_add.scatter_add_plain_(table0.clone(), tids, upd)
+    row = scatter_add_case(scatter_add, table0, torch.from_numpy(ids).cuda(),
+                           upd)
+    if row["max_group"] <= 1000:
+        raise AssertionError(f"K2 oracle needs a group > 1000 lanes, "
+                             f"got {row['max_group']}")
+    del table0
+    out["scatter_add"] = row
+    emit({"phase": "kernels_scatter_add", **row})
+    return out
+
+
+def scatter_add_case(scatter_add, table, ids, upd):
+    """K2 against its plain version on one input (dropped lanes below 0
+    and at or past the table's rows allowed): within the worst-case f32
+    reordering bound, bit-equal on dyadic payloads; timed beside the
+    plain version, index_add_ and the memory bound. Raises on a
+    disagreement."""
+    n, d = table.shape
+    b = ids.shape[0]
+    keep = (ids >= 0) & (ids < n)
+    _, group_sizes = torch.unique(ids[keep], return_counts=True)
+    g_max, uniq = int(group_sizes.max()), int(group_sizes.numel())
+    before = scatter_add.KERNEL.launches
+    got = scatter_add.scatter_add_(table.clone(), ids, upd)
+    if scatter_add.KERNEL.launches != before + 1:
+        raise AssertionError("K2: the wrapper did not launch the kernel")
+    want = scatter_add.scatter_add_plain_(table.clone(), ids, upd)
     err = float((got - want).abs().max())
     # worst-case f32 reordering bound: each of the g_max adds of a group
     # can round by 2^-24 of the running sum, at most |row| + sum |upd|
-    tol = g_max * 2.0 ** -24 * (0.5 + g_max * float(upd.abs().max()))
+    tol = g_max * 2.0 ** -24 * (float(table.abs().max())
+                                + g_max * float(upd.abs().max()))
     if not err <= tol:
-        raise AssertionError(f"K2 differs from its plain version: {err} > "
-                             f"{tol}")
+        raise AssertionError(f"K2 differs from its plain version at "
+                             f"{(n, d, b)}: {err} > {tol}")
+    del got, want
     # the same ids with dyadic payloads (multiples of 2^-10, every row's
     # running sum far below 2^14): f32 adds them exactly in any order, so
     # the kernel must match bit for bit, and a lost or doubled update
     # cannot hide under the reordering bound above
-    table_q = torch.round(table0 * 1024) / 1024
+    table_q = torch.round(table * 1024) / 1024
     upd_q = torch.round(upd * 1024) / 1024
-    got = scatter_add.scatter_add_(table_q.clone(), tids, upd_q)
-    want = scatter_add.scatter_add_plain_(table_q, tids, upd_q)
+    got = scatter_add.scatter_add_(table_q.clone(), ids, upd_q)
+    want = scatter_add.scatter_add_plain_(table_q, ids, upd_q)
     err_exact = float((got - want).abs().max())
     if err_exact != 0.0:
         raise AssertionError(f"K2 differs from its plain version on exact "
-                             f"dyadic sums: {err_exact}")
+                             f"dyadic sums at {(n, d, b)}: {err_exact}")
     del got, want, table_q, upd_q
-    keep = (tids >= 0) & (tids < n)
-    lib_ids, lib_upd = tids[keep].long(), upd[keep].contiguous()
-    uniq = len(group_sizes)
+    lib_ids, lib_upd = ids[keep].long(), upd[keep].contiguous()
     bms, by = bound_ms(b * 4 + b * d * 4 + 2 * uniq * d * 4, b * d)
-    work = table0.clone()
+    work = table.clone()
     row = {"shape": [n, d, b], "max_group": g_max, "distinct_rows": uniq,
+           "dropped_lanes": int(b - int(keep.sum())),
+           "lanes_at_n_rows": int((ids == n).sum()),
            "max_abs_err": err, "tolerance": tol,
            "max_abs_err_dyadic": err_exact,
-           "ms": time_ms(lambda: scatter_add.scatter_add_(work, tids, upd)),
+           "ms": time_ms(lambda: scatter_add.scatter_add_(work, ids, upd)),
            "host_ms": host_ms(
-               lambda: scatter_add.scatter_add_(work, tids, upd)),
+               lambda: scatter_add.scatter_add_(work, ids, upd)),
            "plain_ms": time_ms(
-               lambda: scatter_add.scatter_add_plain_(work, tids, upd)),
+               lambda: scatter_add.scatter_add_plain_(work, ids, upd)),
            "library_ms": time_ms(
                lambda: work.index_add_(0, lib_ids, lib_upd)),
            "bound_ms": bms, "bound_by": by}
-    del work, table0
-    out["scatter_add"] = row
-    emit({"phase": "kernels_scatter_add", **row})
-    return out
+    del work
+    return row
 
 
 def headline_cfg(Config, **kw):
@@ -830,16 +881,20 @@ def stage_ms(fn, stages, reps=20):
     return out
 
 
-def rowsum_case(rowsum, table, ids, upd):
+def rowsum_case(rowsum, table, ids, upd, stages=True):
     """K3 against its plain version on one input: a record with its
-    times. Raises on a disagreement."""
+    times (with `stages`, each stage's from a profiler window). Raises on
+    a disagreement."""
     n, d = table.shape
     b = ids.shape[0]
     keep = (ids >= 0) & (ids < n)
     kept = ids[keep].long()
     _, run_sizes = torch.unique(kept, return_counts=True)
     g_max, uniq = int(run_sizes.max()), int(run_sizes.numel())
+    before = rowsum.KERNEL.launches
     got = rowsum.sparse_add_dense_(table.clone(), ids, upd)
+    if rowsum.KERNEL.launches != before + 1:
+        raise AssertionError("K3: the wrapper did not launch the kernel")
     again = rowsum.sparse_add_dense_(table.clone(), ids, upd)
     want = rowsum.sparse_add_dense_plain_(table.clone(), ids, upd)
     err = float((got - want).abs().max())
@@ -865,11 +920,13 @@ def rowsum_case(rowsum, table, ids, upd):
     del got, again, want, table_q, upd_q, got_q, want_q
     lib_upd = upd[keep].contiguous()
     work = table.clone()
-    stages = stage_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd),
-                      ROWSUM_STAGES)
-    if not all(v > 0 for v in stages.values()):
-        raise AssertionError(f"K3: a stage without device time in the "
-                             f"trace: {stages}")
+    if stages:
+        stages = stage_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd),
+                          ROWSUM_STAGES)
+        if not all(v > 0 for v in stages.values()):
+            raise AssertionError(f"K3: a stage without device time in the "
+                                 f"trace: {stages}")
+        stages["kernel_ms"] = stages["sum_ms"] + stages["fixup_ms"]
     bms, by = bound_ms(b * 4 + b * d * 4 + 2 * uniq * d * 4, b * d)
     return {"shape": [n, d, b], "max_run": g_max, "distinct_rows": uniq,
             "dropped_lanes": int(b - kept.numel()),
@@ -877,7 +934,7 @@ def rowsum_case(rowsum, table, ids, upd):
             "max_abs_err": err, "tolerance": tol,
             "max_abs_err_dyadic": err_exact, "deterministic": True,
             "ms": time_ms(lambda: rowsum.sparse_add_dense_(work, ids, upd)),
-            "kernel_ms": stages["sum_ms"] + stages["fixup_ms"], **stages,
+            **(stages or {}),
             "host_ms": host_ms(
                 lambda: rowsum.sparse_add_dense_(work, ids, upd)),
             "plain_ms": time_ms(
@@ -1480,6 +1537,382 @@ def phase_roofline(roofline, kernels):
     return {**out, "launches": launches}
 
 
+METHOD_STEPS, METHOD_WINDOWS = 20, 3
+AE_MAX_IND_RANGE = 65536      # bounds AE pretraining's [B, F, vocab] logits
+GATE_STEPS = 3                # 2 warm-up calls and a replay when graphed
+DENSE_TOL = 1e-3              # phase_parity's bound for bf16 towers
+AE_TOL = 1e-5                 # f32 pretraining, cuBLAS against the CPU
+
+
+def method_configs(Config):
+    """{name: (phase, config)}: the methods at the headline flags (dense
+    apply), QR and AdaEmbed at the sibling's, the towers over CAFE."""
+    dense = dict(sparse_apply_impl="dense")
+    sib = dict(dataset="criteotb", embedding_dim=128, compress_rate=0.1,
+               learning_rate=1.0)
+    return {
+        "qr_add": ("methods", headline_cfg(Config, compress_method="qr",
+                                           **dense)),
+        "qr_mult": ("methods", headline_cfg(
+            Config, compress_method="qr", qr_operation="mult", **dense)),
+        "qr_concat": ("methods", headline_cfg(
+            Config, compress_method="qr", qr_operation="concat", **dense)),
+        "mde": ("methods", headline_cfg(Config, compress_method="mde",
+                                        **dense)),
+        "off": ("methods", headline_cfg(Config, compress_method="off",
+                                        **dense)),
+        "hash_weighted": ("methods", headline_cfg(
+            Config, compress_method="hash", weighted_pooling="learned",
+            **dense)),
+        "ae": ("methods", headline_cfg(
+            Config, compress_method="ae", max_ind_range=AE_MAX_IND_RANGE,
+            **dense)),
+        "qr_sibling": ("methods", headline_cfg(Config, compress_method="qr",
+                                               **sib)),
+        "ada_sibling": ("methods", headline_cfg(
+            Config, compress_method="ada", **sib)),
+        "wdl": ("towers", headline_cfg(Config, model="wdl", **dense)),
+        "dcn": ("towers", headline_cfg(Config, model="dcn", **dense)),
+    }
+
+
+def sparse_updates(part, st, ids, g, aux, lr):
+    """[(state key, rows [M], per-lane change [M, d])] of every table
+    part.apply_grads scatter-adds into (SGD), computed as it computes
+    them: the oracle of gate_card_cpu's bound (and of its kernel
+    count)."""
+    kind = type(part).__name__
+    if kind == "QRPart":
+        qi, ri = aux[:2]
+        if part.operation == "mult":
+            gq, gr = g * aux[3], g * aux[2]
+        elif part.operation == "concat":
+            gq, gr = g[..., :part.q_dim], g[..., part.q_dim:]
+        else:
+            gq = gr = g
+        out = [("q", qi, -lr * gq), ("r", ri, -lr * gr)]
+    elif kind == "HashedTablePart" and part.weighted:
+        learned = part.weighted == "learned"
+        widx = part._w_index(ids)
+        out = [("table", aux[0] if learned else aux,
+                -lr * g * st["w"][widx.long()])]
+        if learned:
+            out.append(("w", widx, -lr * (g * aux[1]).sum(-1,
+                                                          keepdim=True)))
+    elif kind == "AdaPart":
+        gid, rows = aux
+        norms = torch.sqrt((g * g).sum(-1) + 1e-30)
+        norms = norms * g.shape[0] / (norms.sum(0, keepdim=True) + 1e-30)
+        out = [("weight", torch.where(rows > 0, rows, st["weight"].shape[0]),
+                -lr * g), ("grad_norm", gid, norms[..., None])]
+    elif kind == "AEGroupPart":
+        out = []                                  # frozen
+    else:
+        rows = {"OffPart": lambda a: a[0], "CafePart": lambda a: a[1]}.get(
+            kind, lambda a: a)(aux)
+        out = [("table", rows, -lr * g)]
+    return [(key, rows.reshape(-1), upd.reshape(rows.numel(), -1))
+            for key, rows, upd in out]
+
+
+def predicted_launches(embed, state, batch):
+    """Kernel launches one step of `embed` makes, by the apply routes of
+    ops/sparse.py: K2 or K3 per scatter-added table, K1 per CAFE part."""
+    from cafe_tpu_torch.ops.sparse import _use_dense_rowsum, _use_pallas_apply
+    out = {"land_max": 0, "scatter_add": 0, "rowsum": 0}
+    for i, p in enumerate(embed.parts):
+        st = state.embed[f"part{i}"]
+        lanes = batch * len(p.field_idx)
+        keys = {"QRPart": ("q", "r"), "AdaPart": ("weight",),
+                "AEGroupPart": ()}.get(type(p).__name__, ("table",))
+        if getattr(p, "weighted", "") == "learned":
+            keys += ("w",)
+        for key in keys:
+            n, d = st[key].shape
+            if _use_pallas_apply(n, d, p.apply_impl):
+                out["scatter_add"] += 1
+            elif _use_dense_rowsum(n, d, lanes, p.apply_impl):
+                out["rowsum"] += 1
+        out["land_max"] += type(p).__name__ == "CafePart"
+    return out
+
+
+def phase_method(build_all, fence, cfg, data, batches, kernels,
+                 pretrain=None):
+    """One configuration through build_all on the card (graphed where
+    train/step.capture_blockers is empty): AE pretraining first when
+    `pretrain`, then the first step timed alone (AdaEmbed's check and
+    rebuild run in it), WARMUP_CALLS more (a graphed step captures on
+    the last), METHOD_WINDOWS windows of METHOD_STEPS steps ended by a
+    synchronize. Each kernel must launch as predicted_launches says, each
+    step. Returns (embed, state, record)."""
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    _, embed, state, step, _ = build_all(cfg, data, device="cuda")
+    fence(state)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    rec = {"allocated_before_gb": before / 2**30,
+           "state_gb": (torch.cuda.memory_allocated() - before) / 2**30,
+           "graphed": bool(step.graphed),
+           "capture_blockers": list(getattr(step, "capture_blockers", [])),
+           "parts": [type(p).__name__ for p in embed.parts]}
+    if pretrain is not None:
+        t0 = time.perf_counter()
+        rec["pretrain_batches"] = pretrain(embed, state, data, "cuda")
+        fence(state)
+        rec["pretrain_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    state, m = step(state, *batches[0])
+    fence(state, m)
+    rec["first_step_ms"] = (time.perf_counter() - t0) * 1e3
+    n = 1
+    for _ in range(WARMUP_CALLS):
+        state, m = step(state, *batches[n % len(batches)])
+        n += 1
+    fence(state, m)
+    win = []
+    for _ in range(METHOD_WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(METHOD_STEPS):
+            state, m = step(state, *batches[n % len(batches)])
+            n += 1
+        fence(state, m)
+        win.append((time.perf_counter() - t0) * 1e3 / METHOD_STEPS)
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    per_step = predicted_launches(embed, state, cfg.mini_batch_size)
+    want = {name: v * n for name, v in per_step.items()}
+    if any(launches[name] != v for name, v in want.items()):
+        raise AssertionError(f"launches {launches}, predicted {want}")
+    ms = float(np.median(win))
+    rec.update(
+        steps=n, ms_per_step=ms, window_ms=win,
+        examples_per_s=cfg.mini_batch_size * 1e3 / ms, loss=loss,
+        # the configuration's own: above what was allocated before it
+        peak_allocated_gb=(torch.cuda.max_memory_allocated() - before)
+        / 2**30,
+        launches=launches, launches_per_step=per_step,
+        kernels_launched=sorted(k for k, v in launches.items() if v),
+        stats={k: float(v) for k, v in m.items()
+               if k not in ("loss", "correct", "weight")})
+    return embed, state, rec
+
+
+def _pairs(card, cpu):
+    """(path, card leaf, CPU leaf) of two state trees, as numpy."""
+    from cafe_tpu_torch.train.capture import _leaves
+    return [(path, a.detach().cpu().numpy(), b.detach().numpy())
+            for (path, a), (_, b) in zip(_leaves(card), _leaves(cpu))]
+
+
+def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
+                  batches, batches_cpu, pretrain=None):
+    """GATE_STEPS steps of `cfg` on the card (build_all's default step)
+    and on the CPU, each step from one state (the card's, copied to the
+    CPU before it); AE pretraining first when `pretrain`.
+
+    * integer state (Off's hot_dict, AdaEmbed's dic and step, the CAFE
+      sketch) and the rows both route the batch to after the step:
+      exactly equal;
+    * each scatter-added table (sparse_updates): within twice the f32
+      reordering bound of its scatter-add (reorder_bound) plus, per row,
+      the sum of |card - CPU| of the lane updates it received (the lane
+      gradients come from each device's towers, lane_grads);
+    * every other float leaf of the embedding state: bit-equal; dense
+      params and projections within DENSE_TOL, the AE tensors after
+      pretraining within AE_TOL.
+    AdaEmbed's step 1 rebuilds on both (nothing is admitted, so every
+    sample churns); the samples themselves differ (CPU and CUDA
+    generators)."""
+    g_model, g_embed, g_state, g_step, _ = build_all(cfg, data,
+                                                     device="cuda")
+    c_model, c_embed, _, c_step, _ = build_all(cfg, data, device="cpu",
+                                               capture=False)
+    lr = cfg.learning_rate
+    rec = {"steps": GATE_STEPS, "graphed": bool(g_step.graphed),
+           "max_abs_diff": {}, "max_share_of_bound": {}}
+
+    def worse(d, key, v):
+        d[key] = max(d.get(key, 0.0), v)
+
+    if pretrain is not None:
+        c_state = from_reference(to_numpy(g_state), "cpu")
+        pretrain(g_embed, g_state, data, "cuda")
+        pretrain(c_embed, c_state, data, "cpu")
+        for path, a, b in _pairs(g_state.embed, c_state.embed):
+            diff = float(np.abs(a - b).max()) if a.size else 0.0
+            worse(rec["max_abs_diff"], "pretrain" + path, diff)
+            if not diff <= AE_TOL:
+                raise AssertionError(f"pretraining: {path} differs by "
+                                     f"{diff} > {AE_TOL}")
+    for i in range(GATE_STEPS):
+        c_state = from_reference(to_numpy(g_state), "cpu")
+        gb, cb = batches[i], batches_cpu[i]
+        g_grads, g_aux = lane_grads(g_model, g_embed, g_state, *gb, bce)
+        c_grads, c_aux = lane_grads(c_model, c_embed, c_state, *cb, bce)
+        bounds = {}
+        for j, part in enumerate(g_embed.parts):
+            key = f"part{j}"
+            g_up = sparse_updates(part, g_state.embed[key],
+                                  gb[1][:, g_embed._cols[j]], g_grads[key],
+                                  g_aux[key], lr)
+            c_up = sparse_updates(c_embed.parts[j], c_state.embed[key],
+                                  cb[1][:, c_embed._cols[j]], c_grads[key],
+                                  c_aux[key], lr)
+            for (leaf, rows, upd), (_, _, c_upd) in zip(g_up, c_up):
+                table = g_state.embed[key][leaf].reshape(
+                    g_state.embed[key][leaf].shape[0], -1)
+                keep = (rows >= 0) & (rows < table.shape[0])
+                lane_gap = torch.zeros_like(table).index_add_(
+                    0, torch.where(keep, rows, 0).long(),
+                    (upd - c_upd.cuda()).abs() * keep[:, None])
+                # no kept lane (AdaEmbed's first step): nothing may land
+                bounds[f"/{key}/{leaf}"] = float(lane_gap.max()) + (
+                    2 * reorder_bound(table, rows[keep], upd)
+                    if bool(keep.any()) else 0.0)
+        g_state, gm = g_step(g_state, *gb)
+        c_state, cm = c_step(c_state, *cb)
+        for name in gm:
+            if name.endswith(("_promotions", "_admitted")) and \
+                    int(gm[name]) != int(cm[name]):
+                raise AssertionError(f"step {i}: {name} {int(gm[name])} "
+                                     f"on the card, {int(cm[name])} on "
+                                     f"the CPU")
+        worse(rec["max_abs_diff"], "loss",
+              abs(float(gm["loss"]) - float(cm["loss"])))
+        for path, a, b in _pairs(g_state.embed, c_state.embed):
+            if a.dtype.kind in "biu" or path not in bounds:
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"step {i}: {path} differs "
+                                         f"between card and CPU")
+                continue
+            diff = float(np.abs(a - b).max())
+            worse(rec["max_abs_diff"], path, diff)
+            worse(rec["max_share_of_bound"], path,
+                  diff / bounds[path] if bounds[path] else 0.0)
+            if not diff <= bounds[path]:
+                raise AssertionError(f"step {i}: {path} differs by {diff} "
+                                     f"> its bound {bounds[path]}")
+        for f in ("params", "embed_dense"):
+            for path, a, b in _pairs(getattr(g_state, f),
+                                     getattr(c_state, f)):
+                diff = float(np.abs(a - b).max())
+                worse(rec["max_abs_diff"], f + path, diff)
+                if not diff <= DENSE_TOL:
+                    raise AssertionError(f"step {i}: {f}{path} differs by "
+                                         f"{diff} > {DENSE_TOL}")
+        _, g_aux = g_embed.gather(g_state.embed, gb[1])
+        _, c_aux = c_embed.gather(c_state.embed, cb[1])
+        for path, a, b in _pairs(g_aux, c_aux):
+            if a.dtype.kind in "biu" and not np.array_equal(a, b):
+                raise AssertionError(f"step {i}: routed {path} differs "
+                                     f"between card and CPU")
+    rec.update(integer_state_equal=True, routing_equal=True,
+               dense_tolerance=DENSE_TOL)
+    return rec
+
+
+def method_kernel_cases(name, rowsum, scatter_add, embed, state, batch):
+    """K2 and K3 against their plain versions at the shapes a method's
+    step gives them: K2 at the sibling QR's q table (its batch's q rows,
+    24 lanes moved to n_rows) and AdaEmbed's weight pool (its batch's
+    rows, slot-0 lanes at n_rows); K3 at the headline QR's q and r
+    tables and Off's table, with the rows they route a batch to (without
+    the stage breakdown: late in the run torch.profiler recorded no
+    device time; kernels_rowsum has the stages)."""
+    if name not in ("qr_sibling", "ada_sibling", "qr_add", "off"):
+        return {}
+    rng = np.random.default_rng(4)
+    _, aux = embed.gather(state.embed, batch[1])
+    key = next(f"part{i}" for i, p in enumerate(embed.parts)
+               if type(p).__name__ in ("QRPart", "AdaPart", "OffPart"))
+    part, st = embed.parts[int(key[4:])], state.embed[key]
+
+    def upd_for(ids, d):
+        return torch.from_numpy(rng.normal(
+            0, 0.01, (ids.shape[0], d)).astype(np.float32)).cuda()
+
+    if name == "qr_sibling":
+        ids = aux[key][0].reshape(-1).to(torch.int32).clone()
+        n = st["q"].shape[0]
+        ids[torch.from_numpy(rng.choice(ids.shape[0], 24,
+                                        replace=False)).cuda()] = n
+        return {"scatter_add_q": scatter_add_case(
+            scatter_add, st["q"], ids, upd_for(ids, st["q"].shape[1]))}
+    if name == "ada_sibling":
+        rows = aux[key][1].reshape(-1)
+        ids = torch.where(rows > 0, rows, st["weight"].shape[0]).to(
+            torch.int32)
+        return {"scatter_add_weight": scatter_add_case(
+            scatter_add, st["weight"], ids,
+            upd_for(ids, st["weight"].shape[1]))}
+    if name == "qr_add":
+        out = {}
+        for leaf, rows in (("q", aux[key][0]), ("r", aux[key][1])):
+            ids = rows.reshape(-1).to(torch.int32)
+            out[f"rowsum_{leaf}"] = rowsum_case(
+                rowsum, st[leaf], ids, upd_for(ids, st[leaf].shape[1]),
+                stages=False)
+        return out
+    ids = aux[key][0].reshape(-1).to(torch.int32)       # off
+    return {"rowsum_table": rowsum_case(
+        rowsum, st["table"], ids, upd_for(ids, st["table"].shape[1]),
+        stages=False)}
+
+
+def modded_data(CTRArrays, data, batches, mod):
+    """`data` and `batches` with every id taken modulo `mod` and the
+    vocabularies capped at it, as --max_ind_range makes the loader's."""
+    sub = CTRArrays(np.ascontiguousarray(data.sparse % mod), data.dense,
+                    data.label, np.minimum(data.counts, mod))
+    return sub, [(d, s % mod, l, v) for d, s, l, v in batches]
+
+
+def phase_cli_methods(main_fn, make_criteo_arrays, kernels, device="cuda"):
+    """main_torch.main --compress_method qr --model dcn at the headline
+    flags (dense apply) on the CLI_ROWS memmap: 48 graphed steps and 2
+    evals, K3 twice a step (q and r) on the card, finite losses."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    scratch = os.path.join(here, "build")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_methods_", dir=scratch)
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
+        for k in kernels.values():
+            k.launches = 0
+        res, out = run_cli(main_fn, CLI_FLAGS + [
+            "--data_path", root, "--compress_method", "qr", "--model", "dcn",
+            "--print_freq", "8", "--test_freq", "24",
+            "--tensor_board_filename", ""]
+            + (["--force_platform", "cpu"] if device == "cpu" else []),
+            "cli_qr_dcn.txt")
+        launches = {name: k.launches for name, k in kernels.items()}
+        trained = [ln.split() for ln in out
+                   if ln.startswith("Finished training it ")]
+        losses = [float(w[-1]) for w in trained]
+        evals = [ln for ln in out if ln.startswith(" accuracy")]
+        if int(trained[-1][3].split("/")[0]) != 48 or not all(
+                np.isfinite(losses)) or len(evals) != 2:
+            raise AssertionError(f"cli qr+dcn: {trained[-1]}, losses "
+                                 f"{losses}, {len(evals)} evals")
+        if device == "cuda" and launches != {**{n: 0 for n in kernels},
+                                             "rowsum": 96}:
+            raise AssertionError(f"cli qr+dcn: launches {launches}")
+        return {"rows": CLI_ROWS, "its": 48, "loss_first": losses[0],
+                "loss_last": losses[-1], "eval_lines": evals,
+                "ms_per_it_median": float(np.median(
+                    [float(w[7]) for w in trained])),
+                "metrics": res["metrics"], "launches": launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1489,12 +1922,14 @@ def main() -> int:
     from cafe_tpu_torch.bridge import from_reference, to_numpy
     from cafe_tpu_torch.config import Config, parse_args
     import main_torch
-    from cafe_tpu_torch.data import make_criteo_arrays, make_criteo_batches
+    from cafe_tpu_torch.data import (CTRArrays, make_criteo_arrays,
+                                     make_criteo_batches, num_batches)
     from cafe_tpu_torch.kernels import (KERNELS, a2a, build, gather, land,
                                         rowsum, scatter_add)
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from cafe_tpu_torch.tools import roofline
     from cafe_tpu_torch.train import build_all, build_multi_step, run
+    from cafe_tpu_torch.train.loop import pretrain_autoencoders
     from cafe_tpu_torch.train.capture import WARMUP_CALLS
     from cafe_tpu_torch.train.step import _bce, build_train_step, clone_state
     from cafe_tpu_torch.utils.timing import fence
@@ -1666,6 +2101,58 @@ def main() -> int:
     roof = phase_roofline(roofline, KERNELS)
     by_path["roofline"] = roof["launches"]
     emit({"phase": "roofline", **roof})
+
+    # ---- the baseline methods and the other towers, full Kaggle width
+    ae_data, ae_batches = modded_data(CTRArrays, data, batches,
+                                      AE_MAX_IND_RANGE)
+    ae_cpu = [(d.cpu(), s.cpu(), l.cpu(), v) for d, s, l, v in ae_batches]
+
+    def pretrain(embed, state, dat, device):
+        return pretrain_autoencoders(embed, state, dat, 2048,
+                                     num_batches(dat, 2048), device)
+
+    for name, (phase, cfg) in method_configs(Config).items():
+        ae = cfg.method == "ae"
+        dat, bats, bats_cpu = ((ae_data, ae_batches, ae_cpu) if ae
+                               else (data, batches, batches_cpu))
+        before = graph_launches()
+        embed, state, rec = phase_method(build_all, fence, cfg, dat, bats,
+                                         KERNELS,
+                                         pretrain if ae else None)
+        count_in_graphs(name, before)
+        by_path[name] = rec["launches"]
+        graphed_want = name != "ada_sibling"
+        if rec["graphed"] != graphed_want:
+            raise AssertionError(f"{name}: graphed {rec['graphed']}, "
+                                 f"{rec['capture_blockers']}")
+        if name == "ada_sibling":
+            part = next(p for p in embed.parts if type(p).__name__
+                        == "AdaPart")
+            st = state.embed[f"part{embed.parts.index(part)}"]
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                part._rebuild(st)
+                fence(st)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec.update(hotn=part.hotn, ids=part.total_n,
+                       admitted=int((st["dic"] > 0).sum()),
+                       rebuild_ms=float(np.median(times)),
+                       rebuild_window_ms=times)
+        rec["kernel_cases"] = method_kernel_cases(
+            name, rowsum, scatter_add, embed, state, bats[0])
+        del embed, state
+        torch.cuda.empty_cache()
+        gate_cfg = cfg if cfg.method != "cafe" else dataclasses.replace(
+            cfg, cafe_use_freq=True, cafe_sketch_threshold=2.0)
+        rec["card_vs_cpu"] = gate_card_cpu(
+            build_all, from_reference, to_numpy, _bce, gate_cfg, dat, bats,
+            bats_cpu, pretrain if ae else None)
+        torch.cuda.empty_cache()
+        emit({"phase": phase, "config": name, **rec})
+    clim = phase_cli_methods(main_torch.main, make_criteo_arrays, KERNELS)
+    by_path["cli_qr_dcn"] = clim["launches"]
+    emit({"phase": "cli_qr_dcn", **clim})
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",

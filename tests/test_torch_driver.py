@@ -351,8 +351,10 @@ def test_inference_throughput_cycles_small_test_set():
     ["--shard_embeddings", "true", "--shard_exchange", "auto"],
     ["--dist_num_processes", "2", "--shard_unique_frac", "0.25"],
     ["--quantize_emb_bits", "8"],
-    ["--compress_method", "ae"], ["--compress_method", "qr"],
-    ["--model", "wdl"], ["--cafe_plus", "true"]])
+    ["--compress_method", "qr", "--shard_embeddings", "true"],
+    ["--compress_method", "off", "--shard_embeddings", "true"],
+    ["--compress_method", "ada", "--shard_embeddings", "true"],
+    ["--cafe_plus", "true"]])
 def test_missing_configurations_raise(flag):
     import main_torch
     base = ["--force_platform", "cpu", "--dataset", "synthetic",
