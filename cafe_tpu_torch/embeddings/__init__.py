@@ -104,13 +104,16 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
             parts.append(AEGroupPart(fields, [counts[i] for i in fields],
                                      low_dim, dim, opt))
     elif method == "cafe":
-        if cfg.cafe_plus:
-            raise NotImplementedError("CAFE+ (cafe_plus) is not ported yet "
-                                      "(ROADMAP queue Q4)")
         full_part(small)
         goff = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        sfrac = cfg.cafe_plus_staging_frac
         cafe_kwargs = dict(
+            plus=cfg.cafe_plus,
+            adjust_threshold=cfg.cafe_adjust_threshold,
+            alpha=cfg.cafe_alpha,
             mig_lanes=cfg.cafe_mig_lanes,
+            plus_inherit=cfg.cafe_plus_inherit,
+            plus_staging_frac=sfrac,
             insert_interval=cfg.cafe_insert_interval,
             land_impl=cfg.cafe_land_impl)
         if cfg.cafe_hot_separate_field:
@@ -118,12 +121,16 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
                 hotn = sizing.cafe_field_hotn(counts[i], cr, dim,
                                               cfg.cafe_hash_rate)
                 if hotn > 1:
+                    kw = dict(cafe_kwargs)
+                    if sfrac < 0:  # flow-proportional auto (sizing.py)
+                        kw["plus_staging_frac"] = sizing.auto_staging_frac(
+                            cfg.mini_batch_size, hotn)
                     parts.append(CafePart(
                         [i], [counts[i]], [int(goff[i])], hotn,
                         [sizing.cafe_hash_size(counts[i], cr,
                                                cfg.cafe_hash_rate)],
                         dim, cfg.cafe_sketch_threshold, cfg.cafe_decay,
-                        counts[i], opt, cfg.cafe_use_freq, **cafe_kwargs))
+                        counts[i], opt, cfg.cafe_use_freq, **kw))
                 else:  # too small for a hot pool -> plain hash fallback
                     parts.append(HashedTablePart(
                         [i], [counts[i]],
@@ -131,6 +138,10 @@ def build_embedding_layer(cfg, counts, dim: int, train_data=None,
         else:
             hotn = sizing.cafe_hotn(counts, cr, dim, cfg.cafe_hash_rate)
             if hotn > 1:
+                if sfrac < 0:  # flow-proportional auto (sizing.py)
+                    cafe_kwargs["plus_staging_frac"] = \
+                        sizing.auto_staging_frac(
+                            cfg.mini_batch_size * len(big), hotn)
                 parts.append(CafePart(
                     big, [counts[i] for i in big],
                     [int(goff[i]) for i in big], hotn,

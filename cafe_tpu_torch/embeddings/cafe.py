@@ -1,5 +1,5 @@
-"""CAFE embedding (port of cafe_tpu/embeddings/cafe.py, v1 sketch, one
-device).
+"""CAFE embedding (port of cafe_tpu/embeddings/cafe.py): the v1 sketch
+or, with `plus`, the CAFE+ two-tier sketch, on one device or a mesh.
 
 The hot table and the per-field hash tables live in ONE table (hot rows
 first, hash rows at `hash_base`), so the forward is one routed gather and
@@ -26,7 +26,13 @@ with its own free stack, and promotions stay rank-local. The forward
 all-gathers the ids and reduce-scatters the hot-row answers (id-sized
 traffic) before the row exchange; the backward all-gathers (id, score)
 pairs for the insert, migrates a bounded n*mig_lanes rows, then runs the
-row-update exchange. CAFE+ (`plus=True`) is not ported yet.
+row-update exchange.
+
+CAFE+ (`plus=True`) swaps the sketch (sketch/hotsketch_plus.py: a staging
+tier, decay, an adaptive threshold) and nothing else: the sketch's init,
+query, insert and revert are picked once in __init__, so the gather, the
+insert and the sharded paths stay one code path. Its insert reports all
+B*F lanes (v1 compacts to PROMO_LANES) before the migration cap.
 """
 
 from __future__ import annotations
@@ -48,7 +54,15 @@ from ..sketch.hotsketch import (
     sketch_insert,
     sketch_query,
 )
-from ..sketch.sharded import (init_sharded_sketch, local_config,
+from ..sketch.hotsketch_plus import (
+    CafePlusConfig,
+    init_sketch_plus,
+    revert_promotions_plus,
+    sketch_insert_plus,
+    sketch_query_plus,
+)
+from ..sketch.sharded import (init_sharded_sketch, init_sharded_sketch_plus,
+                              local_config, local_config_plus,
                               shard_global_view, shard_local_view, shard_of)
 from .base import Part, _offsets, round_up
 
@@ -59,8 +73,11 @@ class CafePart(Part):
                  hash_sizes: List[int], dim: int,
                  sketch_threshold: float, sketch_decay: float,
                  max_count: int, optimizer: str = "sgd",
-                 use_freq: bool = False, mig_lanes: int = 256,
-                 insert_interval: int = 1, land_impl: str = "segmax"):
+                 use_freq: bool = False, plus: bool = False,
+                 adjust_threshold: bool = True, alpha: float = 1.000001,
+                 mig_lanes: int = 256, plus_inherit: bool = False,
+                 plus_staging_frac: float = 0.1, insert_interval: int = 1,
+                 land_impl: str = "segmax"):
         self.field_idx = list(field_idx)
         self.counts = [int(c) for c in counts]
         self.global_offsets = [int(o) for o in global_offsets]
@@ -76,12 +93,30 @@ class CafePart(Part):
         self.total_rows = self.hash_base + round_up(self.hash_rows)
         self.mig_lanes = int(mig_lanes)
         self.insert_interval = max(int(insert_interval), 1)
-        max_oid = max(o + n for o, n in zip(self.global_offsets,
-                                           self.counts))
-        self.sketch_cfg = HotSketchConfig(
-            buckets=self.hotn, threshold=float(sketch_threshold),
-            decay=float(sketch_decay), land_impl=land_impl,
-            max_id=int(max_oid))
+        self.plus = plus
+        if plus:
+            self.sketch_cfg = CafePlusConfig(
+                lim=self.hotn, threshold=float(sketch_threshold),
+                alpha=float(alpha), adjust_threshold=adjust_threshold,
+                inherit=plus_inherit,
+                staging_frac=float(plus_staging_frac))
+            self._sk_init = init_sketch_plus
+            self._sk_query = sketch_query_plus
+            self._sk_insert = sketch_insert_plus
+            self._sk_revert = revert_promotions_plus
+        else:
+            # exclusive bound on the offset ids this part inserts: below
+            # 2^27 the landing packs (cell, id) into one channel
+            max_oid = max(o + n for o, n in zip(self.global_offsets,
+                                               self.counts))
+            self.sketch_cfg = HotSketchConfig(
+                buckets=self.hotn, threshold=float(sketch_threshold),
+                decay=float(sketch_decay), land_impl=land_impl,
+                max_id=int(max_oid))
+            self._sk_init = init_sketch
+            self._sk_query = sketch_query
+            self._sk_insert = sketch_insert
+            self._sk_revert = revert_promotions
         self.n_shards = 1
 
     def enable_mesh(self, mesh) -> bool:
@@ -91,7 +126,8 @@ class CafePart(Part):
         if self.total_rows % n:
             return False
         try:
-            lcfg, s_l = local_config(self.sketch_cfg, n)
+            lcfg, s_l = (local_config_plus if self.plus
+                         else local_config)(self.sketch_cfg, n)
         except ValueError:
             return False
         if s_l < 2:
@@ -128,10 +164,11 @@ class CafePart(Part):
                 -scale, scale, size=(hs, self.dim)).astype(np.float32)
             lo += hs
         if self.mesh is not None:
-            sketch = init_sharded_sketch(self.sketch_cfg, self.n_shards,
-                                         self.device)
+            sketch = (init_sharded_sketch_plus if self.plus
+                      else init_sharded_sketch)(self.sketch_cfg,
+                                                self.n_shards, self.device)
         else:
-            sketch = init_sketch(self.sketch_cfg, self.device)
+            sketch = self._sk_init(self.sketch_cfg, self.device)
         state = {
             "table": torch.from_numpy(table).to(self.device),
             "sketch": sketch,
@@ -164,8 +201,8 @@ class CafePart(Part):
             return self._gather_sharded(state, ids)
         b, f = ids.shape
         oids = self._oids(ids)
-        q = sketch_query(self.sketch_cfg, state["sketch"],
-                         oids.reshape(-1)).reshape(b, f)
+        q = self._sk_query(self.sketch_cfg, state["sketch"],
+                           oids.reshape(-1)).reshape(b, f)
         is_hot = q < 0
         slot = torch.where(is_hot, -q, 0)
         row, hrow = self._rows(oids, is_hot, slot)
@@ -182,8 +219,8 @@ class CafePart(Part):
         oids = self._oids(ids)
         cand = all_gather(oids.reshape(-1), mesh)
         mine = shard_of(cand, n) == mesh.rank
-        q = sketch_query(self._lcfg, shard_local_view(state["sketch"]),
-                         torch.where(mine, cand, int(INVALID_ID)))
+        q = self._sk_query(self._lcfg, shard_local_view(state["sketch"]),
+                           torch.where(mine, cand, int(INVALID_ID)))
         slot_g = torch.where(mine & (q < 0), -q + mesh.rank * s_l, 0)
         slot = psum_scatter(slot_g.to(torch.int32), mesh).reshape(b, f)
         is_hot = slot > 0
@@ -203,8 +240,8 @@ class CafePart(Part):
             norms = torch.sqrt((g_raw * g_raw).sum(dim=-1) + 1e-30)
             scores = norms * (b * interval) / (
                 norms.sum(dim=0, keepdim=True) + 1e-30)
-        sk, promo = sketch_insert(self.sketch_cfg, sketch_in, flat_oids,
-                                  scores.reshape(-1))
+        sk, promo = self._sk_insert(self.sketch_cfg, sketch_in, flat_oids,
+                                    scores.reshape(-1))
         L = promo.ids.shape[0]
         cap = min(L, self.hotn, max(self.mig_lanes * 16, 4096))
         mask = promo.mask
@@ -212,7 +249,7 @@ class CafePart(Part):
             return sk, promo.ids, promo.slots, mask
         rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
         excess = mask & (rank >= cap)
-        sk = revert_promotions(self.sketch_cfg, sk, flat_oids, promo, excess)
+        sk = self._sk_revert(self.sketch_cfg, sk, flat_oids, promo, excess)
         mask = mask & ~excess
         pos = torch.where(mask, rank.clamp(0, cap - 1), cap).long()
 
@@ -233,8 +270,11 @@ class CafePart(Part):
         interval = self.insert_interval
         if interval > 1 and int(state["tick"]) % interval != 0:
             # skipped insert: an empty report of the compacted lane count
-            cap_l = min(min(flat_oids.shape[0], PROMO_LANES), self.hotn,
-                        max(self.mig_lanes * 16, 4096))
+            # (the insert reports B*F lanes under CAFE+, <= PROMO_LANES
+            # under v1)
+            l0 = flat_oids.shape[0] if self.plus \
+                else min(flat_oids.shape[0], PROMO_LANES)
+            cap_l = min(l0, self.hotn, max(self.mig_lanes * 16, 4096))
             z = torch.zeros(cap_l, dtype=torch.int32, device=oids.device)
             sk, p_ids, p_slots, p_mask = state["sketch"], z, z, z.bool()
         else:
@@ -281,13 +321,13 @@ class CafePart(Part):
         cand = pairs[:, 0]
         q_ids = torch.where(shard_of(cand, n) == mesh.rank, cand,
                             int(INVALID_ID))
-        st, promo = sketch_insert(self._lcfg, sk_local, q_ids,
-                                  pairs[:, 1].contiguous().view(
-                                      torch.float32))
+        st, promo = self._sk_insert(self._lcfg, sk_local, q_ids,
+                                    pairs[:, 1].contiguous().view(
+                                        torch.float32))
         rank = torch.cumsum(promo.mask.to(torch.int32), 0,
                             dtype=torch.int32) - 1
         excess = promo.mask & (rank >= p_cap)
-        st = revert_promotions(self._lcfg, st, q_ids, promo, excess)
+        st = self._sk_revert(self._lcfg, st, q_ids, promo, excess)
         keep = promo.mask & ~excess
         pos = torch.where(keep, rank.clamp(0, p_cap - 1), p_cap).long()
         lanes = torch.zeros((p_cap + 1, 3), dtype=torch.int32,

@@ -62,15 +62,17 @@ class HotSketchConfig(NamedTuple):
 
 
 class InsertResult(NamedTuple):
-    """Newly promoted ids, compacted to <= PROMO_LANES lanes; `slots[i]`
-    is valid only where `mask[i]`; (`bucket`, `cell`) locate each
-    promoted cell for reverts."""
+    """Newly promoted ids; `slots[i]` is valid only where `mask[i]`. The
+    v1 sketch compacts them to <= PROMO_LANES lanes and (`bucket`,
+    `cell`) locate each promoted cell for reverts; the CAFE+ sketch
+    reports its B id-sorted lanes and leaves them None (its revert
+    re-hashes)."""
 
     ids: torch.Tensor    # int32 [L]
     slots: torch.Tensor  # int32 [L]
     mask: torch.Tensor   # bool  [L]
-    bucket: torch.Tensor  # int32 [L]
-    cell: torch.Tensor    # int32 [L]
+    bucket: torch.Tensor = None  # int32 [L]
+    cell: torch.Tensor = None    # int32 [L]
 
 
 def init_sketch(cfg: HotSketchConfig, device="cuda") -> SketchState:
@@ -447,3 +449,44 @@ def revert_promotions(cfg: HotSketchConfig, state: SketchState,
     free, free_top = push_slots(state["free"], state["free_top"],
                                 promo.slots, live)
     return {**state, "dic": dic, "free": free, "free_top": free_top}
+
+
+def rebuild_free_list(cfg: HotSketchConfig,
+                      state: SketchState) -> SketchState:
+    """Rebuild the free stack from slot occupancy (after a checkpoint
+    load): the free slots 1..S-1 in ascending order, then the rest; the
+    padded free array keeps its shape and free_top never reaches the
+    padding."""
+    sp = state["free"].shape[0]
+    dev = state["free"].device
+    used = _set_drop(torch.zeros(sp, dtype=torch.bool, device=dev),
+                     state["dic"].reshape(-1),
+                     torch.ones(state["dic"].numel(), dtype=torch.bool,
+                                device=dev))
+    idx = torch.arange(sp, device=dev)
+    free_mask = (idx >= 1) & (idx < cfg.buckets) & ~used
+    order = torch.sort((~free_mask).to(torch.int32), stable=True).indices
+    return {**state, "free": order.to(torch.int32),
+            "free_top": free_mask.sum(dtype=torch.int32)}
+
+
+def hot_fraction(cfg: HotSketchConfig, state: SketchState) -> torch.Tensor:
+    """Fraction of the buckets-1 usable hot slots allocated (counted on
+    the free stack)."""
+    capacity = max(cfg.buckets - 1, 1)
+    return (capacity - state["free_top"]) / capacity
+
+
+def analyse(cfg: HotSketchConfig, state: SketchState,
+            ids: torch.Tensor) -> torch.Tensor:
+    """Fraction of `ids` currently hot (holding a slot): fed the offline
+    ideal top-k ids, the sketch's recall."""
+    return (sketch_query(cfg, state, ids) < 0).float().mean()
+
+
+def analyse_tracked(cfg: HotSketchConfig, state: SketchState,
+                    ids: torch.Tensor) -> torch.Tensor:
+    """Fraction of `ids` present in the sketch at all (hot or cold)."""
+    h = _bucket_of(cfg, ids).long()
+    m = (state["cnt"][h] > 0) & (state["val"][h] == ids[:, None])
+    return m.any(dim=1).float().mean()

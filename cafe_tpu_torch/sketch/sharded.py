@@ -1,5 +1,5 @@
 """Shard-local HotSketch layout for the explicit exchange (port of
-cafe_tpu/sketch/sharded.py, the v1 sketch).
+cafe_tpu/sketch/sharded.py).
 
 Ids route to shards by a multiplicative hash `shard_of(id) % n`
 (decorrelated from the in-shard bucket hash). Each shard owns a
@@ -12,8 +12,9 @@ global capacity is n*(S_l - 1) slots, all inside the padded hot region
 [0, padded_hotn) of the unified table.
 
 State vs the single-device sketch: `free_top` and `tot` are length-n
-lanes (one scalar per shard), so that every leaf row-shards evenly.
-CAFE+ (the two-tier sketch) is not ported yet (ROADMAP queue Q4).
+lanes (one scalar per shard), so that every leaf row-shards evenly. The
+CAFE+ layout (the `*_plus` functions) does the same with the two-tier
+sketch: each shard has its own tiers, threshold, decay clock and step.
 """
 
 from __future__ import annotations
@@ -67,21 +68,64 @@ def init_sharded_sketch(cfg: HotSketchConfig, n: int,
     }
 
 
-def _no_plus():
-    raise NotImplementedError("the sharded CAFE+ sketch is not ported yet "
-                              "(ROADMAP queue Q4)")
-
-
 def local_config_plus(cfg, n: int):
-    _no_plus()
+    """(per-shard CafePlusConfig, S_l). The padded lim must divide by n."""
+    from ..embeddings.base import round_up
+    total = round_up(cfg.lim)
+    if total % n:
+        raise ValueError(f"padded lim {total} not divisible by {n}")
+    s_l = total // n
+    return cfg._replace(lim=s_l), s_l
 
 
-def init_sharded_sketch_plus(cfg, n: int):
-    _no_plus()
+def init_sharded_sketch_plus(cfg, n: int, device="cuda") -> SketchState:
+    """Sharded CAFE+ state: each shard's slice is an independent two-tier
+    sketch with its own threshold, decay clock, step and free stack (the
+    per-shard scalar lanes are [n]). Local arrays are exact-size (n1, n2
+    rows a shard, no ROW_ALIGN padding): the n-stacked arrays divide
+    evenly by construction. On `device` (default the card)."""
+    device = resolve_device(device)
+    lcfg, s_l = local_config_plus(cfg, n)
+    c = cfg.cells
+    free = np.zeros((n, s_l), dtype=np.int32)
+    free[:, : s_l - 1] = np.arange(1, s_l, dtype=np.int32)[None, :]
+    z = dict(device=device)
+
+    def cells(rows, dtype):
+        return torch.zeros((n * rows, c), dtype=dtype, **z)
+
+    return {
+        "val1": cells(lcfg.n1, torch.int32),
+        "cnt1": cells(lcfg.n1, torch.float32),
+        "dic1": cells(lcfg.n1, torch.int32),
+        "val2": cells(lcfg.n2, torch.int32),
+        "cnt2": cells(lcfg.n2, torch.float32),
+        "dic2": cells(lcfg.n2, torch.int32),
+        "ts2": cells(lcfg.n2, torch.int32),
+        "free": torch.from_numpy(free.reshape(-1)).to(device),
+        "free_top": torch.full((n,), s_l - 1, dtype=torch.int32, **z),
+        "threshold": torch.full((n,), cfg.threshold, dtype=torch.float32,
+                                **z),
+        "real_n": torch.zeros((n,), dtype=torch.int32, **z),
+        "decay_acc": torch.ones((n,), dtype=torch.float32, **z),
+        "step": torch.zeros((n,), dtype=torch.int32, **z),
+    }
 
 
-def query_sharded_plus(cfg, n: int, st, ids):
-    _no_plus()
+def query_sharded_plus(cfg, n: int, st: SketchState,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """One-process query against the whole sharded CAFE+ layout; returns
+    the global -slot convention (as query_sharded)."""
+    from .hotsketch_plus import _h1, _h2, tier_slot
+    lcfg, s_l = local_config_plus(cfg, n)
+    shard = shard_of(ids, n)
+    slot_local = torch.maximum(
+        tier_slot(st["val1"], st["cnt1"], st["dic1"],
+                  _h1(lcfg, ids) + shard * lcfg.n1, ids),
+        tier_slot(st["val2"], st["cnt2"], st["dic2"],
+                  _h2(lcfg, ids) + shard * lcfg.n2, ids))
+    slot = torch.where(slot_local > 0, slot_local + shard * s_l, 0)
+    return torch.where(slot > 0, -slot, ids)
 
 
 def shard_local_view(state: SketchState) -> SketchState:

@@ -169,7 +169,6 @@ def check_supported(cfg: Config) -> None:
             (cfg.test_throughput, "the latency protocol under a mesh"),
             (cfg.steps_per_dispatch > 1, "steps_per_dispatch > 1 under a "
              "mesh"),
-            (cfg.cafe_plus, "CAFE+ sharded"),
         ]
         if cfg.shard_embeddings and cfg.method in ("qr", "off", "ada"):
             # replicated parts would be another result for ada: the JAX

@@ -71,12 +71,12 @@ Phases, each printing one JSON line and raising on failure:
    unaligned views (4-byte words, bytes) and at B = tile; timed beside
    the plain version, index_select and the memory bound;
 14. ab_decisions: the four decisions of tools/ab_decisions_torch.py in
-   this process at full width, 3 windows x 20 steps: four report lines,
+   this process at full width, 2 windows x 20 steps: four report lines,
    K4 launched 10 + 3 x 20 times in decision 4, K1 once a step in
    decisions 1-3 and K2 once a step in decision 2; before them, the
    donate_off arm's multi-step must leave its input state unchanged;
 15. ab_insert_land: tools/ab_insert_land_torch.py (level 1, the equal-state
-   check of all four landing arms, level 2), 3 windows x 20 steps; only
+   check of all four landing arms, level 2), 2 windows x 20 steps; only
    the pallas arm launches K1, once an insert;
 16. roofline: cafe_tpu_torch.tools.roofline at its default shapes: K2
    launched by optimizer_apply, every frac_of_peak <= 1.05.
@@ -107,9 +107,9 @@ The compiled step (CUDA graphs, train/capture.py), run before phase 9:
 21. profile_headline_graph: phase 8's trace of 5 replayed headline
    steps (device busy, idle share, kernels a step, one K1 a step);
 22. cli_timing (after phase 9): main_torch.main graphed and eager, in
-   turns, on a 630,784-row memmap (264 train batches) at
+   turns, on a 458,752-row memmap (192 train batches) at
    --steps_per_dispatch 1 and 8: train ms/it from the printed 32-it
-   windows after it 128, and each one's latency protocol (eval ms/it);
+   windows after it 128 (its 160 and 192), and each one's latency protocol (eval ms/it);
    K1 and K3 once a step.
 
 The baseline methods and the other towers, at full Kaggle width (run
@@ -144,9 +144,40 @@ eager):
    headline flags on the CLI_ROWS memmap: 48 steps, 2 evals, K3 twice a
    step.
 
+CAFE+, the two-tier sketch with the adaptive threshold (each at full
+Kaggle width, graphed; K1 never launches on a CAFE+ path):
+
+26-29. cafe_plus, cafe_plus_dense, cafe_plus_sibling, cafe_plus_reset
+   (run after phases 17-19): the headline flags with --cafe_plus true
+   (auto apply; dense apply: K3 once a replay), the sibling's (K2 once a
+   replay), and the headline with frequency scores and threshold 1, so
+   the reset fires every few steps. Each as phase 17 (eager and graphed
+   windows, launches a replay, peak memory) beside v1's graphed ms/step
+   of this call; how often the reset and the decay fired in those steps
+   (a counter on the card, two compares and an add before each step, in
+   both arms); the replay gate of phase 17 (frequency scores;
+   the reset configuration keeps its threshold of 1, and its trajectory
+   must see the reset fire); and `card_vs_cpu`, phase 23's gate (3
+   steps, each from one state; the reset configuration 3 card steps in,
+   where the reset fires);
+30. plus_reset_cost_headline, plus_reset_cost_sibling: the insert at
+   each shape, a call's share of 5 calls captured in a CUDA graph: the
+   speculative reset alone, the insert, the insert without the reset;
+31. profile_cafe_plus_graph: phase 21's trace of 5 replayed CAFE+
+   headline steps (no K1);
+32. cli_plus (after phase 9): phase 9's runs A, B and C with
+   --cafe_plus true (K3 48 times in run A, no K1);
+33. sharded_plus, sharded_parity_plus (after phase 11): the sharded
+   headline with --cafe_plus true at world size 1 (K5 4 times a step),
+   and phase 11's parity (every CAFE+ sketch field equal in each mode
+   and on the CPU);
+34. sketch_bench (last): tools/sketch_bench_torch.py on a 60,000-id Zipf
+   stream; CAFE+ recall above 0.6.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
-and, last, the device line.
+and, last, the device line. Every JSON line carries `elapsed_s`, the
+seconds since the script started.
 Exits non-zero without a CUDA card or without the cafe_tpu_torch package
 beside it.
 """
@@ -174,7 +205,7 @@ HEADLINE_STEPS, WINDOWS = 20, 5
 SIBLING_STEPS = 5
 OUT_DIR = "chiprun_out"
 CLI_ROWS = 114688             # 6/7 train: 48 batches of 2048; 8 test ones
-CLI_TIMING_ROWS = 630784      # 264 train batches of 2048; 44 test ones
+CLI_TIMING_ROWS = 458752      # 192 train batches of 2048; 32 test ones
 CLI_FLAGS = ["--dataset", "criteo", "--embedding_dim", "16",
              "--compress_method", "cafe", "--compress_rate", "0.001",
              "--cafe_sketch_threshold", "500", "--cafe_hash_rate", "0.5",
@@ -183,8 +214,18 @@ CLI_FLAGS = ["--dataset", "criteo", "--embedding_dim", "16",
              "--test_mini_batch_size", "2048"]
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with the seconds since the script started, on
+    stdout and appended to OUT_DIR/chip_smoke.jsonl (the whole run: a
+    caller may keep only the end of stdout)."""
+    line = json.dumps({**obj, "elapsed_s": time.perf_counter() - T0})
+    print(line, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
 
 
 def time_ms(fn, reps=30, warmup=3) -> float:
@@ -502,10 +543,11 @@ def phase_parity(build_all, from_reference, to_numpy, Config, data,
 
 
 def phase_profile(build_all, cfg, data, batches, name, mesh=None,
-                  capture=False):
+                  capture=False, landings=1):
     """Trace 5 steps of `cfg` (eager, or with `capture` the replayed
     graph: 3 calls before the window warm it up and capture it); write
-    the kernel table to OUT_DIR."""
+    the kernel table to OUT_DIR. A step must run `landings` K1 kernels
+    (1 for the v1 sketch, 0 for CAFE+) and no fill kernel."""
     from torch.profiler import ProfilerActivity, profile
     _, _, state, step, _ = build_all(cfg, data, device="cuda", mesh=mesh,
                                      capture=capture)
@@ -532,12 +574,12 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None,
             or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
             or "rowsum_" in x[0] or "cafe_rowsum" in x[0]
             or "a2a_send_kernel" in x[0]]
-    # the sketch insert's landing: K1's one kernel a step, no fill pass
+    # the v1 sketch insert's landing: K1's one kernel a step, no fill pass
     landing = sum(c for k, _, c in dev if "land_max_kernel" in k) / 5
     fills = [k for k, _, _ in dev if "fill_kernel" in k]
-    if landing != 1 or fills:
+    if landing != landings or fills:
         raise AssertionError(f"profile {name}: {landing} landing kernels a "
-                             f"step (want 1), fill kernels {fills}")
+                             f"step (want {landings}), fill kernels {fills}")
     os.makedirs(OUT_DIR, exist_ok=True)
     key = ("self_device_time_total"
            if hasattr(avgs[0], "self_device_time_total")
@@ -569,16 +611,25 @@ def _order(windows):
 
 
 def phase_graph(build_all, build_train_step, warmup_calls, fence, cfg, data,
-                batches, kernels, steps=GRAPH_STEPS, windows=GRAPH_WINDOWS):
+                batches, kernels, steps=GRAPH_STEPS, windows=GRAPH_WINDOWS,
+                per_replay_want=None, counter=None):
     """The eager and the graphed train step of `cfg` on one state, in
     alternating windows of `steps` steps that end in a synchronize:
-    ms/step (median of `windows` each, and the windows), peak memory,
+    ms/step (median of `windows` each, and the windows), peak memory
+    (and what was allocated before the build),
     capture time, and the kernel launches a graphed step counted per
-    replay, which must equal what its capture recorded."""
+    replay, which must equal what its capture recorded and
+    `per_replay_want` (default: K1 once). With `counter` (fire_counter),
+    its hook runs before every step and its count is the record's
+    `fires`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
     model, embed, state, g_step, _ = build_all(cfg, data, device="cuda")
     if not g_step.graphed:
         raise AssertionError(f"{cfg.embedding_dim}-dim step not graphed: "
                              f"{g_step.capture_blockers}")
+    before_step, read_fires = counter(embed) if counter else (None, None)
     e_step = build_train_step(model, embed, cfg, capture=False)
     steppers = {"eager": e_step, "graphed": g_step}
     n = 0
@@ -586,6 +637,8 @@ def phase_graph(build_all, build_train_step, warmup_calls, fence, cfg, data,
     def run(step, count):
         nonlocal state, n
         for _ in range(count):
+            if before_step is not None:
+                before_step(state)
             state, m = step(state, *batches[n % len(batches)])
             n += 1
         fence(state, m)
@@ -618,8 +671,9 @@ def phase_graph(build_all, build_train_step, warmup_calls, fence, cfg, data,
     if per_step != {name: float(v) for name, v in per_replay.items()}:
         raise AssertionError(f"graphed launches a step {per_step} differ "
                              f"from the capture's {per_replay}")
-    if per_replay.get("land_max") != 1:
-        raise AssertionError(f"K1 launched {per_replay} a replay, not once")
+    want = per_replay_want or {"land_max": 1}
+    if any(per_replay.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"launches a replay {per_replay}, want {want}")
     med = {mode: float(np.median(t)) for mode, t in times.items()}
     return {"graphed": True, "steps": n, "windows": windows,
             "steps_per_window": steps,
@@ -631,10 +685,12 @@ def phase_graph(build_all, build_train_step, warmup_calls, fence, cfg, data,
             "graphed_examples_per_s": cfg.mini_batch_size * 1e3
             / med["graphed"],
             "peak_allocated_gb": {k: v[0] / 2**30 for k, v in peak.items()},
+            "allocated_before_gb": allocated_before / 2**30,
             "peak_reserved_gb": {k: v[1] / 2**30 for k, v in peak.items()},
             "capture_s": g_step.capture_s,
             "launches_per_replay": per_replay, "loss": loss,
-            "launches": {name: k.launches for name, k in kernels.items()}}
+            "launches": {name: k.launches for name, k in kernels.items()},
+            **({"fires": read_fires(state)} if counter else {})}
 
 
 def lane_grads(model, embed, state, dense, ids, labels, valid, bce):
@@ -684,6 +740,50 @@ def _equal_except(a, b, skip):
     return out
 
 
+def cafe_key(embed):
+    """(part, its state key) of the layer's CAFE part (a layer whose small
+    fields stay full has it after the full table)."""
+    i = next(i for i, p in enumerate(embed.parts)
+             if type(p).__name__ == "CafePart")
+    return embed.parts[i], f"part{i}"
+
+
+def count_fires(fires, part, sk):
+    """Add to `fires` whether the next CAFE+ insert from sketch state `sk`
+    resets (real_n past 1.2 x lim) and decays (decay_acc x alpha past V):
+    host reads, so eager runs only. Nothing for a v1 part."""
+    if not getattr(part, "plus", False):
+        return
+    cfg = part.sketch_cfg
+    fires["reset"] += int(cfg.adjust_threshold
+                          and int(sk["real_n"]) > int(cfg.lim * 1.2))
+    fires["decay"] += int(float(sk["decay_acc"] * float(np.float32(
+        cfg.alpha))) > 10000.0)
+
+
+def fire_counter(embed):
+    """(before_step hook, read) counting on the card how often the next
+    CAFE+ insert resets and decays: two compares and one add a step, no
+    host read, so the timed windows can carry it."""
+    part, key = cafe_key(embed)
+    cfg = part.sketch_cfg
+    acc = torch.zeros(2, dtype=torch.int32, device=part.device)
+    trip, alpha = int(cfg.lim * 1.2), float(np.float32(cfg.alpha))
+
+    def before_step(state):
+        sk = state.embed[key]["sketch"]
+        acc.add_(torch.stack([sk["real_n"] > trip,
+                              sk["decay_acc"] * alpha > 10000.0]))
+
+    def read(state):
+        sk = state.embed[key]["sketch"]
+        reset, decay = (int(x) for x in acc.cpu())
+        return {"reset": reset, "decay": decay, "trip": trip,
+                "final": {k: float(sk[k]) for k in ("threshold", "real_n",
+                                                     "decay_acc", "step")}}
+    return before_step, read
+
+
 def gate_replay(build_all, build_train_step, clone_state, from_reference,
                 to_numpy, bce, cfg, data, batches, exact_tables):
     """Replayed steps against eager ones, with frequency scores (integer
@@ -711,14 +811,19 @@ def gate_replay(build_all, build_train_step, clone_state, from_reference,
     def batch(i):
         return (*batches[i % len(batches)][:3], GATE_VALIDS[i])
 
+    cafe, key = cafe_key(embed)
+
     def routed(state):
         _, aux = embed.gather(state.embed, batches[0][1])
-        return aux["part0"][1]
+        return aux[key][1]
 
     runs = {}
+    fires = {"reset": 0, "decay": 0}
     for name, step in (("eager", e_step), ("graphed", g_step)):
         st, ms = from_reference(start, "cuda"), []
         for i in range(len(GATE_VALIDS)):
+            if name == "eager":
+                count_fires(fires, cafe, st.embed[key]["sketch"])
             st, m = step(st, *batch(i))
             ms.append({k: v.clone() for k, v in m.items()})
         runs[name] = (st, ms)
@@ -745,6 +850,7 @@ def gate_replay(build_all, build_train_step, clone_state, from_reference,
     e_np, g_np = to_numpy(e_st), to_numpy(g_st)
     traj = {"steps": len(GATE_VALIDS), "valids": GATE_VALIDS,
             "integer_state_equal": True, "promotions": promos[1],
+            "plus_fires": fires if cafe.plus else None,
             "float_leaves_differing": diff,
             "max_abs_diff_metrics": metric_diff,
             "max_abs_diff_tables": {
@@ -1059,7 +1165,7 @@ def run_cli(main_fn, argv, log_name):
 
 def cli_timing(main_fn, eager_fn, make_criteo_arrays, kernels):
     """main_torch.main (graphed) and its eager twin in turns on a
-    CLI_TIMING_ROWS memmap (264 train batches): one epoch each at
+    CLI_TIMING_ROWS memmap (192 train batches): one epoch each at
     --steps_per_dispatch 1 and 8, train ms/it the median of the printed
     32-it windows after it 128 (the driver prints every it up to 100,
     each print a synchronize); then the latency protocol of each (eval
@@ -1085,8 +1191,8 @@ def cli_timing(main_fn, eager_fn, make_criteo_arrays, kernels):
                              if ln.startswith("Finished training it "))]
             windows = [ms for it, ms in its if it > 128 and it % 32 == 0]
             launches = {n: kern.launches for n, kern in kernels.items()}
-            if len(windows) != 4 or not (launches["land_max"]
-                                         == launches["rowsum"] == 264):
+            if len(windows) != 2 or not (launches["land_max"]
+                                         == launches["rowsum"] == 192):
                 raise AssertionError(f"cli {mode} k={k}: windows {its}, "
                                      f"launches {launches}")
             out[f"{mode}_k{k}"] = {"train_ms_per_it": float(np.median(
@@ -1103,17 +1209,21 @@ def cli_timing(main_fn, eager_fn, make_criteo_arrays, kernels):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
+def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
+              want=None, tag="cli"):
     """Runs A (train + eval + checkpoints), B (inference from the best
-    checkpoint) and C (latency protocol) of main_torch.main, whose steps
-    replay CUDA graphs on the card (train and eval)."""
+    checkpoint) and C (latency protocol) of main_torch.main with CLI_FLAGS
+    and `extra`, whose steps replay CUDA graphs on the card (train and
+    eval). On the card run A must launch `want` (default K1 and K3 48
+    times each); the prints go to OUT_DIR/<tag>_run_*.txt."""
+    want = want or {"land_max": 48, "rowsum": 48}
     here = os.path.dirname(os.path.abspath(__file__))
     scratch = os.path.join(here, "build")
     os.makedirs(scratch, exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=scratch)
     try:
         write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
-        base = CLI_FLAGS + ["--data_path", root]
+        base = CLI_FLAGS + ["--data_path", root] + list(extra)
         if device == "cpu":
             base += ["--force_platform", "cpu"]
         model = os.path.join(root, "m")
@@ -1125,7 +1235,7 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
             "--lr_num_warmup_steps", "8", "--lr_decay_start_step", "24",
             "--lr_num_decay_steps", "24", "--print_freq", "8",
             "--test_freq", "24", "--save_model", model, "--save_freq", "20",
-            "--tensor_board_filename", tb_a], "cli_run_a.txt")
+            "--tensor_board_filename", tb_a], f"{tag}_run_a.txt")
         wall_a = time.perf_counter() - t0
         launches_a = {name: k.launches for name, k in kernels.items()}
         trained = [ln.split() for ln in out_a
@@ -1139,10 +1249,10 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
         if len(evals) != 2:
             raise AssertionError(f"cli run A printed {len(evals)} eval "
                                  f"lines, not 2")
-        if device == "cuda" and not (launches_a["land_max"]
-                                     == launches_a["rowsum"] == 48):
+        if device == "cuda" and any(launches_a[k] != v
+                                    for k, v in want.items()):
             raise AssertionError(f"cli run A: launches {launches_a}, "
-                                 f"K1 and K3 must launch 48 times")
+                                 f"want {want}")
         for f in ("m", "m.meta.json", "m.latest", "tb_a/scalars.jsonl"):
             if not os.path.exists(os.path.join(root, f)):
                 raise AssertionError(f"cli run A wrote no {f}")
@@ -1159,7 +1269,7 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
         res_b, _ = run_cli(main_fn, base + [
             "--load_model", model, "--inference_only", "true",
             "--tensor_board_filename", os.path.join(root, "tb_b")],
-            "cli_run_b.txt")
+            f"{tag}_run_b.txt")
         diffs = {k: abs(v - best["Test/Acc" if k == "accuracy" else k])
                  for k, v in res_b["metrics"].items()}
         if not max(diffs.values()) <= 1e-6:
@@ -1171,7 +1281,7 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda"):
             k.launches = 0
         res_c, _ = run_cli(main_fn, base + [
             "--test_throughput", "true", "--tensor_board_filename", tb_c],
-            "cli_run_c.txt")
+            f"{tag}_run_c.txt")
         launches_c = {name: k.launches for name, k in kernels.items()}
         with open(os.path.join(tb_c, "latency.json")) as f:
             latency = json.load(f)
@@ -1306,15 +1416,18 @@ def phase_a2a(a2a, mesh):
 
 
 def phase_sharded_parity(build_all, from_reference, to_numpy, Config, data,
-                         batches_cpu, batches_gpu, mesh_gpu, mesh_cpu):
+                         batches_cpu, batches_gpu, mesh_gpu, mesh_cpu,
+                         plus=False):
     """3 frequency-score steps from one state on the card in each
     exchange mode and on the CPU (gloo, pallas = K5's plain version):
-    sketch, routing and promotions equal everywhere; tables, params and
-    loss within the bf16-tower bound of phase_parity."""
+    sketch (v1, or with `plus` CAFE+), routing and promotions equal
+    everywhere; tables, params and loss within the bf16-tower bound of
+    phase_parity."""
     def cfg(mode):
         return headline_cfg(Config, cafe_use_freq=True,
                             cafe_sketch_threshold=2.0, mesh_shape=1,
-                            shard_embeddings=True, shard_exchange=mode)
+                            shard_embeddings=True, shard_exchange=mode,
+                            cafe_plus=plus)
     _, _, start, _, _ = build_all(cfg("pallas"), data, mesh=mesh_cpu)
     start = to_numpy(start)          # n = 1: the rank's state is global
     runs = {}
@@ -1335,7 +1448,7 @@ def phase_sharded_parity(build_all, from_reference, to_numpy, Config, data,
     ref_state, ref_loss, ref_promos, ref_rows = runs["pallas"]
     rec = {"tolerance": 1e-3, "max_abs_diff": {}, "promotions": ref_promos}
     for name, (st, loss, promos, rows) in runs.items():
-        for f in ("val", "cnt", "dic", "free", "free_top", "tot"):
+        for f in ref_state["embed"]["part0"]["sketch"]:
             if not np.array_equal(st["embed"]["part0"]["sketch"][f],
                                   ref_state["embed"]["part0"]["sketch"][f]):
                 raise AssertionError(f"sharded {name}: sketch {f} differs "
@@ -1428,7 +1541,7 @@ def tool_log(name):
         yield
 
 
-AB_WINDOWS, AB_STEPS = 3, 20
+AB_WINDOWS, AB_STEPS = 2, 20
 
 
 def check_donate_off(build_all, build_multi_step, Config, data, batches,
@@ -1617,7 +1730,7 @@ def sparse_updates(part, st, ids, g, aux, lr):
 
 def predicted_launches(embed, state, batch):
     """Kernel launches one step of `embed` makes, by the apply routes of
-    ops/sparse.py: K2 or K3 per scatter-added table, K1 per CAFE part."""
+    ops/sparse.py: K2 or K3 per scatter-added table, K1 per v1 CAFE part."""
     from cafe_tpu_torch.ops.sparse import _use_dense_rowsum, _use_pallas_apply
     out = {"land_max": 0, "scatter_add": 0, "rowsum": 0}
     for i, p in enumerate(embed.parts):
@@ -1633,7 +1746,7 @@ def predicted_launches(embed, state, batch):
                 out["scatter_add"] += 1
             elif _use_dense_rowsum(n, d, lanes, p.apply_impl):
                 out["rowsum"] += 1
-        out["land_max"] += type(p).__name__ == "CafePart"
+        out["land_max"] += type(p).__name__ == "CafePart" and not p.plus
     return out
 
 
@@ -1712,10 +1825,12 @@ def _pairs(card, cpu):
 
 
 def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
-                  batches, batches_cpu, pretrain=None):
+                  batches, batches_cpu, pretrain=None, pre_steps=0):
     """GATE_STEPS steps of `cfg` on the card (build_all's default step)
     and on the CPU, each step from one state (the card's, copied to the
-    CPU before it); AE pretraining first when `pretrain`.
+    CPU before it); AE pretraining first when `pretrain`, `pre_steps`
+    card steps first (a CAFE+ sketch near its reset's trip). For a CAFE+
+    part the record counts the resets and decays of the gated steps.
 
     * integer state (Off's hot_dict, AdaEmbed's dic and step, the CAFE
       sketch) and the rows both route the batch to after the step:
@@ -1737,6 +1852,9 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
     lr = cfg.learning_rate
     rec = {"steps": GATE_STEPS, "graphed": bool(g_step.graphed),
            "max_abs_diff": {}, "max_share_of_bound": {}}
+    fires = {"reset": 0, "decay": 0}
+    for i in range(pre_steps):
+        g_state, _ = g_step(g_state, *batches[i % len(batches)])
 
     def worse(d, key, v):
         d[key] = max(d.get(key, 0.0), v)
@@ -1752,6 +1870,8 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
                 raise AssertionError(f"pretraining: {path} differs by "
                                      f"{diff} > {AE_TOL}")
     for i in range(GATE_STEPS):
+        for j, part in enumerate(g_embed.parts):
+            count_fires(fires, part, g_state.embed[f"part{j}"].get("sketch"))
         c_state = from_reference(to_numpy(g_state), "cpu")
         gb, cb = batches[i], batches_cpu[i]
         g_grads, g_aux = lane_grads(g_model, g_embed, g_state, *gb, bce)
@@ -1814,7 +1934,9 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
                 raise AssertionError(f"step {i}: routed {path} differs "
                                      f"between card and CPU")
     rec.update(integer_state_equal=True, routing_equal=True,
-               dense_tolerance=DENSE_TOL)
+               dense_tolerance=DENSE_TOL, pre_steps=pre_steps,
+               plus_fires=fires if any(getattr(p, "plus", False)
+                                       for p in g_embed.parts) else None)
     return rec
 
 
@@ -1913,6 +2035,118 @@ def phase_cli_methods(main_fn, make_criteo_arrays, kernels, device="cuda"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+PLUS_PRE_STEPS = 3            # card steps before the reset's card gate
+
+
+def plus_configs(Config, cfg128):
+    """{name: (config, launches a graph replay must make)} of the CAFE+
+    phases: the headline flags (auto and dense apply), the sibling's, and
+    the headline with frequency scores and threshold 1, so every placed
+    id crosses at once and the reset fires every few steps."""
+    plus = dict(cafe_plus=True)
+    return {
+        "cafe_plus": (headline_cfg(Config, **plus), {"land_max": 0}),
+        "cafe_plus_dense": (headline_cfg(Config, sparse_apply_impl="dense",
+                                         **plus),
+                            {"land_max": 0, "rowsum": 1}),
+        "cafe_plus_sibling": (dataclasses.replace(cfg128, **plus),
+                              {"land_max": 0, "scatter_add": 1}),
+        "cafe_plus_reset": (headline_cfg(Config, cafe_use_freq=True,
+                                         cafe_sketch_threshold=1.0, **plus),
+                            {"land_max": 0}),
+    }
+
+
+def phase_plus(name, cfg, want, fns, data, batches, batches_cpu, kernels):
+    """One CAFE+ configuration: phase_graph (eager and graphed windows,
+    the launches a replay makes equal to `want`), how often its reset and
+    decay fired in those steps (counted on the card), the replay gate and
+    the card-vs-CPU gate (frequency scores; the reset configuration
+    keeps its own threshold of 1 and gates from PLUS_PRE_STEPS steps in,
+    and must show the reset firing in all three)."""
+    (build_all, build_train_step, warmup_calls, fence, clone_state,
+     from_reference, to_numpy, bce) = fns
+    rec = phase_graph(build_all, build_train_step, warmup_calls, fence, cfg,
+                      data, batches, kernels, per_replay_want=want,
+                      counter=fire_counter)
+    torch.cuda.empty_cache()
+    reset = name == "cafe_plus_reset"
+    gate_cfg = cfg if reset else dataclasses.replace(
+        cfg, cafe_use_freq=True, cafe_sketch_threshold=2.0)
+    rec["replay_equals_eager"] = gate_replay(
+        build_all, build_train_step, clone_state, from_reference, to_numpy,
+        bce, gate_cfg, data, batches,
+        exact_tables=cfg.sparse_apply_impl == "dense")
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = gate_card_cpu(
+        build_all, from_reference, to_numpy, bce, gate_cfg, data, batches,
+        batches_cpu, pre_steps=PLUS_PRE_STEPS if reset else 0)
+    torch.cuda.empty_cache()
+    if reset:
+        seen = {"windows": rec["fires"]["reset"],
+                "replay_gate": rec["replay_equals_eager"]["trajectory"][
+                    "plus_fires"]["reset"],
+                "card_vs_cpu": rec["card_vs_cpu"]["plus_fires"]["reset"]}
+        if not all(seen.values()):
+            raise AssertionError(f"{name}: the reset did not fire in each "
+                                 f"run: {seen}")
+    return rec
+
+
+def phase_plus_reset_cost(build_all, cfg, data, batches, steps=3):
+    """The CAFE+ insert at the shape of `cfg` on the sketch state after
+    `steps` eager steps, with the first batch's offset ids and scores of
+    1: device ms (a call's share of 5 calls captured in one CUDA graph,
+    median of 5 replays) of the speculative reset alone, of the whole
+    insert, and of the insert without the reset (adjust_threshold off)."""
+    from cafe_tpu_torch.sketch.hotsketch_plus import (_reset,
+                                                      sketch_insert_plus)
+    _, embed, state, step, _ = build_all(cfg, data, device="cuda",
+                                         capture=False)
+    for i in range(steps):
+        state, _ = step(state, *batches[i])
+    part, key = cafe_key(embed)
+    sk, pcfg = state.embed[key]["sketch"], part.sketch_cfg
+    oids = part._oids(batches[0][1][:, embed._cols[int(key[4:])]]).reshape(-1)
+    ones = torch.ones(oids.shape[0], device=oids.device)
+    no_reset = pcfg._replace(adjust_threshold=False)
+
+    def ms(fn):
+        return graph_ms(fn, calls=5, reps=5)
+
+    rec = {"lim": pcfg.lim, "n1": pcfg.n1, "n2": pcfg.n2,
+           "cells": int(sk["cnt1"].numel() + sk["cnt2"].numel()),
+           "lanes": int(oids.shape[0]),
+           "reset_ms": ms(lambda: _reset(pcfg, sk)),
+           "insert_ms": ms(lambda: sketch_insert_plus(pcfg, sk, oids, ones)),
+           "insert_without_reset_ms": ms(
+               lambda: sketch_insert_plus(no_reset, sk, oids, ones))}
+    rec["reset_share_of_insert"] = rec["reset_ms"] / rec["insert_ms"]
+    del state, sk
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sketch_bench(bench, kernels):
+    """tools/sketch_bench_torch.py in this process on a 60,000-id Zipf
+    stream (tests/test_sketch_plus.py's recall case: vocabulary 4,000,
+    s 1.2, lim 512, threshold 8, batches of 512): CAFE+ recall must clear
+    that test's bound of 0.6. Its prints go to OUT_DIR."""
+    for kern in kernels.values():
+        kern.launches = 0
+    with tool_log("sketch_bench"):
+        out = bench.main(["--stream_len", "60000", "--vocab", "4000",
+                          "--zipf", "1.2", "--buckets", "512",
+                          "--threshold", "8", "--batch", "512",
+                          "--cells", "4", "--device", "cuda"])
+    recall = out["recall_plus"]["cells4"]["recall"]
+    if not recall > 0.6:
+        raise AssertionError(f"sketch_bench: CAFE+ recall {recall} <= 0.6")
+    return {**{k: out[k] for k in ("recall", "recall_plus", "throughput",
+                                   "drift", "device")},
+            "launches": {name: k.launches for name, k in kernels.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1934,6 +2168,8 @@ def main() -> int:
     from cafe_tpu_torch.train.step import _bce, build_train_step, clone_state
     from cafe_tpu_torch.utils.timing import fence
 
+    if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.jsonl")):
+        os.remove(os.path.join(OUT_DIR, "chip_smoke.jsonl"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 towers stay f32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -2008,6 +2244,7 @@ def main() -> int:
 
     # ---- the compiled step: CUDA graphs beside the eager steps
     in_graphs = {}
+    v1_graphed = {}
 
     def graph_launches():
         return {name: k.graph_launches for name, k in KERNELS.items()}
@@ -2032,7 +2269,32 @@ def main() -> int:
                 cfg, cafe_use_freq=True, cafe_sketch_threshold=2.0),
             data, batches, exact_tables=cfg.sparse_apply_impl == "dense")
         torch.cuda.empty_cache()
+        v1_graphed[name] = rec["graphed_ms_per_step"]
         emit({"phase": name, **rec})
+
+    # ---- CAFE+ (the two-tier sketch) graphed beside eager, with its gates
+    plus_fns = (build_all, build_train_step, WARMUP_CALLS, fence,
+                clone_state, from_reference, to_numpy, _bce)
+    for name, (cfg, want) in plus_configs(Config, cfg128).items():
+        before = graph_launches()
+        rec = phase_plus(name, cfg, want, plus_fns, data, batches,
+                         batches_cpu, KERNELS)
+        count_in_graphs(name, before)
+        by_path[name] = rec["launches"]
+        v1 = {"cafe_plus_dense": "headline_dense_graph",
+              "cafe_plus_sibling": "sibling_graph"}.get(name,
+                                                        "headline_graph")
+        rec["v1_graphed_ms_per_step_same_call"] = v1_graphed[v1]
+        rec["vs_v1_graphed"] = rec["graphed_ms_per_step"] / v1_graphed[v1]
+        emit({"phase": name, **rec})
+    for name, cfg in (("headline", headline_cfg(Config, cafe_plus=True)),
+                      ("sibling", dataclasses.replace(cfg128,
+                                                      cafe_plus=True))):
+        emit({"phase": f"plus_reset_cost_{name}", **phase_plus_reset_cost(
+            build_all, cfg, data, batches)})
+    emit({"phase": "profile_cafe_plus_graph", **phase_profile(
+        build_all, headline_cfg(Config, cafe_plus=True), data, batches,
+        "cafe_plus_graph", capture=True, landings=0)})
     emit({"phase": "eval_graph", **phase_eval_graph(
         build_all, headline_cfg(Config), data, batches, WARMUP_CALLS)})
     emit({"phase": "profile_headline_graph", **phase_profile(
@@ -2045,6 +2307,14 @@ def main() -> int:
     by_path["cli"] = cli["run_a"]["launches"]
     by_path["cli_throughput"] = cli["run_c"]["launches"]
     emit({"phase": "cli", **cli})
+    before = graph_launches()
+    clip = phase_cli(main_torch.main, make_criteo_arrays, KERNELS,
+                     extra=["--cafe_plus", "true"],
+                     want={"land_max": 0, "rowsum": 48}, tag="cli_plus")
+    count_in_graphs("cli_plus", before)
+    by_path["cli_plus"] = clip["run_a"]["launches"]
+    by_path["cli_plus_throughput"] = clip["run_c"]["launches"]
+    emit({"phase": "cli_plus", **clip})
     before = graph_launches()
     timing = cli_timing(
         main_torch.main, lambda argv: run(parse_args(argv), capture=False),
@@ -2079,6 +2349,16 @@ def main() -> int:
         batches, mesh_gpu, mesh_cpu)})
     emit({"phase": "profile_sharded", **phase_profile(
         build_all, cfg_sh, data, batches, "sharded", mesh=mesh_gpu)})
+    cfg_shp = dataclasses.replace(cfg_sh, cafe_plus=True)
+    state, _, shp = drive(build_all, fence, cfg_shp, data, batches, KERNELS,
+                          HEADLINE_STEPS, 2, mesh=mesh_gpu)
+    del state
+    check_launches("sharded_plus", shp, {"land_max": 0,
+                                         "a2a": 4 * shp["steps"]})
+    emit({"phase": "sharded_plus", **shp})
+    emit({"phase": "sharded_parity_plus", **phase_sharded_parity(
+        build_all, from_reference, to_numpy, Config, data, batches_cpu,
+        batches, mesh_gpu, mesh_cpu, plus=True)})
 
     clis = phase_cli_sharded(main_torch.main, make_criteo_arrays, KERNELS)
     by_path["cli_sharded"] = clis["launches"]
@@ -2153,6 +2433,9 @@ def main() -> int:
     clim = phase_cli_methods(main_torch.main, make_criteo_arrays, KERNELS)
     by_path["cli_qr_dcn"] = clim["launches"]
     emit({"phase": "cli_qr_dcn", **clim})
+    skb = phase_sketch_bench(load_tool("sketch_bench_torch"), KERNELS)
+    by_path["sketch_bench"] = skb["launches"]
+    emit({"phase": "sketch_bench", **skb})
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",

@@ -173,12 +173,16 @@ GRAPHED = {
     "lr_schedule": {"lr_num_warmup_steps": 4, "lr_decay_start_step": 6,
                     "lr_num_decay_steps": 8},
     "hash": {"compress_method": "hash"},
+    # CAFE+: its decay and reset are selected on the device every step
+    "cafe_plus": {"cafe_plus": True, "cafe_sketch_threshold": 1.0,
+                  "cafe_alpha": 12.0},
 }
 # kept eager for a host read or a data-shaped op
 EAGER = {
     "adagrad": {"optimizer": "adagrad"},
     "adam": {"optimizer": "adam"},
     "insert_interval": {"cafe_insert_interval": 2},
+    "plus_insert_interval": {"cafe_plus": True, "cafe_insert_interval": 2},
 }
 
 

@@ -353,8 +353,7 @@ def test_inference_throughput_cycles_small_test_set():
     ["--quantize_emb_bits", "8"],
     ["--compress_method", "qr", "--shard_embeddings", "true"],
     ["--compress_method", "off", "--shard_embeddings", "true"],
-    ["--compress_method", "ada", "--shard_embeddings", "true"],
-    ["--cafe_plus", "true"]])
+    ["--compress_method", "ada", "--shard_embeddings", "true"]])
 def test_missing_configurations_raise(flag):
     import main_torch
     base = ["--force_platform", "cpu", "--dataset", "synthetic",

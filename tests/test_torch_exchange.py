@@ -140,9 +140,49 @@ def test_query_sharded_exact():
     assert (np.asarray(want) < 0).any()
 
 
-def test_cafe_plus_sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="Q4"):
-        tsh.init_sharded_sketch_plus(None, 2)
+def test_sharded_plus_layout_and_query_exact():
+    """The sharded CAFE+ layout: init bit-equal to the JAX package's
+    (exact-size tiers, [n] scalar lanes), local_config_plus equal and
+    refusing an indivisible lim, and the one-process query over a filled
+    layout (ids placed in their shard's tier-1 or tier-2 bucket with
+    random counts and slots) routes like the JAX one."""
+    from cafe_tpu.sketch.hotsketch_plus import (CafePlusConfig as JPlus,
+                                                _h1, _h2)
+    from cafe_tpu_torch.sketch.hotsketch_plus import CafePlusConfig as TPlus
+    rng = np.random.default_rng(3)
+    n = 4
+    cfg_j, cfg_t = JPlus(lim=1000, threshold=3.0), TPlus(lim=1000,
+                                                        threshold=3.0)
+    assert tsh.local_config_plus(cfg_t, n)[0]._asdict() == \
+        jsh.local_config_plus(cfg_j, n)[0]._asdict()
+    for mod, cfg in ((tsh, cfg_t), (jsh, cfg_j)):
+        with pytest.raises(ValueError, match="not divisible"):
+            mod.local_config_plus(cfg, 3)
+    jst = jsh.init_sharded_sketch_plus(cfg_j, n)
+    tst = tsh.init_sharded_sketch_plus(cfg_t, n, device="cpu")
+    assert list(tst) == list(jst._fields)
+    for f in jst._fields:
+        np.testing.assert_array_equal(tst[f].numpy(),
+                                      np.asarray(getattr(jst, f)), err_msg=f)
+    st = {k: np.array(v) for k, v in jst._asdict().items()}
+    lcfg, s_l = jsh.local_config_plus(cfg_j, n)
+    ids = rng.integers(0, 50000, 4000).astype(np.int32)
+    shard = np.asarray(jsh.shard_of(jnp.asarray(ids), n))
+    r1 = np.asarray(_h1(lcfg, jnp.asarray(ids))) + shard * lcfg.n1
+    r2 = np.asarray(_h2(lcfg, jnp.asarray(ids))) + shard * lcfg.n2
+    for i, idv in enumerate(ids[::3]):
+        tier, r = ("1", r1[3 * i]) if i % 2 else ("2", r2[3 * i])
+        cell = i % 4
+        st["val" + tier][r, cell] = idv
+        st["cnt" + tier][r, cell] = float(rng.integers(0, 9))
+        st["dic" + tier][r, cell] = int(rng.integers(0, s_l))
+    want = jsh.query_sharded_plus(cfg_j, n, type(jst)(
+        **{k: jnp.asarray(v) for k, v in st.items()}), jnp.asarray(ids))
+    got = tsh.query_sharded_plus(cfg_t, n, {k: torch.from_numpy(v)
+                                            for k, v in st.items()},
+                                 torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (np.asarray(want) < 0).any()
 
 
 def test_a2a_plain_bit_equal_to_pallas_interpret(tmp_path):

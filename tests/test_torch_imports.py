@@ -45,7 +45,8 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
 JAX_FREE = ["chip_smoke.py", "main_torch.py", "tests/torch_dist_worker.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
             "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",
-            "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py"]
+            "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py",
+            "tools/sketch_bench_torch.py"]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -72,7 +73,8 @@ def test_tools_import_with_jax_blocked():
             "for name in ('jax', 'jaxlib', 'cafe_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import cafe_tpu_torch.tools.roofline\n"
-            "for name in ('ab_decisions_torch', 'ab_insert_land_torch'):\n"
+            "for name in ('ab_decisions_torch', 'ab_insert_land_torch',\n"
+            "             'sketch_bench_torch'):\n"
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'tools/{name}.py')\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -178,7 +180,8 @@ def test_batch_iterator_matches_jax_package():
                 np.testing.assert_array_equal(a, b)
 
 
-COPIES = ["train/metrics.py", "utils/logging.py", "data/datasets.py"]
+COPIES = ["train/metrics.py", "utils/logging.py", "data/datasets.py",
+          "sketch/oracle.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

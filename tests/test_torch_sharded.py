@@ -47,7 +47,6 @@ SHARD = dict(dataset="synthetic", synthetic_rows=1024, synthetic_fields=4,
              compress_rate=0.05, cafe_sketch_threshold=3.0,
              cafe_use_freq=True, learning_rate=0.1, cafe_mig_lanes=2,
              shard_embeddings=True)
-SKETCH = ("val", "cnt", "dic", "free", "free_top", "tot")
 STEPS = 3
 
 
@@ -141,7 +140,8 @@ def _check(port, ref, exact_cnt=True):
         assert set(pp) == set(part)
         for k in part:
             if k == "sketch":
-                for f in SKETCH:
+                assert set(pp[k]) == set(part[k])
+                for f in part[k]:
                     if f in ("cnt", "tot") and not exact_cnt:
                         np.testing.assert_allclose(
                             pp[k][f], part[k][f], rtol=1e-5, atol=2e-4)
@@ -228,11 +228,52 @@ def test_world4_pallas_matches_jax_pallas_interpret(world4):
     _check(world4[1]["pallas"], jax_out)
 
 
+def _plus_slot_invariants(sk, n, s_l):
+    """tests/test_sharding.py's CAFE+ invariants on a global sharded
+    state: each shard's held slots are distinct local slots, and with its
+    free stack they are its S_l - 1 slots exactly (no leak, no alias)."""
+    d1 = sk["dic1"].reshape(n, -1)
+    d2 = sk["dic2"].reshape(n, -1)
+    free = sk["free"].reshape(n, s_l)
+    held = 0
+    for s in range(n):
+        used = np.concatenate([d1[s][d1[s] != 0], d2[s][d2[s] != 0]])
+        assert len(np.unique(used)) == len(used), f"shard {s} dup"
+        assert ((used >= 1) & (used < s_l)).all()
+        both = np.concatenate([used, free[s, :sk["free_top"][s]]])
+        assert len(np.unique(both)) == len(both) == s_l - 1, f"shard {s}"
+        held += len(used)
+    assert sk["threshold"].shape == (n,)
+    return held
+
+
+@pytest.mark.parametrize("n,pairs", [
+    (1, [("explicit", "explicit")]),
+    (4, [("explicit", "explicit"), ("pallas", "a2a")])])
+def test_cafe_plus_steps_match(tmp_path_factory, n, pairs):
+    """CAFE+ sharded (per-shard tiers, thresholds, decay clocks and free
+    stacks; the per-shard migration cap reverts promotions past 2 a
+    shard) at n gloo ranks against the JAX package's sharded step on its
+    virtual mesh: exact as the v1 cases, and the slot invariants hold in
+    every shard."""
+    kw = dict(SHARD, mesh_shape=n, cafe_plus=True)
+    jax_out, port = _both(tmp_path_factory, kw, n,
+                          tuple(dict.fromkeys(j for _, j in pairs)),
+                          tuple(p for p, _ in pairs))
+    for mode, ref in pairs:
+        _check(port[mode], jax_out[ref])
+        assert port[mode]["parts"][-1] == ("CafePart", True)
+        sk = port[mode]["state"]["embed"]["part1"]["sketch"]
+        s_l = sk["free"].shape[0] // n
+        assert _plus_slot_invariants(sk, n, s_l) > 0
+        assert sum(m["cafe_promotions"]
+                   for m in port[mode]["metrics"]) > 0
+
+
 @pytest.mark.parametrize("flags", [
     dict(mesh_inner=2), dict(shard_unique_frac=0.25),
     dict(shard_exchange="auto"), dict(save_model="m"),
-    dict(test_throughput=True), dict(steps_per_dispatch=2),
-    dict(cafe_plus=True)])
+    dict(test_throughput=True), dict(steps_per_dispatch=2)])
 def test_unported_mesh_flags_raise(flags):
     cfg = TConfig(**dict(SHARD, mesh_shape=2, **flags))
     with pytest.raises(NotImplementedError, match="Q8"):

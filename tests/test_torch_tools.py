@@ -161,3 +161,26 @@ def test_ab_insert_land_fails_when_an_arm_differs(monkeypatch):
     assert rc == 1
     assert {"level": "equal_state", "impl": "scan", "equal": False} in lines
     assert "scan" in lines[-1]["error"]
+
+
+def test_sketch_bench_matches_the_jax_tool():
+    """tools/sketch_bench_torch.py against cafe_tpu/tools/sketch_bench.py
+    at a small stream: the same document (plus "device"); the recall of
+    v1 and CAFE+, the droop sweep and the drift points are EQUAL (the
+    sketches are exact ports and the scores are ones); throughput is
+    each one's own clock."""
+    from cafe_tpu.tools import sketch_bench as jbench
+    tbench = _load("sketch_bench_torch")
+    argv = ["--stream_len", "12000", "--vocab", "3000", "--buckets", "128",
+            "--threshold", "6", "--batch", "512", "--cells", "4", "8",
+            "--rounds_sweep"]
+    _, jout = _printed_json(jbench.main, argv)
+    ret, tout = _printed_json(tbench.main, argv + ["--device", "cpu"])
+    want, got = json.loads(jout), json.loads(tout)
+    assert got == json.loads(json.dumps(ret))
+    assert set(got) == set(want) | {"device"} and got["device"] == "cpu"
+    for k in ("recall", "recall_plus", "rounds_sweep", "drift"):
+        assert got[k] == want[k], k
+    assert got["recall_plus"]["cells4"]["hot"] > 0
+    assert set(got["throughput"]) == set(want["throughput"])
+    assert all(v > 0 for v in got["throughput"].values())
