@@ -135,6 +135,14 @@ class AdaPart(Part):
             state, _ = self._check(state, self.sample_ids(state, step))
         return state, {"ada_admitted": (state["dic"] > 0).sum()}
 
+    def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
+        # row 0 (not admitted) is all zero and dequantizes to exactly zero
+        return {"weight": self._quantize(state["weight"], bits)}
+
+    def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
+        gid = ids + self._const("np_offsets")
+        return self._dequantize(qt["weight"], state["dic"][gid.long()])
+
     def sample_ids(self, state: Dict, step: int) -> torch.Tensor:
         """The check's `sample` ids, drawn with replacement from a
         generator seeded from (key, step)."""

@@ -82,6 +82,17 @@ class AEGroupPart(Part):
     def apply_grads(self, state, ids, g_raw, aux, lr):
         return state, {}
 
+    def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
+        return {"table": self._quantize(state["table"], bits)}
+
+    def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
+        """The low-dim rows dequantized, then the f32 projection."""
+        low = self._dequantize(qt["table"], ids + self._const("np_offsets"))
+        if self.low_dim == self.dim:
+            return low
+        return (torch.einsum("bfd,fde->bfe", low, state["proj_w"])
+                + state["proj_b"][None])
+
     def _vocab_mask(self) -> torch.Tensor:
         """[F, max_n] f32: 1 inside each field's own vocabulary."""
         cache = self.__dict__.setdefault("_consts", {})

@@ -13,6 +13,10 @@ Contract per part (as in the JAX package):
                                       differentiated against
   transform(dense_params, raw)     -> feats [B, Fp, D]
   apply_grads(state, ids, g_raw, aux, lr) -> (state, stats)
+  quantize_for_serving(state, bits) -> {key: QuantizedTable}, made once
+  gather_quantized(state, qt, ids) -> raw as gather returns it, the rows
+                                      dequantized from the codes (routing
+                                      state stays full precision)
 
 Tables are initialised with numpy exactly as the JAX package does (same
 generator, same draws), so the two packages start from bit-equal tables.
@@ -36,10 +40,11 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..ops.quantized import dequantize_rows, quantize_rowwise
 from ..ops.sparse import SLOT_SUFFIXES, apply_rows, init_slots
-from ..parallel.exchange import (all_gather, sharded_apply,
-                                 sharded_apply_a2a, sharded_fetch,
-                                 sharded_fetch_a2a)
+from ..parallel.exchange import (all_gather, owner_rows_with, psum_scatter,
+                                 sharded_apply, sharded_apply_a2a,
+                                 sharded_fetch, sharded_fetch_a2a)
 from ..utils.timing import tensors_of
 
 # All tables are padded to a multiple of this row count (the JAX package
@@ -131,6 +136,37 @@ class Part:
 
     def apply_grads(self, state, ids, g_raw, aux, lr: float):
         raise NotImplementedError
+
+    # --- quantized serving (ops/quantized.py) -------------------------
+    def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
+        """This part's float row tables quantized once for serving: a dict
+        of QuantizedTables keyed like the state entries."""
+        raise NotImplementedError
+
+    def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
+        """The forward lookup against the quantized tables; routing state
+        (sketches, hot dicts, Ada's dic) stays full precision. Returns
+        `raw` in gather's shape (transform applies after)."""
+        raise NotImplementedError
+
+    def _quantize(self, table: torch.Tensor, bits: int):
+        if bits == 4 and table.shape[1] % 2:
+            bits = 8   # int4 packs code pairs: an odd width serves at 8
+        return quantize_rowwise(table, bits)
+
+    def _dequantize(self, qt, rows: torch.Tensor) -> torch.Tensor:
+        """Dequantized rows [b, F, D] at row ids [b, F]: on a mesh this
+        rank's lanes through the explicit exchange (all-gather the row ids,
+        each owner dequantizes the rows of its shard of the codes, a
+        reduce-scatter returns the f32 rows), so only O(batch) bytes move
+        and the codes never leave their owner."""
+        b, f = rows.shape
+        if self.mesh is None:
+            return dequantize_rows(qt, rows.reshape(-1)).reshape(b, f, -1)
+        all_rows = all_gather(rows.reshape(-1), self.mesh)
+        vals = owner_rows_with(lambda i: dequantize_rows(qt, i),
+                               qt.codes.shape[0], all_rows, self.mesh)
+        return psum_scatter(vals, self.mesh).reshape(b, f, -1)
 
     def _const(self, name: str) -> torch.Tensor:
         """Per-field int32 constant attribute `name` as a [1, F] tensor on
@@ -253,6 +289,16 @@ class HashedTablePart(Part):
         return self._table_update(state, "table", flat.reshape(b * f),
                                   g_table, lr)
 
+    def quantize_for_serving(self, state, bits):
+        return {"table": self._quantize(state["table"], bits)}
+
+    def gather_quantized(self, state, qt, ids):
+        flat = (ids % self._const("real_ns")) + self._const("np_offsets")
+        rows = self._dequantize(qt["table"], flat)
+        if self.weighted:
+            rows = rows * state["w"][self._w_index(ids).long()]
+        return rows
+
 
 class QRPart(Part):
     """Quotient-remainder fields: the feature vector combines
@@ -315,6 +361,21 @@ class QRPart(Part):
                                    gr.reshape(b * f, -1), lr)
         return state, {}
 
+    def quantize_for_serving(self, state, bits):
+        return {"q": self._quantize(state["q"], bits),
+                "r": self._quantize(state["r"], bits)}
+
+    def gather_quantized(self, state, qt, ids):
+        qv = self._dequantize(qt["q"], ids // self.collisions
+                              + self._const("q_off"))
+        rv = self._dequantize(qt["r"], ids % self.collisions
+                              + self._const("r_off"))
+        if self.operation == "add":
+            return qv + rv
+        if self.operation == "mult":
+            return qv * rv
+        return torch.cat([qv, rv], dim=-1)
+
 
 class MDEGroupPart(Part):
     """Mixed-dimension fields sharing one reduced dim: a low-dim table
@@ -358,6 +419,13 @@ class MDEGroupPart(Part):
         state = self._table_update(state, "table", aux.reshape(b * f),
                                    g_raw.reshape(b * f, d), lr)
         return state, {}
+
+    def quantize_for_serving(self, state, bits):
+        return {"table": self._quantize(state["table"], bits)}
+
+    def gather_quantized(self, state, qt, ids):
+        # the low-dim rows; the projection applies in transform, in f32
+        return self._dequantize(qt["table"], ids + self._const("np_offsets"))
 
 
 class OffPart(Part):
@@ -425,6 +493,14 @@ class OffPart(Part):
         state = self._table_update(state, "table", aux[0].reshape(b * f),
                                    g_raw.reshape(b * f, d), lr)
         return state, {}
+
+    def quantize_for_serving(self, state, bits):
+        return {"table": self._quantize(state["table"], bits)}
+
+    def gather_quantized(self, state, qt, ids):
+        gid = ids + self._const("dict_off")
+        row, _ = self._route(ids, state["hot_dict"][gid.long()])
+        return self._dequantize(qt["table"], row)
 
 
 def _gather_tree(node, mesh):
@@ -497,6 +573,19 @@ class EmbeddingLayer:
             raws[f"part{i}"], auxs[f"part{i}"] = p.gather(
                 state[f"part{i}"], ids[:, self._cols[i]])
         return raws, auxs
+
+    def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
+        """Every part's row tables quantized once for serving."""
+        return {f"part{i}": p.quantize_for_serving(state[f"part{i}"], bits)
+                for i, p in enumerate(self.parts)}
+
+    def gather_quantized(self, state: Dict, qtables: Dict,
+                         ids: torch.Tensor) -> Dict:
+        """gather's raws, each part's rows dequantized from `qtables`."""
+        return {f"part{i}": p.gather_quantized(
+                    state[f"part{i}"], qtables[f"part{i}"],
+                    ids[:, self._cols[i]])
+                for i, p in enumerate(self.parts)}
 
     def transform(self, dense: Dict, raws: Dict) -> torch.Tensor:
         feats = [p.transform(dense[f"part{i}"], raws[f"part{i}"])

@@ -33,6 +33,13 @@ tier, decay, an adaptive threshold) and nothing else: the sketch's init,
 query, insert and revert are picked once in __init__, so the gather, the
 insert and the sharded paths stay one code path. Its insert reports all
 B*F lanes (v1 compacts to PROMO_LANES) before the migration cap.
+
+Serving (quantize_for_serving / gather_quantized) routes as `gather`
+does and dequantizes the rows it fetches. `enable_sharded_layout(n)`
+gives a part without a mesh the n-shard state layout, so the global
+state of a run on n ranks (parallel/sharding.unshard_state) serves on one
+device; the sketch is then queried through sketch/sharded's one-process
+queries, and training in that mode raises.
 """
 
 from __future__ import annotations
@@ -63,11 +70,15 @@ from ..sketch.hotsketch_plus import (
 )
 from ..sketch.sharded import (init_sharded_sketch, init_sharded_sketch_plus,
                               local_config, local_config_plus,
+                              query_sharded, query_sharded_plus,
                               shard_global_view, shard_local_view, shard_of)
 from .base import Part, _offsets, round_up
 
 
 class CafePart(Part):
+    # enable_sharded_layout: the n-shard state layout without a mesh
+    sharded_layout = False
+
     def __init__(self, field_idx: List[int], counts: List[int],
                  global_offsets: List[int], hotn: int,
                  hash_sizes: List[int], dim: int,
@@ -119,10 +130,8 @@ class CafePart(Part):
             self._sk_revert = revert_promotions
         self.n_shards = 1
 
-    def enable_mesh(self, mesh) -> bool:
-        """Opt into the explicit exchange with a shard-local sketch (see
-        the module docstring). Must be called BEFORE init()."""
-        n = mesh.size
+    def _shard_layout(self, n: int) -> bool:
+        """Take the n-shard sketch layout when it fits; False otherwise."""
         if self.total_rows % n:
             return False
         try:
@@ -132,10 +141,33 @@ class CafePart(Part):
             return False
         if s_l < 2:
             return False
-        self.mesh = mesh
         self.n_shards = n
         self._lcfg = lcfg
         self._s_l = s_l
+        return True
+
+    def enable_sharded_layout(self, n: int) -> bool:
+        """Adopt the n-shard STATE layout without a mesh, so that the
+        global state of a run on n ranks serves on one device
+        (quantize_for_serving, gather_quantized and gather route through
+        the sharded sketch by n_shards). n = 1 is the layout of a mesh of
+        one rank (the JAX package refuses it; the port serves such a
+        state too). Serving and inspection only: apply_grads raises.
+        Must be called BEFORE init() or a checkpoint restore."""
+        n = int(n)
+        if n < 1 or self.mesh is not None or not self._shard_layout(n):
+            return False
+        self.sharded_layout = True
+        return True
+
+    def enable_mesh(self, mesh) -> bool:
+        """Opt into the explicit exchange with a shard-local sketch (see
+        the module docstring). Must be called BEFORE init()."""
+        n = mesh.size
+        if not self._shard_layout(n):
+            return False
+        self.mesh = mesh
+        s_l = self._s_l
         # a row of this rank's shard that no migration writes: the first
         # multiple of S_l at or after the shard's start is a shard's cold
         # sentinel slot 0 (or a hash row when >= hash_base); S_l < rows
@@ -147,13 +179,14 @@ class CafePart(Part):
 
     def init(self, rng: np.random.Generator) -> Dict:
         """Same numpy draws as the JAX part: the hot rows, then each
-        field's hash rows. Under a mesh the GLOBAL state (the whole
-        padded hot region drawn, since any shard's slot may serve, and
-        the sharded sketch layout); parallel/sharding.shard_state cuts
-        this rank's slices from it."""
+        field's hash rows. Under a mesh or the sharded layout the GLOBAL
+        state (the whole padded hot region drawn, since any shard's slot
+        may serve, and the sharded sketch layout); under a mesh
+        parallel/sharding.shard_state cuts this rank's slices from it."""
         table = np.zeros((self.total_rows, self.dim), dtype=np.float32)
         high_scale = np.sqrt(1.0 / self.max_count)
-        n_hot_init = self.hash_base if self.mesh is not None else self.hotn
+        sharded = self.mesh is not None or self.sharded_layout
+        n_hot_init = self.hash_base if sharded else self.hotn
         table[: n_hot_init] = rng.uniform(
             -high_scale, high_scale,
             size=(n_hot_init, self.dim)).astype(np.float32)
@@ -163,7 +196,7 @@ class CafePart(Part):
             table[lo:lo + hs] = rng.uniform(
                 -scale, scale, size=(hs, self.dim)).astype(np.float32)
             lo += hs
-        if self.mesh is not None:
+        if sharded:
             sketch = (init_sharded_sketch_plus if self.plus
                       else init_sharded_sketch)(self.sketch_cfg,
                                                 self.n_shards, self.device)
@@ -196,24 +229,36 @@ class CafePart(Part):
                 + self._const("hash_off")[0][pf]).clamp(
                     0, self.hash_rows - 1) + self.hash_base
 
+    def _route(self, state: Dict, ids: torch.Tensor):
+        """Without a mesh: (oids, row, hrow, is_hot), each [B, F], from
+        the sketch (through the one-process sharded query under the
+        sharded layout)."""
+        b, f = ids.shape
+        oids = self._oids(ids)
+        if self.sharded_layout:
+            qfn = query_sharded_plus if self.plus else query_sharded
+            q = qfn(self.sketch_cfg, self.n_shards, state["sketch"],
+                    oids.reshape(-1))
+        else:
+            q = self._sk_query(self.sketch_cfg, state["sketch"],
+                               oids.reshape(-1))
+        q = q.reshape(b, f)
+        is_hot = q < 0
+        row, hrow = self._rows(oids, is_hot, torch.where(is_hot, -q, 0))
+        return oids, row, hrow, is_hot
+
     def gather(self, state: Dict, ids: torch.Tensor):
         if self.mesh is not None:
             return self._gather_sharded(state, ids)
-        b, f = ids.shape
-        oids = self._oids(ids)
-        q = self._sk_query(self.sketch_cfg, state["sketch"],
-                           oids.reshape(-1)).reshape(b, f)
-        is_hot = q < 0
-        slot = torch.where(is_hot, -q, 0)
-        row, hrow = self._rows(oids, is_hot, slot)
+        oids, row, hrow, is_hot = self._route(state, ids)
         raw = state["table"][row.long()]
         return raw, (oids, row, hrow, is_hot)
 
-    def _gather_sharded(self, state: Dict, ids: torch.Tensor):
-        """Sharded forward: all-gather the offset ids; each sketch shard
+    def _route_sharded(self, state: Dict, ids: torch.Tensor):
+        """Sharded routing: all-gather the offset ids; each sketch shard
         answers hot-routing for the ids it owns; an int32 reduce-scatter
-        hands each rank its lanes' hot rows (id-sized traffic). The
-        D-wide rows then move through the configured row exchange."""
+        hands each rank its lanes' hot rows (id-sized traffic). Returns
+        (oids, row, is_hot), each [b, F]."""
         mesh, n, s_l = self.mesh, self.n_shards, self._s_l
         b, f = ids.shape
         oids = self._oids(ids)
@@ -224,9 +269,30 @@ class CafePart(Part):
         slot_g = torch.where(mine & (q < 0), -q + mesh.rank * s_l, 0)
         slot = psum_scatter(slot_g.to(torch.int32), mesh).reshape(b, f)
         is_hot = slot > 0
-        row = torch.where(is_hot, slot, self._hash_rows(oids))
+        return oids, torch.where(is_hot, slot, self._hash_rows(oids)), is_hot
+
+    def _gather_sharded(self, state: Dict, ids: torch.Tensor):
+        """Sharded forward: the routing above, then the D-wide rows
+        through the configured row exchange."""
+        oids, row, is_hot = self._route_sharded(state, ids)
         raw = self._sharded_fetch(state["table"], row)
         return raw, (oids, row, is_hot)
+
+    def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
+        """The unified table quantized (this rank's shard under a mesh).
+        The JAX package also freezes a packed view of the v1 sketch for
+        its TPU query (`sk_packed`); the port's v1 query has no packed
+        form, so it routes through the sketch as `gather` does."""
+        return {"table": self._quantize(state["table"], bits)}
+
+    def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
+        """The routing of `gather`; the row fetch dequantizes. Under a
+        mesh the owners dequantize their rows (Part._dequantize)."""
+        if self.mesh is not None:
+            _, row, _ = self._route_sharded(state, ids)
+        else:
+            _, row, _, _ = self._route(state, ids)
+        return self._dequantize(qt["table"], row)
 
     def _insert_and_compact(self, sketch_in, flat_oids, g_raw):
         """Score -> insert -> lossless promotion cap -> fixed-lane
@@ -264,6 +330,13 @@ class CafePart(Part):
                     g_raw: torch.Tensor, aux, lr: float):
         if self.mesh is not None:
             return self._apply_sharded(state, g_raw, aux, lr)
+        if self.sharded_layout:
+            # the flat insert on the sharded sketch layout would hash into
+            # the wrong buckets and corrupt promotions and counters
+            raise RuntimeError(
+                "CafePart: training in sharded-layout mode requires the "
+                "mesh (enable_mesh); enable_sharded_layout supports "
+                "serving/inspection only")
         oids, row, hrow, is_hot = aux
         b, f, d = g_raw.shape
         flat_oids = oids.reshape(-1)

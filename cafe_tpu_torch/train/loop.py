@@ -45,7 +45,7 @@ from ..utils.timing import fence, queue_bound
 from .checkpoint import load_checkpoint, save_checkpoint, save_rolling
 from .metrics import binary_metrics
 from .step import (TrainState, build_eval_step, build_multi_step,
-                   build_train_step, init_state)
+                   build_quantized_eval_step, build_train_step, init_state)
 
 
 def model_arch(cfg: Config, num_dense: int, num_sparse: int):
@@ -159,16 +159,18 @@ def check_supported(cfg: Config) -> None:
     (the embedding builder raises for the options it lacks)."""
     if wants_mesh(cfg):
         unported = [
-            (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)"),
+            (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)",
+             "6.1"),
             (cfg.shard_unique_frac > 0, "shard_unique_frac > 0 (the "
-             "unique-compact exchange)"),
+             "unique-compact exchange)", "6.2"),
             (cfg.shard_embeddings and cfg.shard_exchange == "auto",
-             "shard_exchange auto"),
+             "shard_exchange auto", "6.3"),
             (bool(cfg.save_model or cfg.load_model),
-             "save_model / load_model under a mesh"),
-            (cfg.test_throughput, "the latency protocol under a mesh"),
+             "save_model / load_model under a mesh", "6.4"),
+            (cfg.test_throughput, "the latency protocol under a mesh",
+             "6.4"),
             (cfg.steps_per_dispatch > 1, "steps_per_dispatch > 1 under a "
-             "mesh"),
+             "mesh", "6.4"),
         ]
         if cfg.shard_embeddings and cfg.method in ("qr", "off", "ada"):
             # replicated parts would be another result for ada: the JAX
@@ -177,14 +179,10 @@ def check_supported(cfg: Config) -> None:
                 f"compress method {cfg.method} under --shard_embeddings "
                 f"(its sharded part) is not ported yet (ROADMAP queue 1 "
                 f"item 6.5)")
-        for bad, what in unported:
+        for bad, what, item in unported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet "
-                                          f"(ROADMAP queue Q8)")
-    if cfg.quantize_emb_bits in (4, 8):
-        raise NotImplementedError(
-            "quantize_emb_bits: quantized serving is not ported yet "
-            "(ROADMAP queue Q5)")
+                                          f"(ROADMAP queue 1 item {item})")
 
 
 _EVAL_CACHE_BYTES = 256 << 20
@@ -398,6 +396,11 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
               f"iter={skip_batch} acc={best_acc:.4f}", flush=True)
 
     if cfg.inference_only:
+        if cfg.quantize_emb_bits in (4, 8):
+            # row-wise quantized serving: the trained tables quantized
+            # once, dequantized per lookup (training-time evals stay float)
+            eval_step = build_quantized_eval_step(
+                model, embed, state, cfg.quantize_emb_bits, capture=capture)
         metrics, _ = inference(cfg, eval_step, state, test_data, mesh=mesh)
         print_(" ".join(f"{k}={v:.5f}" for k, v in metrics.items()),
                flush=True)

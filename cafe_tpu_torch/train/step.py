@@ -323,13 +323,16 @@ def build_multi_step(train_step, k: int, donate: bool = False):
     return _eager(multi_step, list(dict.fromkeys(blockers)))
 
 
-def build_eval_step(model, embed_layer, capture=True):
+def build_eval_step(model, embed_layer, capture=True, gather=None):
     """Scores [B] of a batch. On the card, with `capture` and no mesh, a
-    GraphedStep whose output tensor the next call overwrites."""
+    GraphedStep whose output tensor the next call overwrites. `gather`
+    (state.embed, ids) -> raws replaces the layer's float lookup."""
+    gather = gather or (lambda embed, ids: embed_layer.gather(embed, ids)[0])
+
     @torch.no_grad()
     def eval_step(state: TrainState, dense_x, ids):
-        raws, _ = embed_layer.gather(state.embed, ids)
-        feats = embed_layer.transform(state.embed_dense, raws)
+        feats = embed_layer.transform(state.embed_dense,
+                                      gather(state.embed, ids))
         return model.apply(state.params, dense_x, feats)
 
     blockers = [] if embed_layer.mesh is None else [
@@ -337,3 +340,22 @@ def build_eval_step(model, embed_layer, capture=True):
     if capture and not blockers and embed_layer.device.type == "cuda":
         return GraphedStep(eval_step, carry=False)
     return _eager(eval_step, blockers)
+
+
+def build_quantized_eval_step(model, embed_layer, state: TrainState,
+                              bits: int, capture=True):
+    """Scores [B] of a batch served from row-wise int4 / int8 tables
+    (ops/quantized.py). Each part quantizes its float row tables once,
+    here, from `state`; its lookups gather codes and dequantize them.
+    Routing state (sketches, hot dicts, Ada's dic) stays full precision
+    and is read from the state passed at each call; MDE / AE projections
+    apply in f32. On the card with no mesh a GraphedStep, as
+    build_eval_step; on a mesh eager."""
+    with torch.no_grad():
+        qtables = embed_layer.quantize_for_serving(state.embed, bits)
+    step = build_eval_step(
+        model, embed_layer, capture,
+        gather=lambda embed, ids: embed_layer.gather_quantized(
+            embed, qtables, ids))
+    step.qtables = qtables
+    return step

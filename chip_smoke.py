@@ -174,6 +174,31 @@ Kaggle width, graphed; K1 never launches on a CAFE+ path):
 34. sketch_bench (last): tools/sketch_bench_torch.py on a 60,000-id Zipf
    stream; CAFE+ recall above 0.6.
 
+Quantized serving and the export (no kernel of ours on these paths: the
+dequantizing lookup is torch's row gather and element-wise ops):
+
+35. quant_parity (after phase 7): the trained headline table (27,136 x
+   16) and sibling table (3,232,256 x 128) quantized on the card and on
+   the CPU at 8 and 4 bits: codes byte-equal (a code one level apart is
+   counted, one further apart fails), scale and zero bytes equal;
+36. serving_quant, export (after phase 21): tools/serving_bench_torch.py
+   at the headline shape (B = 2048) and its serving shape (dim 128, cr
+   0.1, 16,384 rows): graphed f32, int8 and int4 eval steps in
+   alternating windows, ms a call, the codes' bytes against the f32
+   table, mean |p_f32 - p_q| < 0.01, and the A/B of the code-row
+   gather's two forms at that shape; then the headline eval exported
+   from the card's state at B = 2048 (torch.export), loaded back and
+   held against the eager eval step within 1e-5;
+37. cli_quant (with phase 9): run A's best checkpoint served with
+   --inference_only --quantize_emb_bits 8, then 4: the scores main_torch
+   computed held against run B's float ones (mean |dp| < 0.01, max |dp|
+   < QUANT_MAX) and the accuracy within 0.01; the same in cli_plus
+   (CAFE+, its "quant"), and cli_sharded serves its fresh seeded state
+   at f32, 8 and 4 bits on the world-size-1 mesh under the same gates;
+38. sharded_quant (after phase 33), v1 and CAFE+: the quantized eval
+   step on the world-size-1 NCCL mesh (eager) and the same state on one
+   device through enable_sharded_layout(1) (graphed): scores bit-equal.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
 and, last, the device line. Every JSON line carries `elapsed_s`, the
@@ -1210,12 +1235,15 @@ def cli_timing(main_fn, eager_fn, make_criteo_arrays, kernels):
 
 
 def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
-              want=None, tag="cli"):
+              want=None, tag="cli", quant_bits=()):
     """Runs A (train + eval + checkpoints), B (inference from the best
     checkpoint) and C (latency protocol) of main_torch.main with CLI_FLAGS
     and `extra`, whose steps replay CUDA graphs on the card (train and
     eval). On the card run A must launch `want` (default K1 and K3 48
-    times each); the prints go to OUT_DIR/<tag>_run_*.txt."""
+    times each); the prints go to OUT_DIR/<tag>_run_*.txt. For each of
+    `quant_bits`, run B again with --quantize_emb_bits (the result's
+    "quant"): its scores held against run B's (score_gate), its accuracy
+    within QUANT_GAP of run B's."""
     want = want or {"land_max": 48, "rowsum": 48}
     here = os.path.dirname(os.path.abspath(__file__))
     scratch = os.path.join(here, "build")
@@ -1266,7 +1294,7 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
                                                 -st))
         best = events[best_step]
 
-        res_b, _ = run_cli(main_fn, base + [
+        res_b, p_b = serve_cli(main_fn, base + [
             "--load_model", model, "--inference_only", "true",
             "--tensor_board_filename", os.path.join(root, "tb_b")],
             f"{tag}_run_b.txt")
@@ -1275,6 +1303,25 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
         if not max(diffs.values()) <= 1e-6:
             raise AssertionError(f"cli run B differs from run A's best "
                                  f"test event: {diffs}")
+        quant = {}
+        for bits in quant_bits:
+            res_q, p_q = serve_cli(main_fn, base + [
+                "--load_model", model, "--inference_only", "true",
+                "--quantize_emb_bits", str(bits),
+                "--tensor_board_filename", os.path.join(root, "tb_q")],
+                f"{tag}_quant_int{bits}.txt")
+            scores = score_gate(f"{tag} int{bits} serving", bits, p_b, p_q)
+            gap = abs(res_q["metrics"]["accuracy"]
+                      - res_b["metrics"]["accuracy"])
+            if not gap < QUANT_GAP:
+                raise AssertionError(f"cli int{bits} serving: accuracy "
+                                     f"{res_q['metrics']} against float "
+                                     f"{res_b['metrics']}")
+            quant[f"int{bits}"] = {
+                "metrics": res_q["metrics"], "scores_vs_float": scores,
+                "accuracy_gap_vs_float": gap,
+                "auc_gap_vs_float": abs(res_q["metrics"]["roc_auc"]
+                                        - res_b["metrics"]["roc_auc"])}
 
         tb_c = os.path.join(root, "tb_c")
         for k in kernels.values():
@@ -1295,7 +1342,8 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
                     "best_metrics": best, "launches": launches_a},
                 "run_b": {"metrics": res_b["metrics"],
                           "max_abs_diff_vs_run_a_best": max(diffs.values())},
-                "run_c": {"latency": latency, "launches": launches_c}}
+                "run_c": {"latency": latency, "launches": launches_c},
+                "quant": {"float_metrics": res_b["metrics"], **quant}}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1477,9 +1525,13 @@ def phase_sharded_parity(build_all, from_reference, to_numpy, Config, data,
     return rec
 
 
-def phase_cli_sharded(main_fn, make_criteo_arrays, kernels):
+def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
     """main_torch.main on the memmap with the sharded pallas exchange at
-    world size 1: 48 train steps, 2 evals of 8 batches."""
+    world size 1: 48 train steps, 2 evals of 8 batches; then
+    --inference_only on the mesh (the fresh seeded state: no mesh
+    checkpoints yet) at f32 and with --quantize_emb_bits 8 and 4, whose
+    scores are held against the f32 ones (score_gate) and whose accuracy
+    must stay within QUANT_GAP of the f32 one ("quant")."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_clis_",
@@ -1489,7 +1541,8 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels):
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        res, out = run_cli(main_fn, CLI_FLAGS + [
+        plat = ["--force_platform", "cpu"] if device == "cpu" else []
+        res, out = run_cli(main_fn, CLI_FLAGS + plat + [
             "--data_path", root, "--mesh_shape", "1",
             "--shard_embeddings", "true", "--shard_exchange", "pallas",
             "--print_freq", "8", "--test_freq", "24",
@@ -1508,10 +1561,31 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels):
         # 4 K5 calls a train step (fetch ids + rows, apply ids + grads),
         # 2 an eval batch (fetch ids + rows)
         want = {"land_max": 48, "rowsum": 48, "a2a": 4 * 48 + 2 * 2 * 8}
-        if any(launches[k] != v for k, v in want.items()):
+        if device == "cuda" and any(launches[k] != v
+                                    for k, v in want.items()):
             raise AssertionError(f"cli_sharded: launches {launches}, "
                                  f"expected {want}")
-        return {"its": len(its), "wall_s": wall,
+        serve = CLI_FLAGS + plat + [
+            "--data_path", root, "--mesh_shape", "1", "--shard_embeddings",
+            "true", "--shard_exchange", "pallas", "--inference_only", "true",
+            "--tensor_board_filename", ""]
+        quant, scores = {}, {}
+        for bits in (0,) + QUANT_BITS:
+            res_q, p = serve_cli(main_fn, serve + [
+                "--quantize_emb_bits", str(bits)],
+                f"cli_sharded_serve_int{bits}.txt")
+            quant[f"int{bits}" if bits else "f32"] = res_q["metrics"]
+            scores[bits] = p
+        gaps = {k: abs(m["accuracy"] - quant["f32"]["accuracy"])
+                for k, m in quant.items() if k != "f32"}
+        if not max(gaps.values()) < QUANT_GAP:
+            raise AssertionError(f"cli_sharded serving: {quant}")
+        quant["accuracy_gap_vs_f32"] = gaps
+        quant["scores_vs_f32"] = {
+            f"int{bits}": score_gate(f"cli_sharded int{bits} serving", bits,
+                                     scores[0], scores[bits])
+            for bits in QUANT_BITS}
+        return {"its": len(its), "wall_s": wall, "quant": quant,
                 "ms_per_it_median": float(np.median(
                     [float(w[7]) for w in trained])),
                 "loss_first": losses[0], "loss_last": losses[-1],
@@ -2147,6 +2221,253 @@ def phase_sketch_bench(bench, kernels):
             "launches": {name: k.launches for name, k in kernels.items()}}
 
 
+QUANT_BITS = (8, 4)
+QUANT_GAP = 0.01              # the JAX tests' bound on |p_f32 - p_q8|
+# on the largest |p_f32 - p_q| of a CLI serving run, by bits: about 3x
+# (int8) and 2x (int4) the largest of cli, cli_plus and cli_sharded on an
+# H100 (6.0e-4, 3.4e-3), below what a 10 % scale error gives (8.5e-3,
+# 1.2e-2 at the cli run's shape on the CPU)
+QUANT_MAX = {8: 0.002, 4: 0.007}
+
+
+@contextlib.contextmanager
+def served_scores():
+    """The scores main_torch's evaluations hand to their metrics, one
+    array an evaluation, recorded by wrapping the loop's binary_metrics."""
+    from cafe_tpu_torch.train import loop
+    got, metrics = [], loop.binary_metrics
+
+    def recording(y, p):
+        got.append(np.asarray(p, dtype=np.float64))
+        return metrics(y, p)
+
+    loop.binary_metrics = recording
+    try:
+        yield got
+    finally:
+        loop.binary_metrics = metrics
+
+
+def serve_cli(main_fn, argv, log_name):
+    """run_cli of an --inference_only run: (result, its scores)."""
+    with served_scores() as got:
+        res, _ = run_cli(main_fn, argv, log_name)
+    if len(got) != 1:
+        raise AssertionError(f"{log_name}: {len(got)} evaluations, not 1")
+    return res, got[0]
+
+
+def score_gate(name, bits, p_f32, p_q):
+    """mean and max |p_f32 - p_q| of one serving run at `bits`, failing
+    past QUANT_GAP (mean) or QUANT_MAX[bits] (max)."""
+    d = np.abs(p_q - p_f32)
+    rec = {"mean_abs_diff": float(d.mean()), "max_abs_diff": float(d.max()),
+           "f32_score_std": float(p_f32.std()), "lanes": int(d.size)}
+    if d.shape != p_f32.shape or not (rec["mean_abs_diff"] < QUANT_GAP
+                                      and rec["max_abs_diff"]
+                                      < QUANT_MAX[bits]):
+        raise AssertionError(f"{name}: |p_f32 - p_q| {rec}")
+    return rec
+
+
+def _code_values(codes, bits):
+    """The codes of a QuantizedTable's code bytes as int16, one a dim."""
+    c = codes.to(torch.int16)
+    return c if bits == 8 else torch.cat([c & 0x0F, c >> 4], dim=1)
+
+
+def phase_quant_parity(quantize_rowwise, dequantize_rows, tables):
+    """Each table (name -> f32 tensor on the card) quantized on the card
+    and on the CPU at 8 and 4 bits: the codes byte-equal (a code one level
+    apart, where the card's division rounded a tie the other way, is
+    counted; one further apart fails), every scale and zero byte equal;
+    the card's codes dequantized on the card and on the CPU at up to
+    SERVING_LANES row ids from a seed: bit-equal; the card's quantize
+    time."""
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    for name, table in tables.items():
+        cpu_table = table.cpu()
+        for bits in QUANT_BITS:
+            card = quantize_rowwise(table, bits)
+            cpu = quantize_rowwise(cpu_table, bits)
+            cw = card.codes.shape[1] - 8
+            gap = (_code_values(card.codes[:, :cw].cpu(), bits)
+                   - _code_values(cpu.codes[:, :cw], bits)).abs()
+            one, more = int((gap == 1).sum()), int((gap > 1).sum())
+            tail = torch.equal(card.codes[:, cw:].cpu(), cpu.codes[:, cw:])
+            idx = torch.randint(0, table.shape[0],
+                                (min(SERVING_LANES, table.shape[0]),),
+                                generator=g)
+            host = card._replace(codes=card.codes.cpu(),
+                                 scale=card.scale.cpu(), zero=card.zero.cpu())
+            deq = torch.equal(dequantize_rows(card, idx.cuda()).cpu(),
+                              dequantize_rows(host, idx))
+            if more or not tail or not deq:
+                raise AssertionError(
+                    f"quant_parity {name} int{bits}: {more} codes more than "
+                    f"one level apart; scale and zero bytes equal: {tail}; "
+                    f"card's dequantized rows equal the CPU's: {deq}")
+            out[f"{name}_int{bits}"] = {
+                "table_shape": list(table.shape),
+                "codes_shape": list(card.codes.shape),
+                "codes_bytes": card.codes.numel(),
+                "f32_bytes": table.numel() * 4,
+                "byte_equal": one == 0, "codes_one_level_apart": one,
+                "dequantized_rows": idx.numel(), "dequantize_equal": deq,
+                "quantize_ms": time_ms(lambda: quantize_rowwise(table, bits),
+                                       reps=5, warmup=1)}
+            del card, cpu, host
+    return out
+
+
+SERVING_ARGS = {
+    "headline": ["--dataset", "criteo", "--dim", "16", "--compress_rate",
+                 "0.001", "--learning_rate", "0.1", "--test_batch", "2048"],
+    "serving": [],          # the tool's own: dim 128, cr 0.1, 16,384 rows
+}
+
+
+SERVING_LANES = 425984        # 16,384 rows x 26 fields
+SIBLING_ROWS = 3232256
+
+
+def row_gather_ab(windows=5, reps=20):
+    """The code-row gather of ops/quantized.dequantize_rows in its two
+    forms at the serving shape: rows of 136 B (int8, dim 128) and 72 B
+    (int4) of a SIBLING_ROWS-row table, SERVING_LANES uniform row ids
+    from a seed. "bytes" gathers the uint8 rows (codes[idx]), "words"
+    gathers them as int32 words (codes.view(int32)[idx]); the same bytes
+    come back (checked). Median ms of alternating windows, and the bound
+    (rows read and written once, the ids read once, over
+    HBM_BYTES_PER_S)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for name, width in (("int8", 136), ("int4", 72)):
+        codes = torch.randint(0, 256, (SIBLING_ROWS, width),
+                              dtype=torch.uint8, device="cuda", generator=g)
+        idx = torch.randint(0, SIBLING_ROWS, (SERVING_LANES,),
+                            device="cuda", generator=g)
+        arms = {"bytes": lambda: codes[idx],
+                "words": lambda: codes.view(torch.int32)[idx]}
+        if not torch.equal(arms["words"]().view(torch.uint8),
+                           arms["bytes"]()):
+            raise AssertionError(f"row_gather {name}: the forms differ")
+        ms = {arm: [] for arm in arms}
+        for w in range(windows):
+            order = ("bytes", "words") if w % 2 == 0 else ("words", "bytes")
+            for arm in order:
+                ms[arm].append(time_ms(arms[arm], reps=reps))
+        moved = SERVING_LANES * (2 * width + 8)
+        out[name] = {"row_bytes": width,
+                     **{f"{arm}_ms": float(np.median(v))
+                        for arm, v in ms.items()},
+                     "windows": ms, "bound_ms": bound_ms(moved, 0)[0]}
+        del codes, idx
+    return out
+
+
+def phase_serving_quant(bench, windows=5, steps=20):
+    """tools/serving_bench_torch.py in this process at the headline shape
+    (B = 2048) and at its own serving shape (16,384 rows): graphed ms a
+    call of f32, int8 and int4 in alternating windows, the codes' bytes
+    against the f32 table, and mean |p_f32 - p_q| < QUANT_GAP; each
+    arm's device time a call and top kernels under torch.profiler."""
+    out = {}
+    for name, argv in SERVING_ARGS.items():
+        with tool_log(f"serving_bench_{name}"):
+            rec = bench.main(argv + ["--windows", str(windows), "--steps",
+                                     str(steps), "--device", "cuda"])
+        if not all(rec["graphed"].values()):
+            raise AssertionError(f"serving_quant {name}: {rec['graphed']}")
+        if not max(rec["mean_abs_diff"].values()) < QUANT_GAP:
+            raise AssertionError(f"serving_quant {name}: mean |p_f32 - "
+                                 f"p_q| {rec['mean_abs_diff']}")
+        rec["vs_fp32"] = {arm: rec[f"{arm}_ms"] / rec["fp32_ms"]
+                          for arm in ("int8", "int4")}
+        out[name] = rec
+        torch.cuda.empty_cache()
+    out["row_gather"] = row_gather_ab()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_quant(build_all, init_state, copy_into, quant_eval, cfg,
+                        data, batches, mesh):
+    """The quantized eval step on a mesh of one rank (eager) against the
+    same state served on one device through enable_sharded_layout(1)
+    (graphed): scores bit-equal at 8 and 4 bits on every batch; ms a
+    call of each."""
+    model, embed, state, step, _ = build_all(cfg, data, mesh=mesh,
+                                             capture=False)
+    for b in batches[:3]:
+        state, _ = step(state, *b)
+    one = dataclasses.replace(cfg, mesh_shape=None, shard_embeddings=False)
+    model1, embed1, _, _, _ = build_all(one, data, capture=False)
+    layout = [p.enable_sharded_layout(1) for p in embed1.parts
+              if type(p).__name__ == "CafePart"]
+    if not layout or not all(layout):
+        raise AssertionError(f"sharded_quant: layouts {layout}")
+    state1 = init_state(model1, embed1, one.numpy_rand_seed, one.optimizer)
+    copy_into(state1, state)
+    out = {"plus": cfg.cafe_plus}
+    for bits in QUANT_BITS:
+        qm = quant_eval(model, embed, state, bits)
+        q1 = quant_eval(model1, embed1, state1, bits)
+        if qm.graphed or not q1.graphed:
+            raise AssertionError("sharded_quant: the mesh step must be "
+                                 "eager, the single-device one graphed")
+        for i in range(2 * len(batches)):
+            d, s = batches[i % len(batches)][:2]
+            if not torch.equal(qm(state, d, s), q1(state1, d, s)):
+                raise AssertionError(f"sharded_quant int{bits}: batch {i} "
+                                     f"scores differ")
+        d, s = batches[0][:2]
+        out[f"int{bits}"] = {
+            "bit_equal_batches": 2 * len(batches),
+            "mesh_eager_ms": time_ms(lambda: qm(state, d, s), reps=10),
+            "single_graphed_ms": time_ms(lambda: q1(state1, d, s), reps=10)}
+    return out
+
+
+def phase_export(build_all, export_eval_step, cfg, data, batches,
+                 tol=1e-5):
+    """The headline eval exported from the card's state at B = 2048
+    (cafe_tpu_torch/tools/export_model.py), loaded back and held against
+    the eager eval step on every batch within `tol`; the export and load
+    seconds, the file's bytes and ms a call of each."""
+    model, embed, state, step, ev = build_all(cfg, data, capture=False)
+    for b in batches[:3]:
+        state, _ = step(state, *b)
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        path = os.path.join(root, "headline.pt2")
+        t0 = time.perf_counter()
+        n = export_eval_step(model, embed, state, cfg.mini_batch_size,
+                             data.num_dense, data.num_sparse, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = torch.export.load(path).module()
+        load_s = time.perf_counter() - t0
+        err = 0.0
+        with torch.no_grad():
+            for d, s, _, _ in batches:
+                err = max(err, float((served(d, s) - ev(state, d, s))
+                                     .abs().max()))
+            if not err <= tol:
+                raise AssertionError(f"export: max |served - eager| {err}")
+            d, s = batches[0][:2]
+            return {"batch": cfg.mini_batch_size, "bytes": n,
+                    "export_s": export_s, "load_s": load_s,
+                    "max_abs_err": err, "tolerance": tol,
+                    "batches": len(batches),
+                    "served_ms": time_ms(lambda: served(d, s), reps=10),
+                    "eager_ms": time_ms(lambda: ev(state, d, s), reps=10)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2161,11 +2482,16 @@ def main() -> int:
     from cafe_tpu_torch.kernels import (KERNELS, a2a, build, gather, land,
                                         rowsum, scatter_add)
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
+    from cafe_tpu_torch.ops.quantized import (dequantize_rows,
+                                              quantize_rowwise)
     from cafe_tpu_torch.tools import roofline
-    from cafe_tpu_torch.train import build_all, build_multi_step, run
+    from cafe_tpu_torch.tools.export_model import export_eval_step
+    from cafe_tpu_torch.train import (build_all, build_multi_step,
+                                      build_quantized_eval_step, run)
     from cafe_tpu_torch.train.loop import pretrain_autoencoders
-    from cafe_tpu_torch.train.capture import WARMUP_CALLS
-    from cafe_tpu_torch.train.step import _bce, build_train_step, clone_state
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS, copy_into
+    from cafe_tpu_torch.train.step import (_bce, build_train_step,
+                                           clone_state, init_state)
     from cafe_tpu_torch.utils.timing import fence
 
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.jsonl")):
@@ -2210,6 +2536,8 @@ def main() -> int:
     emit({"phase": "kernels_rowsum", **kern["rowsum"]})
     kern["gather"] = phase_gather(gather, embed, state, batches)
     emit({"phase": "kernels_gather", **kern["gather"]})
+    quant = phase_quant_parity(quantize_rowwise, dequantize_rows, {
+        "headline": state.embed[cafe_key(embed)[1]]["table"]})
     del state, embed
 
     state, _, dense = drive(build_all, fence,
@@ -2228,12 +2556,15 @@ def main() -> int:
 
     cfg128 = headline_cfg(Config, dataset="criteotb", embedding_dim=128,
                           compress_rate=0.1, learning_rate=1.0)
-    state, _, sib = drive(build_all, fence, cfg128, data, batches, KERNELS,
-                          SIBLING_STEPS, 1)
-    del state
+    state, sib_embed, sib = drive(build_all, fence, cfg128, data, batches,
+                                  KERNELS, SIBLING_STEPS, 1)
+    quant.update(phase_quant_parity(quantize_rowwise, dequantize_rows, {
+        "sibling": state.embed[cafe_key(sib_embed)[1]]["table"]}))
+    del state, sib_embed
     check_launches("sibling", sib, {"land_max": sib["steps"],
                                     "scatter_add": sib["steps"]})
     emit({"phase": "sibling", **sib})
+    emit({"phase": "quant_parity", **quant})
     torch.cuda.empty_cache()
 
     for name, cfg in (("headline", headline_cfg(Config)),
@@ -2301,16 +2632,27 @@ def main() -> int:
         build_all, headline_cfg(Config), data, batches, "headline_graph",
         capture=True)})
 
+    # ---- quantized serving and the export
+    emit({"phase": "serving_quant", **phase_serving_quant(
+        load_tool("serving_bench_torch"))})
+    emit({"phase": "export", **phase_export(
+        build_all, export_eval_step, headline_cfg(Config), data, batches)})
+    torch.cuda.empty_cache()
+
     before = graph_launches()
-    cli = phase_cli(main_torch.main, make_criteo_arrays, KERNELS)
+    cli = phase_cli(main_torch.main, make_criteo_arrays, KERNELS,
+                    quant_bits=QUANT_BITS)
     count_in_graphs("cli", before)
     by_path["cli"] = cli["run_a"]["launches"]
     by_path["cli_throughput"] = cli["run_c"]["launches"]
+    cli_quant = cli.pop("quant")
     emit({"phase": "cli", **cli})
+    emit({"phase": "cli_quant", **cli_quant})
     before = graph_launches()
     clip = phase_cli(main_torch.main, make_criteo_arrays, KERNELS,
                      extra=["--cafe_plus", "true"],
-                     want={"land_max": 0, "rowsum": 48}, tag="cli_plus")
+                     want={"land_max": 0, "rowsum": 48}, tag="cli_plus",
+                     quant_bits=QUANT_BITS)
     count_in_graphs("cli_plus", before)
     by_path["cli_plus"] = clip["run_a"]["launches"]
     by_path["cli_plus_throughput"] = clip["run_c"]["launches"]
@@ -2359,6 +2701,10 @@ def main() -> int:
     emit({"phase": "sharded_parity_plus", **phase_sharded_parity(
         build_all, from_reference, to_numpy, Config, data, batches_cpu,
         batches, mesh_gpu, mesh_cpu, plus=True)})
+    for cfg in (cfg_sh, cfg_shp):
+        emit({"phase": "sharded_quant", **phase_sharded_quant(
+            build_all, init_state, copy_into, build_quantized_eval_step,
+            cfg, data, batches, mesh_gpu)})
 
     clis = phase_cli_sharded(main_torch.main, make_criteo_arrays, KERNELS)
     by_path["cli_sharded"] = clis["launches"]

@@ -136,3 +136,40 @@ def test_launch_counts_grow_per_replay():
     assert rowsum.KERNEL.launches - r0 == n
     assert land.KERNEL.graph_launches - g0 == n - WARMUP_CALLS
     assert land.KERNEL.captured >= 1 and g_step.capture_s > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plus", [False, True])
+def test_quantized_eval_replays_equal_eager(plus):
+    """The quantized eval step (int8 and int4) graphed on the card equals
+    its eager twin bit for bit, on a trained state, batch for batch."""
+    from cafe_tpu_torch.train import build_quantized_eval_step
+    _card()
+    cfg, _, e_step, _, _, start, batches = _setup(cafe_plus=plus)
+    state, _ = _run(e_step, from_reference(start, "cuda"), batches,
+                    VALIDS[:4])
+    model, embed, *_ = build_all(cfg, get_dataset(cfg, "train"),
+                                 device="cuda", capture=False)
+    for bits in (8, 4):
+        g = build_quantized_eval_step(model, embed, state, bits)
+        e = build_quantized_eval_step(model, embed, state, bits,
+                                      capture=False)
+        assert g.graphed and not e.graphed
+        for dense, sparse, _ in batches[:6]:
+            assert torch.equal(g(state, dense, sparse).clone(),
+                               e(state, dense, sparse))
+        assert g.replays == 6 - WARMUP_CALLS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_rowwise_card_equals_cpu(bits):
+    """The card's codes, scales and zeros byte-equal to the CPU's (a
+    division by a Python number on the card would multiply by its
+    reciprocal and move the last bit of some scales)."""
+    from cafe_tpu_torch.ops.quantized import quantize_rowwise
+    _card()
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.3, (65536, 16)).astype(np.float32))
+    card = quantize_rowwise(table.cuda(), bits).codes.cpu()
+    assert torch.equal(card, quantize_rowwise(table, bits).codes)

@@ -46,7 +46,7 @@ JAX_FREE = ["chip_smoke.py", "main_torch.py", "tests/torch_dist_worker.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
             "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",
             "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py",
-            "tools/sketch_bench_torch.py"]
+            "tools/serving_bench_torch.py", "tools/sketch_bench_torch.py"]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -74,7 +74,7 @@ def test_tools_import_with_jax_blocked():
             "    sys.modules[name] = None\n"
             "import cafe_tpu_torch.tools.roofline\n"
             "for name in ('ab_decisions_torch', 'ab_insert_land_torch',\n"
-            "             'sketch_bench_torch'):\n"
+            "             'serving_bench_torch', 'sketch_bench_torch'):\n"
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'tools/{name}.py')\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -276,7 +276,7 @@ def test_cafe_plus_steps_match(tmp_path_factory, n, pairs):
     dict(test_throughput=True), dict(steps_per_dispatch=2)])
 def test_unported_mesh_flags_raise(flags):
     cfg = TConfig(**dict(SHARD, mesh_shape=2, **flags))
-    with pytest.raises(NotImplementedError, match="Q8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         check_supported(cfg)
 
 
@@ -344,3 +344,200 @@ def test_main_torch_prints_the_steps(n, mode, capsys, tmp_path):
     np.testing.assert_allclose(losses, want_losses, rtol=0, atol=6e-7)
     assert abs(evals[0][0] - acc * 100) <= 6e-4
     assert abs(evals[0][1] - auc * 100) <= 6e-4
+
+
+# ------------------------------------------------------ quantized serving
+
+# a CafePart large enough that its int8 codes exceed 8x the O(batch)
+# bound, so a table-sized collective could not pass unseen
+QKW = dict(SHARD, synthetic_vocab=2 ** 20, embedding_dim=16,
+           compress_rate=0.1, mesh_shape=4)
+QB = 128                        # the eval batch, over 4 ranks
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["v1", "plus"])
+def served4(request, tmp_path_factory):
+    """CAFE v1 or CAFE+ trained STEPS steps on 4 gloo ranks, then served
+    quantized (8 and 4 bits) on the mesh."""
+    from cafe_tpu_torch.data import batch_iterator
+    from cafe_tpu_torch.train import get_dataset
+    kw = dict(QKW, cafe_plus=request.param)
+    data = get_dataset(TConfig(**kw), "train")
+    batches = list(batch_iterator(data, kw["mini_batch_size"],
+                                  drop_last=True))
+    ev = batches[STEPS]
+    out = w.run_ranks(w.quantized_serving, 4,
+                      tmp_path_factory.mktemp("ranks"), kw,
+                      batches[:STEPS], ev[:2], (8, 4))[0]
+    return kw, out, ev
+
+
+def _meshless(kw, state_np, n):
+    """The port on one process (no mesh) with the n-shard layout, holding
+    the global state of a run on n ranks."""
+    from cafe_tpu_torch.embeddings.cafe import CafePart
+    from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.train.step import init_state
+    cfg = TConfig(**dict(kw, mesh_shape=None, shard_embeddings=False))
+    model, embed, *_ = build_all(cfg, get_dataset(cfg, "train"),
+                                 device="cpu", capture=False)
+    cafe = [p for p in embed.parts if isinstance(p, CafePart)]
+    assert cafe and all(p.mesh is None and p.enable_sharded_layout(n)
+                        for p in cafe)
+    fresh = init_state(model, embed, cfg.numpy_rand_seed, cfg.optimizer)
+    state = from_reference(state_np, "cpu")
+    for a, b in zip(jax.tree.leaves(to_numpy(fresh)),
+                    jax.tree.leaves(to_numpy(state))):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    return model, embed, state
+
+
+def _assert_same_rows(raws, want):
+    """The dequantized rows of one process against the mesh's: the scores
+    hardly move with rows of the init's scale, the rows themselves do."""
+    assert raws.keys() == want.keys()
+    for k, v in raws.items():
+        np.testing.assert_allclose(v.numpy(), want[k], rtol=1e-6, atol=0)
+
+
+def test_quantized_serving_on_the_mesh_moves_o_batch(served4):
+    """The owners dequantize their rows and the reduce-scatter returns f32
+    rows: every collective of the quantized eval step carries at most
+    the JAX test's O(batch) bound, far below the codes' size; the scores
+    track the float eval's."""
+    kw, out, _ = served4
+    assert out["parts"][-1] == ("CafePart", True)
+    dim = kw["embedding_dim"]
+    key = f"part{len(out['parts']) - 1}"
+    rows = out["state"]["embed"][key]["table"].shape[0]
+    sk = out["state"]["embed"][key]["sketch"]
+    assert any((v != 0).any() for f, v in sk.items()
+               if f.startswith("dic"))          # some ids serve hot rows
+    bound = 8 * QB * kw["synthetic_fields"] * (dim + 4) * 4
+    assert bound < rows * (dim + 8) // 8
+    for bits in (8, 4):
+        assert out["graphed"][bits] is False       # a mesh: eager
+        sizes = out["sizes"][bits]
+        assert {name for name, _ in sizes} >= {"_all_gather_single",
+                                               "_reduce_scatter_single"}
+        assert max(n for _, n in sizes) <= bound, sizes
+        assert np.abs(out[bits] - out["float"]).mean() < 0.01
+
+
+def test_meshless_layout_serves_the_mesh_state(served4):
+    """enable_sharded_layout(4): the global state of the 4-rank run
+    serves on one process, quantized and float, as the mesh served it."""
+    from cafe_tpu_torch.train import build_quantized_eval_step
+    from cafe_tpu_torch.train.step import build_eval_step
+    kw, out, ev = served4
+    model, embed, state = _meshless(kw, out["state"], 4)
+    args = (torch.from_numpy(ev[0]), torch.from_numpy(ev[1]))
+    np.testing.assert_allclose(
+        build_eval_step(model, embed)(state, *args).numpy(), out["float"],
+        rtol=1e-5, atol=1e-5)
+    for bits in (8, 4):
+        step = build_quantized_eval_step(model, embed, state, bits)
+        np.testing.assert_allclose(step(state, *args).numpy(), out[bits],
+                                   rtol=1e-5, atol=1e-5)
+        _assert_same_rows(embed.gather_quantized(state.embed, step.qtables,
+                                                 args[1]),
+                          out[f"raw{bits}"])
+
+
+def test_meshless_layout_matches_jax(served4):
+    """The same global state, bridged into the JAX package's mesh-less
+    sharded layout: its quantized eval step scores as the port's."""
+    from cafe_tpu.embeddings.cafe import CafePart as JCafe
+    from cafe_tpu.train.step import build_quantized_eval_step as jq_eval
+    from cafe_tpu.train.step import init_state as jinit
+    from cafe_tpu_torch.bridge import to_reference
+    from cafe_tpu_torch.train import build_quantized_eval_step
+    kw, out, ev = served4
+    model, embed, state = _meshless(kw, out["state"], 4)
+    jcfg = JConfig(**dict(kw, mesh_shape=None, shard_embeddings=False))
+    jmodel, jembed, *_ = jbuild_all(jcfg, jdata(jcfg, "train"))
+    assert all(p.enable_sharded_layout(4) for p in jembed.parts
+               if isinstance(p, JCafe))
+    jstate = to_reference(state, jinit(jmodel, jembed, jcfg.numpy_rand_seed,
+                                       jcfg.optimizer))
+    for bits in (8, 4):
+        want = np.asarray(jq_eval(jmodel, jembed, jstate, bits)(
+            jstate, *(jax.numpy.asarray(x) for x in ev[:2])))
+        got = build_quantized_eval_step(model, embed, state, bits)(
+            state, torch.from_numpy(ev[0]), torch.from_numpy(ev[1]))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_sharded_hash_serves_as_one_process(tmp_path):
+    """--compress_method hash --shard_embeddings: the sharded
+    HashedTablePart dequantizes through the same owner exchange (O(batch)
+    collectives), and its mesh scores equal the one-process serving of
+    the unsharded state, quantized and float."""
+    from cafe_tpu_torch.data import batch_iterator
+    from cafe_tpu_torch.train import (build_all, build_quantized_eval_step,
+                                      get_dataset)
+    from cafe_tpu_torch.train.step import build_eval_step
+    kw = dict(QKW, compress_method="hash")
+    cfg = TConfig(**kw)
+    batches = list(batch_iterator(get_dataset(cfg, "train"),
+                                  kw["mini_batch_size"], drop_last=True))
+    ev = batches[STEPS]
+    out = w.run_ranks(w.quantized_serving, 4, tmp_path, kw,
+                      batches[:STEPS], ev[:2], (8, 4))[0]
+    assert out["parts"] == [("HashedTablePart", True)]
+    dim = kw["embedding_dim"]
+    rows = out["state"]["embed"]["part0"]["table"].shape[0]
+    bound = 8 * QB * kw["synthetic_fields"] * (dim + 4) * 4
+    assert bound < rows * (dim + 8) // 8
+    for bits in (8, 4):
+        assert max(n for _, n in out["sizes"][bits]) <= bound
+
+    one = TConfig(**dict(kw, mesh_shape=None, shard_embeddings=False))
+    model, embed, fresh, *_ = build_all(one, get_dataset(one, "train"),
+                                        device="cpu", capture=False)
+    state = from_reference(out["state"], "cpu")
+    for a, b in zip(jax.tree.leaves(to_numpy(fresh)),
+                    jax.tree.leaves(to_numpy(state))):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    args = (torch.from_numpy(ev[0]), torch.from_numpy(ev[1]))
+    np.testing.assert_allclose(
+        build_eval_step(model, embed)(state, *args).numpy(), out["float"],
+        rtol=1e-5, atol=1e-5)
+    for bits in (8, 4):
+        step = build_quantized_eval_step(model, embed, state, bits)
+        np.testing.assert_allclose(step(state, *args).numpy(), out[bits],
+                                   rtol=1e-5, atol=1e-5)
+        _assert_same_rows(embed.gather_quantized(state.embed, step.qtables,
+                                                 args[1]),
+                          out[f"raw{bits}"])
+
+
+def test_sharded_layout_training_raises(served4):
+    """enable_sharded_layout is serving-only: the flat insert on the
+    sharded sketch would corrupt it, so apply_grads raises."""
+    kw, out, ev = served4
+    _, embed, state = _meshless(kw, out["state"], 4)
+    part, key = embed.parts[-1], f"part{len(embed.parts) - 1}"
+    ids = torch.zeros((4, len(part.field_idx)), dtype=torch.int32)
+    raw, aux = part.gather(state.embed[key], ids)
+    with pytest.raises(RuntimeError, match="serving/inspection"):
+        part.apply_grads(state.embed[key], ids, torch.ones_like(raw), aux,
+                         0.1)
+
+
+@pytest.mark.parametrize("plus", [False, True], ids=["v1", "plus"])
+def test_main_torch_serves_quantized_on_a_mesh(plus, capsys):
+    """--inference_only --quantize_emb_bits {8,4} through main_torch on a
+    mesh (world size 1, this process): accuracy within 0.01 of the float
+    eval of the same state."""
+    sys.path.insert(0, str(REPO))
+    import main_torch
+    argv = CLI + ["--mesh_shape", "1", "--inference_only", "true",
+                  "--cafe_plus", str(plus).lower()]
+    accs = []
+    for bits in ("0", "8", "4"):
+        main_torch.main(argv + ["--quantize_emb_bits", bits])
+        text = capsys.readouterr().out
+        accs.append(float(re.search(r"^accuracy=([\d.]+) ", text,
+                                    re.M).group(1)))
+    assert abs(accs[1] - accs[0]) < 0.01 and abs(accs[2] - accs[0]) < 0.01

@@ -184,3 +184,29 @@ def test_sketch_bench_matches_the_jax_tool():
     assert got["recall_plus"]["cells4"]["hot"] > 0
     assert set(got["throughput"]) == set(want["throughput"])
     assert all(v > 0 for v in got["throughput"].values())
+
+
+def test_serving_bench_runs_on_the_cpu():
+    """tools/serving_bench_torch.py at a CPU size (ids modulo 2,000, dim
+    8, eval batches of 512): the JAX tool's JSON line
+    (tools/serving_bench.py: metric, dim, test_batch, bits, fp32_ms,
+    int8_ms, windows) plus the int4 arm, "device", the tables' bytes and
+    the scores' distance from the f32 eval's."""
+    tool = _load("serving_bench_torch")
+    ret, out = _printed_json(tool.main, [
+        "--device", "cpu", "--max_ind_range", "2000", "--dim", "8",
+        "--test_batch", "512", "--windows", "2", "--steps", "2"])
+    got = json.loads(out)
+    assert got == json.loads(json.dumps(ret))
+    assert set(got) >= {"metric", "dim", "test_batch", "bits", "fp32_ms",
+                        "int8_ms", "windows", "int4_ms", "device"}
+    assert got["metric"] == "serving_test_ms_per_it"
+    assert got["device"] == "cpu" and got["test_batch"] == 512
+    for arm in ("fp32", "int8", "int4"):
+        assert got[f"{arm}_ms"] > 0 and len(got["windows"][arm]) == 2
+        assert got["graphed"][arm] is False
+    rows = got["table_bytes"]["fp32"] // (8 * 4)
+    assert got["table_bytes"]["int8"] == rows * (8 + 8)
+    assert got["table_bytes"]["int4"] == rows * (4 + 8)
+    assert 0 < got["mean_abs_diff"]["int8"] < got["mean_abs_diff"]["int4"] \
+        < 0.01

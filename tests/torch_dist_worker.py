@@ -258,3 +258,64 @@ def cli_reference(mesh, argv):
     metrics, _ = inference(cfg, eval_step, state, get_dataset(cfg, "test"),
                            mesh=mesh)
     return losses, (metrics["accuracy"], metrics["roc_auc"])
+
+
+def quantized_serving(mesh, cfg_kw, batches, eval_batch, bits_list):
+    """The layer built on the mesh from build_all's own state, the
+    batches' slices stepped, then for each of `bits_list` the quantized
+    eval step (eager on a mesh) on this rank's slice of `eval_batch`,
+    with the size of every collective it made (the larger of its input
+    and output, in bytes) recorded by wrapping the exchange's
+    primitives. Returns the all-gathered scores and dequantized rows
+    ("raw<bits>") per bits, the float eval's scores, the sizes, the
+    parts' layout and (rank 0) the global state after the steps."""
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.parallel import exchange as ex
+    from cafe_tpu_torch.parallel import unshard_state
+    from cafe_tpu_torch.train import (build_all, build_quantized_eval_step,
+                                      get_dataset)
+    cfg = Config(**cfg_kw)
+    model, embed, state, step, eval_step = build_all(
+        cfg, get_dataset(cfg, "train"), mesh=mesh)
+    for dense, sparse, label, valid in batches:
+        state, _ = step(state, *_on(mesh, dense, sparse, label), valid)
+    d, s = _on(mesh, *eval_batch)
+    sizes = []
+
+    def recording(fn, name):
+        def wrapped(*args, **kwargs):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            sizes.append((name, max(t.numel() * t.element_size()
+                                    for t in ts)))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    prims = {"_all_gather_single": ex._all_gather_single,
+             "_reduce_scatter_single": ex._reduce_scatter_single}
+    all_reduce = dist.all_reduce
+    out = {"float": ex.all_gather(eval_step(state, d, s), mesh).numpy(),
+           "sizes": {}, "graphed": {}}
+    for bits in bits_list:
+        q = build_quantized_eval_step(model, embed, state, bits)
+        sizes.clear()
+        for name, fn in prims.items():
+            setattr(ex, name, recording(fn, name))
+        dist.all_reduce = recording(all_reduce, "all_reduce")
+        try:
+            p = q(state, d, s)
+        finally:
+            for name, fn in prims.items():
+                setattr(ex, name, fn)
+            dist.all_reduce = all_reduce
+        out["sizes"][bits] = list(sizes)
+        out["graphed"][bits] = q.graphed
+        out[bits] = ex.all_gather(p, mesh).numpy()
+        with torch.no_grad():
+            raws = embed.gather_quantized(state.embed, q.qtables, s)
+        out[f"raw{bits}"] = {k: ex.all_gather(v, mesh).numpy()
+                             for k, v in raws.items()}
+    full = _to_numpy(unshard_state(state, mesh, embed))
+    out["state"] = full if mesh.rank == 0 else None
+    out["parts"] = [(type(p).__name__, p.mesh is not None)
+                    for p in embed.parts]
+    return out
