@@ -23,6 +23,11 @@ A sharded JAX state is one global state; under a mesh each port rank
 holds its slices (parallel/sharding.py). `from_reference_sharded` cuts
 rank r's state from the global arrays, and `to_reference_sharded`
 gathers the ranks' shards back into the JAX layout.
+
+The graph recommenders' states (models/graphrec/) cross whole through
+`to_torch` and `to_reference`: LightGCN.init's part dict and PinSAGE's
+{"embed", "conv*", "opt"} (the sketch a dict here and a SketchState
+there, Adam's slots a list here and a tuple there).
 """
 
 from __future__ import annotations

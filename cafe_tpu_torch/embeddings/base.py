@@ -546,11 +546,12 @@ class EmbeddingLayer:
         if exchange_mode not in ("explicit",) + tuple(EXCHANGE_IMPLS):
             raise NotImplementedError(
                 f"shard_exchange {exchange_mode!r} is not ported yet "
-                f"(ROADMAP queue Q8); use explicit, a2a or pallas")
+                f"(ROADMAP queue 1 item 6.3); use explicit, a2a or "
+                f"pallas")
         if unique_frac > 0.0:
             raise NotImplementedError(
                 "shard_unique_frac > 0: the unique-compact exchange is not "
-                "ported yet (ROADMAP queue Q8)")
+                "ported yet (ROADMAP queue 1 item 6.2)")
         self.mesh = mesh
         active = []
         for i, p in enumerate(self.parts):

@@ -18,8 +18,9 @@ rows or grads of those ids; `impl='pallas'` runs them through kernel K5
 
 Each function here is the body of the JAX package's `shard_map`: it takes
 this rank's shard of the table and this rank's slice of the batch, and
-every collective names the mesh's group. The two-level mesh and the
-unique-compact buffers are not ported (ROADMAP queue Q8).
+every collective names the mesh's group. The two-level mesh (ROADMAP
+queue 1 item 6.1) and the unique-compact buffers (item 6.2) are not
+ported.
 """
 
 from __future__ import annotations
@@ -127,7 +128,7 @@ def _no_unique_compact(unique_frac: float) -> None:
     if unique_frac > 0.0:
         raise NotImplementedError(
             "shard_unique_frac > 0: the unique-compact exchange is not "
-            "ported yet (ROADMAP queue Q8)")
+            "ported yet (ROADMAP queue 1 item 6.2)")
 
 
 def _fetch_full(mesh, tbl: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:

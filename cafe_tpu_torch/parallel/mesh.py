@@ -117,7 +117,8 @@ def make_mesh(n_devices: Optional[int] = None, inner: int = 0,
     if inner:
         raise NotImplementedError(
             "mesh_inner > 0: the two-level (dcn, ici) mesh and its "
-            "hierarchical exchange are not ported yet (ROADMAP queue Q8)")
+            "hierarchical exchange are not ported yet (ROADMAP queue 1 "
+            "item 6.1)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "maybe_init_distributed first")

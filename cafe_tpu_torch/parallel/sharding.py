@@ -24,6 +24,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
+
 from .exchange import all_gather
 
 _ROW_TABLES = {"table", "hash", "high", "q", "r", "hot", "cold", "weight"}
@@ -93,18 +95,35 @@ def shard_state(state: Any, mesh, embed_layer) -> Any:
     return _map_embed(state, embed_layer, cut)
 
 
+def _joined(name: str, x, n: int):
+    """The global shape of a rank's leaf `x` if it is a shard of a
+    sharded leaf, else None. A sharded leaf is told apart by its global
+    shape (local rows x mesh size), which is exact for the leaves the
+    ported parts hold."""
+    if not x.dim():
+        return None
+    shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+    return shape if leaf_is_sharded(name, shape, n) else None
+
+
 def unshard_state(state: Any, mesh, embed_layer) -> Any:
     """The global TrainState from every rank's shards (collective: every
-    rank calls it and gets the whole state). A sharded leaf is told apart
-    by its global shape (local rows x mesh size), which is exact for the
-    leaves the ported parts hold."""
+    rank calls it and gets the whole state)."""
     def join(name, x):
-        if x.dim() and leaf_is_sharded(
-                name, (x.shape[0] * mesh.size,) + tuple(x.shape[1:]),
-                mesh.size):
-            return all_gather(x, mesh)
-        return x
+        return x if _joined(name, x, mesh.size) is None \
+            else all_gather(x, mesh)
     return _map_embed(state, embed_layer, join)
+
+
+def global_like(state: Any, mesh, embed_layer) -> Any:
+    """unshard_state's result as shapes only, without communication:
+    every sharded leaf becomes an empty tensor on the meta device with
+    its global shape and dtype; other leaves stay as they are."""
+    def grow(name, x):
+        shape = _joined(name, x, mesh.size)
+        return x if shape is None else torch.empty(shape, dtype=x.dtype,
+                                                   device="meta")
+    return _map_embed(state, embed_layer, grow)
 
 
 def batch_slice(mesh, *arrays):

@@ -12,12 +12,16 @@ With --mesh_shape / --shard_embeddings, or under torchrun, `run` trains
 on a flat mesh of one process per device (parallel/): each rank reads
 its slice of every batch, the sharded parts exchange rows over the
 mesh's group, eval scores are all-gathered before the metrics, and only
-rank 0 prints and logs.
+rank 0 prints and logs. Checkpoints hold the global state (every rank
+takes part in a save; train/checkpoint.py), the latency protocol streams
+each rank's slices through the collective eval step, and a dispatch of
+K steps gives rank r its slice of each of K global batches in turn.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import os.path as osp
@@ -31,7 +35,7 @@ import torch.distributed as dist
 from ..config import Config
 from ..data import (CTRArrays, batch_iterator, load_dataset,
                     make_synthetic_arrays, num_batches)
-from ..data.datasets import process_batch_iterator
+from ..data.datasets import _read_block, process_batch_iterator
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..embeddings import build_embedding_layer
@@ -42,7 +46,8 @@ from ..parallel.exchange import all_gather
 from ..parallel.mesh import torchrun_world_size
 from ..utils.logging import ScalarLogger
 from ..utils.timing import fence, queue_bound
-from .checkpoint import load_checkpoint, save_checkpoint, save_rolling
+from .checkpoint import (checkpoint_meta, load_checkpoint,
+                         save_checkpoint, save_rolling)
 from .metrics import binary_metrics
 from .step import (TrainState, build_eval_step, build_multi_step,
                    build_quantized_eval_step, build_train_step, init_state)
@@ -71,7 +76,7 @@ def model_arch(cfg: Config, num_dense: int, num_sparse: int):
 
 
 def build_all(cfg: Config, train_data=None, device="cuda", params=None,
-              mesh=None, capture=True):
+              mesh=None, capture=True, layout_shards: int = 0):
     """Construct (model, embed_layer, state, train_step, eval_step) on
     `device` (default the card; raises without CUDA unless device='cpu').
     `params` replaces the model's own dense init (bridge.py brings the
@@ -83,7 +88,11 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
     layer works on this rank's batch slice; with cfg.shard_embeddings the
     parts that support it switch to the explicit exchange BEFORE the
     state is made (the state layout depends on it), and the returned
-    state is this rank's slice of the global one."""
+    state is this rank's slice of the global one.
+
+    `layout_shards` n > 0 (one device, no mesh) gives every CAFE part
+    the n-shard state layout (CafePart.enable_sharded_layout), so that
+    the global state of a run on n ranks serves here."""
     dev = resolve_device(device) if mesh is None else mesh.device
     if train_data is None:
         train_data = get_dataset(cfg, "train")
@@ -113,6 +122,10 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
                 print(f"{cfg.shard_exchange} exchange on: "
                       f"{active or 'no part (all small: replicated)'}",
                       flush=True)
+    if layout_shards and mesh is None:
+        for p in embed.parts:
+            if hasattr(p, "enable_sharded_layout"):
+                p.enable_sharded_layout(layout_shards)
     state = init_state(model, embed, cfg.numpy_rand_seed, cfg.optimizer,
                        params=params)
     if mesh is not None:
@@ -165,12 +178,6 @@ def check_supported(cfg: Config) -> None:
              "unique-compact exchange)", "6.2"),
             (cfg.shard_embeddings and cfg.shard_exchange == "auto",
              "shard_exchange auto", "6.3"),
-            (bool(cfg.save_model or cfg.load_model),
-             "save_model / load_model under a mesh", "6.4"),
-            (cfg.test_throughput, "the latency protocol under a mesh",
-             "6.4"),
-            (cfg.steps_per_dispatch > 1, "steps_per_dispatch > 1 under a "
-             "mesh", "6.4"),
         ]
         if cfg.shard_embeddings and cfg.method in ("qr", "off", "ada"):
             # replicated parts would be another result for ada: the JAX
@@ -202,20 +209,63 @@ def _on(x, dev):
     return torch.from_numpy(np.require(x, requirements=["C", "W"])).to(dev)
 
 
+def _eval_batches(test_data, batch: int, mesh):
+    """The test stream: global batches, or under a mesh this rank's slice
+    of each."""
+    if mesh is None:
+        return batch_iterator(test_data, batch)
+    return process_batch_iterator(test_data, batch, mesh.rank, mesh.size)
+
+
+def train_batches(data, batch: int, k: int, start_row: int = 0, mesh=None):
+    """One epoch's host batches for dispatches of k steps from `start_row`
+    (exact-batch resume): flat [k*B] blocks (the last one padded with the
+    block's first row, as batch_iterator pads), or under a mesh this
+    rank's [k*B/n] rows, which are its slice of each of the k global
+    batches in turn (process_batch_iterator: a partial batch is padded
+    with its own first row, as at k = 1). `valid` counts the valid rows of
+    the k global batches; a block past the data's end is padded with its
+    first row and counts none."""
+    if mesh is None:
+        return batch_iterator(data, batch * k, start_row=start_row)
+    it = process_batch_iterator(data, batch, mesh.rank, mesh.size,
+                                start_row=start_row)
+    return it if k == 1 else _mesh_dispatches(it, data, batch, k,
+                                              start_row, mesh.size)
+
+
+def _mesh_dispatches(it, data, batch, k, start_row, n):
+    for g in itertools.count():
+        group = list(itertools.islice(it, k))
+        if not group:
+            return
+        if len(group) < k:
+            lo = start_row + g * k * batch
+            first = _read_block(data, lo, lo + 1)
+            fill = tuple(None if x is None else np.repeat(x[:1], batch // n,
+                                                          0)
+                         for x in first)
+            group += [fill + (0,)] * (k - len(group))
+        cols = list(zip(*group))
+        yield (None if cols[0][0] is None else np.concatenate(cols[0]),
+               np.concatenate(cols[1]), np.concatenate(cols[2]),
+               sum(cols[3]))
+
+
 def inference(cfg: Config, eval_step, state: TrainState, test_data,
               throughput: bool = False, mesh=None
               ) -> Tuple[Dict[str, float], float]:
     """Streaming evaluation on the state's device (main.py:32-131).
     Returns (metrics, ms_per_it). Under a mesh each rank scores its slice
     of every test batch through the same exchange, and the scores are
-    all-gathered before the metrics (every rank gets them)."""
+    all-gathered before the metrics (every rank gets them); the latency
+    protocol streams the slices too, and every rank makes the same calls
+    (the exchange is collective)."""
     dev = state.step.device
+    bs = cfg.test_mini_batch_size
     if not throughput:
         scores, targets = [], []
-        bs = cfg.test_mini_batch_size
-        batches = (batch_iterator(test_data, bs) if mesh is None else
-                   process_batch_iterator(test_data, bs, mesh.rank,
-                                          mesh.size))
+        batches = _eval_batches(test_data, bs, mesh)
         for dense, sparse, label, valid in device_prefetch(batches, dev):
             p = eval_step(state, dense, sparse)
             if mesh is not None:
@@ -236,8 +286,8 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
 
     def _stream():
         got = False
-        for dense, sparse, label, valid in batch_iterator(
-                test_data, cfg.test_mini_batch_size):
+        for dense, sparse, label, valid in _eval_batches(test_data, bs,
+                                                         mesh):
             got = True
             if cache is not None:
                 dense, sparse = _on(dense, dev), _on(sparse, dev)
@@ -249,8 +299,7 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
             if cache is not None:
                 yield from cache
             else:
-                yield from batch_iterator(test_data,
-                                          cfg.test_mini_batch_size)
+                yield from _eval_batches(test_data, bs, mesh)
 
     qbound = queue_bound()
     t_start, n_timed, p, acc = None, 0, None, None
@@ -352,8 +401,29 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
     print_ = print if main else _quiet
     train_data = get_dataset(cfg, "train")
     test_data = get_dataset(cfg, "test")
+    load_path, layout = "", 0
+    if cfg.load_model:
+        load_path = cfg.load_model
+        if not osp.exists(load_path) and osp.exists(load_path + ".latest"):
+            # best-accuracy checkpoints only exist after a test event;
+            # crash-recovery restarts with the same --save_model path
+            # pick up the rolling slot
+            load_path = load_path + ".latest"
+            print_(f"{cfg.load_model} not found; resuming from the "
+                   f"rolling checkpoint {load_path}", flush=True)
+        if mesh is None:
+            # a mesh run's global state serves on one device in the
+            # n-shard layout; it cannot resume training here
+            layout = checkpoint_meta(load_path).get("mesh_size", 0)
+            if layout and not cfg.inference_only:
+                raise ValueError(
+                    f"checkpoint {load_path} was saved at world size "
+                    f"{layout} and is loaded at one device without a "
+                    f"mesh: serve it with --inference_only, or resume on "
+                    f"a mesh of {layout}")
     model, embed, state, train_step, eval_step = build_all(
-        cfg, train_data, device=device, mesh=mesh, capture=capture)
+        cfg, train_data, device=device, mesh=mesh, capture=capture,
+        layout_shards=layout)
     if mesh is not None:
         print_(f"sharded over {mesh.size} ranks ({mesh.backend}; "
                f"shard_embeddings={cfg.shard_embeddings}, "
@@ -374,26 +444,19 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
     k_disp = max(cfg.steps_per_dispatch, 1)
     if k_disp > 1:
         train_step = build_multi_step(train_step, k_disp,
-                                      donate=cfg.donate_state)
-    fetch = cfg.mini_batch_size * k_disp
+                                      donate=cfg.donate_state,
+                                      mesh_size=1 if mesh is None
+                                      else mesh.size)
 
     best_acc = 0.0
     skip_epoch, skip_batch = 0, 0
-    if cfg.load_model:
-        load_path = cfg.load_model
-        if not osp.exists(load_path) and osp.exists(load_path + ".latest"):
-            # best-accuracy checkpoints only exist after a test event;
-            # crash-recovery restarts with the same --save_model path
-            # pick up the rolling slot
-            load_path = load_path + ".latest"
-            print(f"{cfg.load_model} not found; resuming from the "
-                  f"rolling checkpoint {load_path}", flush=True)
-        state, extra = load_checkpoint(load_path, state)
+    if load_path:
+        state, extra = load_checkpoint(load_path, state, mesh, embed)
         best_acc = extra.get("test_acc", 0.0)
         skip_epoch = extra.get("epoch", 0)
         skip_batch = extra.get("iter", 0)
-        print(f"loaded {cfg.load_model}: epoch={skip_epoch} "
-              f"iter={skip_batch} acc={best_acc:.4f}", flush=True)
+        print_(f"loaded {cfg.load_model}: epoch={skip_epoch} "
+               f"iter={skip_batch} acc={best_acc:.4f}", flush=True)
 
     if cfg.inference_only:
         if cfg.quantize_emb_bits in (4, 8):
@@ -427,13 +490,8 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
         # first call continues precisely where the checkpoint stopped,
         # whatever the saving run's steps_per_dispatch
         base_it = skip_batch if ep == skip_epoch else 0
-        start = base_it * cfg.mini_batch_size
-        if mesh is None:
-            raw = batch_iterator(train_data, fetch, start_row=start)
-        else:
-            # each rank reads only its slice of every global batch
-            raw = process_batch_iterator(train_data, fetch, mesh.rank,
-                                         mesh.size, start_row=start)
+        raw = train_batches(train_data, cfg.mini_batch_size, k_disp,
+                            base_it * cfg.mini_batch_size, mesh)
         batches = device_prefetch(raw, device)
         for i, (dense, sparse, label, valid) in enumerate(batches):
             if cfg.enable_profiling and main and i == 10 and prof is None:
@@ -479,21 +537,23 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
                     (eff_it % cfg.save_freq < k_disp or eff_it == nbatches):
                 save_rolling(cfg.save_model, state, {
                     "test_acc": best_acc, "epoch": ep, "iter": eff_it,
-                })
+                }, mesh, embed)
 
             if should_test or (cfg.test_throughput
                                and eff_it >= 2 * cfg.print_freq):
                 if cfg.test_throughput:
                     _, test_ms = inference(cfg, eval_step, state, test_data,
-                                           throughput=True)
+                                           throughput=True, mesh=mesh)
                     # a test set small enough is staged on the device once:
                     # serving-path latency, not transfer-inclusive latency
                     lat = {"train": train_ms, "test": test_ms,
                            "test_batches_device_cached":
                                _eval_cacheable(test_data)}
-                    out = osp.join(cfg.tensor_board_filename, "latency.json")
-                    with open(out, "w") as f:
-                        json.dump(lat, f)
+                    if main:
+                        out = osp.join(cfg.tensor_board_filename,
+                                       "latency.json")
+                        with open(out, "w") as f:
+                            json.dump(lat, f)
                     print_(f"latency: {lat}", flush=True)
                     logger.close()
                     return {"latency": lat}
@@ -514,8 +574,9 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
                         save_checkpoint(cfg.save_model, state, {
                             "test_acc": best_acc, "epoch": ep,
                             "iter": eff_it,
-                        })
-                        print(f"saved model to {cfg.save_model}", flush=True)
+                        }, mesh, embed)
+                        print_(f"saved model to {cfg.save_model}",
+                               flush=True)
     logger.close()
     result["best_acc"] = best_acc
     return result

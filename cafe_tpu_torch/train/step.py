@@ -281,12 +281,19 @@ def _weighted(name: str) -> bool:
     return name == "loss" or name.endswith("_frac")
 
 
-def build_multi_step(train_step, k: int, donate: bool = False):
+def build_multi_step(train_step, k: int, donate: bool = False,
+                     mesh_size: int = 1):
     """k sequential train steps per call over a flat [k*B] batch: sub-batch
     i takes rows [i*B, (i+1)*B) and valid_i = clip(valid - i*B, 0, B),
     computed on the device. Metrics come back as one step's: weighted
     means (by each sub-batch's weight) for loss and *_frac, sums for the
     counters.
+
+    On a mesh of `mesh_size` n ranks, `train_step` is the mesh's step and
+    each rank passes its [k*B/n] rows, its slice of each of the k global
+    batches in turn (train/loop.train_batches); `valid` counts the valid
+    rows of the k global batches, so valid_i = clip(valid - i*B, 0, B)
+    with the global B = n * rows / k.
 
     The sub-steps run the in-place step (`train_step.__wrapped__`: the
     eager step under a GraphedStep or an un-donated step). `donate` False
@@ -300,11 +307,12 @@ def build_multi_step(train_step, k: int, donate: bool = False):
         if not donate:
             state = clone_state(state)
         b = ids.shape[0] // k
+        bg = b * mesh_size
         valid = _valid_tensor(valid, ids.device)
         agg = None
         for i in range(k):
             sl = slice(i * b, (i + 1) * b)
-            v_i = (valid - i * b).clamp(0, b)
+            v_i = (valid - i * bg).clamp(0, bg)
             dx = None if dense_x is None else dense_x[sl]
             state, m = inner(state, dx, ids[sl], labels[sl], v_i)
             m = {name: v * m["weight"] if _weighted(name) else v

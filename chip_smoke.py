@@ -62,8 +62,12 @@ Phases, each printing one JSON line and raising on failure:
    frequency scores: sketch and routing equal, tables within the bound;
    5 traced steps, the landing one kernel a step;
 12. cli_sharded: main_torch.main on the memmap with --mesh_shape 1
-   --shard_embeddings true --shard_exchange pallas: 48 steps and 2 evals,
-   with the launch counts checked;
+   --shard_embeddings true --shard_exchange pallas, checkpointing: at
+   --steps_per_dispatch 1 and 8 run A trains 48 steps with 2 evals and
+   rolling saves of the global state, run B resumes from A's mid-run slot
+   and must print A's losses at every common iteration; the latency
+   protocol on the mesh; launch counts checked (K1, K3 once a step, K5 4
+   times a step and twice an eval call);
 13. kernels_gather (run right after kernels_rowsum): K4 against its plain
    version, bit for bit, at decision 4's shape (53,248 uniform ids into a
    4,194,304 x 128 f32 table), at the headline table (27,136 x 16) with
@@ -193,11 +197,36 @@ dequantizing lookup is torch's row gather and element-wise ops):
    --inference_only --quantize_emb_bits 8, then 4: the scores main_torch
    computed held against run B's float ones (mean |dp| < 0.01, max |dp|
    < QUANT_MAX) and the accuracy within 0.01; the same in cli_plus
-   (CAFE+, its "quant"), and cli_sharded serves its fresh seeded state
-   at f32, 8 and 4 bits on the world-size-1 mesh under the same gates;
+   (CAFE+, its "quant"), and cli_sharded serves its own run A's best
+   checkpoint at f32, 8 and 4 bits on the world-size-1 mesh under the
+   same gates, and at f32 on one device without a mesh (the 1-shard
+   layout), whose scores must equal the mesh's within 1e-6;
 38. sharded_quant (after phase 33), v1 and CAFE+: the quantized eval
    step on the world-size-1 NCCL mesh (eager) and the same state on one
    device through enable_sharded_layout(1) (graphed): scores bit-equal.
+
+The graph recommenders (main_graphrec_torch.py; eager steps, after
+phase 12; each phase prints its wall time):
+
+39. graphrec_lightgcn: LightGCN at the reference's width (dim 64, 3
+   layers, Adam lr 0.001, weight decay 1e-4, cr 0.1, hot rate 0.7, B =
+   2048) on a synthetic graph of Gowalla's size (29,858 users, 40,981
+   items): an epoch at the default threshold 500 (its hot ids), then at
+   LIGHTGCN_THRESHOLD an epoch saved and a run that auto-resumes and
+   trains one more: ms a step behind a synchronize, the host's negative
+   sampling apart, recall@20 above a random ranking's, hot ids, K1 once
+   a step; K1 on the inputs a step of the trained state gives it,
+   bit-equal to its plain version and timed; one step from that state
+   on the card and on the CPU (frequency scores): sketch and tick
+   exact, table and Adam slots within adam_close;
+40. graphrec_pinsage: PinSAGE at the reference's width (hidden 16, 2
+   layers, T = 3, 10 walks, Adam) with CAFE (compress ratio 4) on a
+   synthetic graph of MovieLens-1M's size (6,040 x 3,706), B = 2048
+   (79,872 padded ids a step), PINSAGE_STEPS steps an epoch: train and
+   save, auto-resume and train one more, hit@10 and NDCG; the host
+   sampler timed apart from the device step; K1 once a step, its case
+   and the card-against-CPU step as phase 39 (conv params and their
+   Adam slots within GRAPHREC_TOL).
 
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
@@ -214,6 +243,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -573,19 +603,56 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None,
     graph: 3 calls before the window warm it up and capture it); write
     the kernel table to OUT_DIR. A step must run `landings` K1 kernels
     (1 for the v1 sketch, 0 for CAFE+) and no fill kernel."""
-    from torch.profiler import ProfilerActivity, profile
     _, _, state, step, _ = build_all(cfg, data, device="cuda", mesh=mesh,
                                      capture=capture)
     if capture and not step.graphed:
         raise AssertionError(f"profile {name}: the step is not graphed")
     for i in range(3):
         state, _ = step(state, *batches[i])
+    held = [state]
+
+    def one(i):
+        held[0], _ = step(held[0], *batches[i % len(batches)])
+
+    return trace_steps(name, one, landings=landings)
+
+
+# K1's old fill pass (`fill_kernel` of an earlier land.cu) as the profiler
+# names it: whole, after a namespace (`(anonymous namespace)::`, as
+# land.cu's kernels are named) or the return type; torch's own kernels
+# carry the word inside theirs (masked_fill_kernel)
+FILL_KERNEL = re.compile(r"(?<!\w)fill_kernel\b")
+
+
+def check_fill_pattern():
+    """FILL_KERNEL finds the fill pass under every name the profiler
+    may give it, and none of torch's kernels."""
+    cases = [("void (anonymous namespace)::fill_kernel<5>(int)", True),
+             ("void fill_kernel<5>(int*, int)", True),
+             ("fill_kernel", True),
+             ("void at::native::(anonymous namespace)::masked_fill_kernel"
+              "<bool>(at::TensorIterator&)", False),
+             ("void at::native::vectorized_elementwise_kernel<4, "
+              "at::native::FillFunctor<float>>(int, ...)", False),
+             ("void (anonymous namespace)::land_max_kernel<5>(int)", False)]
+    wrong = [n for n, want in cases if bool(FILL_KERNEL.search(n)) != want]
+    if wrong:
+        raise AssertionError(f"the fill-kernel pattern misreads {wrong}")
+
+
+def trace_steps(name, one, steps=5, landings=1):
+    """Trace `steps` calls one(i) (warmed up by the caller) under
+    torch.profiler: device busy ms and idle share a step, kernels a
+    step, the top kernels; the kernel table goes to OUT_DIR. A step must
+    run `landings` K1 kernels and no fill kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    check_fill_pattern()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(5):
-            state, _ = step(state, *batches[i % len(batches)])
+        for i in range(steps):
+            one(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
@@ -596,12 +663,13 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None,
     dev = sorted([x for x in dev if x[1] > 0], key=lambda x: -x[1])
     busy_us = sum(x[1] for x in dev)
     ours = [x for x in dev if "land_max_kernel" in x[0]
-            or "fill_kernel" in x[0] or "scatter_add_kernel" in x[0]
+            or FILL_KERNEL.search(x[0])
+            or "scatter_add_kernel" in x[0]
             or "rowsum_" in x[0] or "cafe_rowsum" in x[0]
             or "a2a_send_kernel" in x[0]]
     # the v1 sketch insert's landing: K1's one kernel a step, no fill pass
-    landing = sum(c for k, _, c in dev if "land_max_kernel" in k) / 5
-    fills = [k for k, _, _ in dev if "fill_kernel" in k]
+    landing = sum(c for k, _, c in dev if "land_max_kernel" in k) / steps
+    fills = [k for k, _, _ in dev if FILL_KERNEL.search(k)]
     if landing != landings or fills:
         raise AssertionError(f"profile {name}: {landing} landing kernels a "
                              f"step (want {landings}), fill kernels {fills}")
@@ -611,13 +679,14 @@ def phase_profile(build_all, cfg, data, batches, name, mesh=None,
            else "self_cuda_time_total")
     with open(os.path.join(OUT_DIR, f"profile_{name}.txt"), "w") as f:
         f.write(avgs.table(sort_by=key, row_limit=60))
-    return {"steps": 5, "wall_ms_per_step": wall_us / 5e3,
-            "device_busy_ms_per_step": busy_us / 5e3,
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": (1.0 - busy_us / wall_us) if dev else None,
-            "kernels_per_step": sum(x[2] for x in dev) / 5,
+            "kernels_per_step": sum(x[2] for x in dev) / steps,
             "landing_kernels_per_step": landing,
-            "top_kernels": [{"name": k[:80], "ms_per_step": t / 5e3,
-                             "calls_per_step": c / 5}
+            "top_kernels": [{"name": k[:80],
+                             "ms_per_step": t / steps / 1e3,
+                             "calls_per_step": c / steps}
                             for k, t, c in dev[:10] + ours]}
 
 
@@ -1525,59 +1594,183 @@ def phase_sharded_parity(build_all, from_reference, to_numpy, Config, data,
     return rec
 
 
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Host ms of every save and load main_torch's loop makes, by name,
+    recorded by wrapping the loop's checkpoint functions (a save ends in
+    its barrier, after the file is on disk; a load after the slices are
+    on the device)."""
+    from cafe_tpu_torch.train import loop
+    names = ("save_rolling", "save_checkpoint", "load_checkpoint")
+    got = {n: [] for n in names}
+    saved = {n: getattr(loop, n) for n in names}
+
+    def timing(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            got[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    for n in names:
+        setattr(loop, n, timing(n, saved[n]))
+    try:
+        yield got
+    finally:
+        for n in names:
+            setattr(loop, n, saved[n])
+
+
+def _cli_losses(lines):
+    """{it: printed loss string} of a main_torch run's train prints."""
+    return {int(w[3].split("/")[0]): w[-1] for w in (
+        ln.split() for ln in lines if ln.startswith("Finished training it "))}
+
+
 def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
     """main_torch.main on the memmap with the sharded pallas exchange at
-    world size 1: 48 train steps, 2 evals of 8 batches; then
-    --inference_only on the mesh (the fresh seeded state: no mesh
-    checkpoints yet) at f32 and with --quantize_emb_bits 8 and 4, whose
-    scores are held against the f32 ones (score_gate) and whose accuracy
-    must stay within QUANT_GAP of the f32 one ("quant")."""
+    world size 1, checkpointing as one device does: at
+    --steps_per_dispatch 1 and 8, run A trains 48 steps with 2 evals of 8
+    batches and rolling saves (every 20 its; every 16 at k = 8), run B
+    resumes from A's mid-run slot and must print A's losses at every
+    iteration both cover; then the latency protocol on the mesh (its
+    latency.json); then run A's best checkpoint served through
+    --inference_only --load_model on the mesh at f32 and with
+    --quantize_emb_bits 8 and 4 (score_gate against the f32 scores,
+    accuracy within QUANT_GAP) and on one device without a mesh (the
+    1-shard layout, CafePart.enable_sharded_layout) at f32, whose scores
+    must equal the mesh's within 1e-6. K1 and K3 launch once a train
+    step, K5 4 times a train step and twice an eval batch."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_clis_",
                             dir=os.path.join(here, "build"))
     try:
         write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
-        for k in kernels.values():
-            k.launches = 0
-        t0 = time.perf_counter()
         plat = ["--force_platform", "cpu"] if device == "cpu" else []
-        res, out = run_cli(main_fn, CLI_FLAGS + plat + [
-            "--data_path", root, "--mesh_shape", "1",
-            "--shard_embeddings", "true", "--shard_exchange", "pallas",
-            "--print_freq", "8", "--test_freq", "24",
-            "--tensor_board_filename", os.path.join(root, "tb")],
-            "cli_sharded.txt")
-        wall = time.perf_counter() - t0
-        launches = {name: k.launches for name, k in kernels.items()}
-        trained = [ln.split() for ln in out
-                   if ln.startswith("Finished training it ")]
-        its = [int(w[3].split("/")[0]) for w in trained]
-        losses = [float(w[-1]) for w in trained]
-        evals = [ln for ln in out if ln.startswith(" accuracy")]
-        if its[-1] != 48 or not all(np.isfinite(losses)) or len(evals) != 2:
-            raise AssertionError(f"cli_sharded: its {its}, losses {losses}, "
-                                 f"{len(evals)} eval lines")
-        # 4 K5 calls a train step (fetch ids + rows, apply ids + grads),
-        # 2 an eval batch (fetch ids + rows)
-        want = {"land_max": 48, "rowsum": 48, "a2a": 4 * 48 + 2 * 2 * 8}
-        if device == "cuda" and any(launches[k] != v
-                                    for k, v in want.items()):
-            raise AssertionError(f"cli_sharded: launches {launches}, "
-                                 f"expected {want}")
-        serve = CLI_FLAGS + plat + [
-            "--data_path", root, "--mesh_shape", "1", "--shard_embeddings",
-            "true", "--shard_exchange", "pallas", "--inference_only", "true",
-            "--tensor_board_filename", ""]
+        one = CLI_FLAGS + plat + ["--data_path", root]
+        mesh = one + ["--mesh_shape", "1", "--shard_embeddings", "true",
+                      "--shard_exchange", "pallas"]
+        out = {}
+
+        def launched(name, lines, steps, eval_calls):
+            got = {k: kern.launches for k, kern in kernels.items()}
+            if eval_calls is None:      # 8 test batches an evaluation
+                eval_calls = 8 * sum(ln.startswith(" accuracy")
+                                     for ln in lines)
+            want = {"land_max": steps, "rowsum": steps,
+                    "a2a": 4 * steps + 2 * eval_calls}
+            if device == "cuda" and any(got[k] != v for k, v in
+                                        want.items()):
+                raise AssertionError(f"cli_sharded {name}: launches {got}, "
+                                     f"expected {want}")
+            return got
+
+        def cli(name, argv, steps, eval_calls=None):
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            with timed_checkpoints() as ck_ms:
+                res, lines = run_cli(main_fn, argv,
+                                     f"cli_sharded_{name}.txt")
+            return res, lines, {"wall_s": time.perf_counter() - t0,
+                                "checkpoint_ms": {k: v for k, v in
+                                                  ck_ms.items() if v},
+                                "launches": launched(name, lines, steps,
+                                                     eval_calls)}
+
+        for k, freq in ((1, 20), (8, 16)):
+            model = os.path.join(root, f"k{k}", "m")
+            base = mesh + ["--steps_per_dispatch", str(k), "--print_freq",
+                           "8", "--test_freq", "24", "--save_freq",
+                           str(freq)]
+            res, lines_a, rec_a = cli(f"k{k}_a", base + [
+                "--save_model", model,
+                "--tensor_board_filename", os.path.join(root, "tb")], 48)
+            losses_a = _cli_losses(lines_a)
+            evals = [ln for ln in lines_a if ln.startswith(" accuracy")]
+            if max(losses_a) != 48 or len(evals) != 2 or not all(
+                    np.isfinite(float(v)) for v in losses_a.values()):
+                raise AssertionError(f"cli_sharded k={k} run A: its "
+                                     f"{sorted(losses_a)}, {evals}")
+            latest = os.path.realpath(model + ".latest")
+            other = model + (".rb" if latest.endswith(".ra") else ".ra")
+            with open(other + ".meta.json") as f:
+                start = json.load(f)["iter"]
+            _, lines_b, rec_b = cli(f"k{k}_b", base + [
+                "--load_model", other, "--save_model",
+                os.path.join(root, f"k{k}", "b"),
+                "--tensor_board_filename", ""], 48 - start)
+            losses_b = _cli_losses(lines_b)
+            common = sorted(set(losses_a) & set(losses_b))
+            if not common or common[-1] != 48 or min(losses_b) <= start \
+                    or any(losses_a[i] != losses_b[i] for i in common):
+                raise AssertionError(
+                    f"cli_sharded k={k}: resumed from it {start}: losses "
+                    f"{losses_b} against run A's {losses_a}")
+            out[f"k{k}"] = {
+                "run_a": {**rec_a, "its": max(losses_a),
+                          "ms_per_it_median": float(np.median([
+                              float(w[7]) for w in (
+                                  ln.split() for ln in lines_a
+                                  if ln.startswith("Finished"))])),
+                          "loss_first": losses_a[min(losses_a)],
+                          "loss_last": losses_a[48], "eval_lines": evals,
+                          "metrics": res["metrics"]},
+                "run_b": {**rec_b, "resumed_from_it": start,
+                          "equal_losses_at": common}}
+        tb = os.path.join(root, "tb_c")
+        # the protocol's 10 warm-up and 1,014 timed eval calls
+        res_c, _, rec_c = cli("latency", mesh + [
+            "--test_throughput", "true", "--tensor_board_filename", tb], 48,
+            eval_calls=1024)
+        with open(os.path.join(tb, "latency.json")) as f:
+            latency = json.load(f)
+        if latency != res_c["latency"] or not latency["test"] > 0:
+            raise AssertionError(f"cli_sharded latency: {latency}")
+        out["latency"] = {**rec_c, "latency": latency}
+
+        best = os.path.join(root, "k1", "m")
+        serve = ["--inference_only", "true", "--load_model", best,
+                 "--tensor_board_filename", ""]
         quant, scores = {}, {}
         for bits in (0,) + QUANT_BITS:
-            res_q, p = serve_cli(main_fn, serve + [
-                "--quantize_emb_bits", str(bits)],
-                f"cli_sharded_serve_int{bits}.txt")
-            quant[f"int{bits}" if bits else "f32"] = res_q["metrics"]
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            with timed_checkpoints() as ck_ms:
+                res_q, p = serve_cli(main_fn, mesh + serve + [
+                    "--quantize_emb_bits", str(bits)],
+                    f"cli_sharded_serve_int{bits}.txt")
+            name = f"int{bits}" if bits else "f32"
+            quant[name] = {**res_q["metrics"],
+                           "wall_s": time.perf_counter() - t0,
+                           "load_ms": ck_ms["load_checkpoint"],
+                           "a2a_launches": kernels["a2a"].launches}
+            # f32 fetches rows through the pallas exchange (ids and rows
+            # an eval batch); the quantized lookup's owners dequantize
+            # behind an all-gather and a reduce-scatter (no K5)
+            want = 0 if bits else 2 * 8
+            if device == "cuda" and kernels["a2a"].launches != want:
+                raise AssertionError(f"cli_sharded serve {name}: K5 "
+                                     f"launched {kernels['a2a'].launches}, "
+                                     f"not {want}")
             scores[bits] = p
+        t0 = time.perf_counter()
+        with timed_checkpoints() as ck_ms:
+            res_1, p_1 = serve_cli(main_fn, one + serve,
+                                   "cli_sharded_serve_one_device.txt")
+        gap_1 = float(np.abs(p_1 - scores[0]).max())
+        if not gap_1 <= 1e-6:
+            raise AssertionError(f"cli_sharded: one device serves the mesh "
+                                 f"checkpoint {gap_1} away from the mesh")
+        quant["one_device_f32"] = {**res_1["metrics"],
+                                   "wall_s": time.perf_counter() - t0,
+                                   "load_ms": ck_ms["load_checkpoint"],
+                                   "max_abs_diff_vs_mesh": gap_1}
         gaps = {k: abs(m["accuracy"] - quant["f32"]["accuracy"])
-                for k, m in quant.items() if k != "f32"}
+                for k, m in quant.items() if k.startswith("int")}
         if not max(gaps.values()) < QUANT_GAP:
             raise AssertionError(f"cli_sharded serving: {quant}")
         quant["accuracy_gap_vs_f32"] = gaps
@@ -1585,14 +1778,299 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
             f"int{bits}": score_gate(f"cli_sharded int{bits} serving", bits,
                                      scores[0], scores[bits])
             for bits in QUANT_BITS}
-        return {"its": len(its), "wall_s": wall, "quant": quant,
-                "ms_per_it_median": float(np.median(
-                    [float(w[7]) for w in trained])),
-                "loss_first": losses[0], "loss_last": losses[-1],
-                "eval_lines": evals, "metrics": res["metrics"],
-                "launches": launches}
+        out["serve"] = quant
+        out["launches"] = {
+            name: sum(r[run]["launches"][name] for r in
+                      (out["k1"], out["k8"]) for run in ("run_a", "run_b"))
+            + out["latency"]["launches"][name] for name in kernels}
+        return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the graph recommenders (main_graphrec_torch.py), at the reference's
+# widths on synthetic graphs of the reference datasets' sizes
+LIGHTGCN_FLAGS = ["--model", "lightgcn", "--dim", "64", "--layers", "3",
+                  "--lr", "0.001", "--weight_decay", "1e-4",
+                  "--optimizer", "adam", "--bpr_batch", "2048",
+                  "--compress_rate", "0.1", "--hot_rate", "0.7",
+                  "--topk", "20",
+                  # Gowalla's size: 29,858 users, 40,981 items
+                  "--synthetic_users", "29858", "--synthetic_items", "40981"]
+# the card's threshold: the default 500 promotes few ids or none in an
+# epoch of BPR gradient-norm scores (the default_threshold run records
+# how many); 50 promotes from the first steps
+LIGHTGCN_THRESHOLD = "50"
+PINSAGE_FLAGS = ["--model", "pinsage", "--dim", "16", "--layers", "2",
+                 "--lr", "0.001", "--optimizer", "adam",
+                 "--compress_ratio", "4", "--bpr_batch", "2048",
+                 "--topk", "10",
+                 # MovieLens-1M's size (the DGL PinSAGE example's data)
+                 "--synthetic_users", "6040", "--synthetic_items", "3706"]
+PINSAGE_STEPS = "6"           # steps an epoch: the host sampler sets the pace
+GRAPHREC_TOL = 1e-5           # card against CPU, f32 (see adam_close)
+
+
+def land_captured(land, fn):
+    """fn() with K1's wrapper recording its inputs: [(enc, keys, n)]."""
+    calls, wrapper = [], land.land_max
+
+    def recording(enc, keys, n):
+        calls.append((enc.clone(), keys.clone(), n))
+        return wrapper(enc, keys, n)
+
+    land.land_max = recording
+    try:
+        fn()
+    finally:
+        land.land_max = wrapper
+    return calls
+
+
+def land_real_case(land, enc, keys, n):
+    """K1 on the inputs a real insert gave it: bit-equal to its plain
+    version, two launches bit-equal, timed beside the plain version, the
+    library's scatter_reduce_ and the memory bound."""
+    got = land.land_max(enc, keys, n)
+    again = land.land_max(enc, keys, n)
+    want = land.land_max_plain(enc, keys, n)
+    b, c = enc.shape
+    err = int((got.long() - want.long()).abs().max()) if n else 0
+    if err or not torch.equal(got, again):
+        raise AssertionError(f"K1 at {(b, c, n)}: max err {err}, two "
+                             f"launches equal {torch.equal(got, again)}")
+    row = {"shape": [b, c, n], "kind": "captured", "max_abs_err": err,
+           "two_launches_equal": True,
+           "lanes_dropped": int(((keys < 0) | (keys >= n)).sum())}
+    if enc.device.type == "cuda":
+        out_lib = torch.full((n, c), -1, dtype=torch.int32,
+                             device=enc.device)
+        keep = (keys >= 0) & (keys < n)
+        idx = keys[keep].long()[:, None].expand(-1, c).contiguous()
+        src = enc[keep].contiguous()
+        bms, by = bound_ms((b * c + b + n * c) * 4, b * c)
+        row.update(
+            ms=time_ms(lambda: land.land_max(enc, keys, n)),
+            plain_ms=time_ms(lambda: land.land_max_plain(enc, keys, n)),
+            library_ms=time_ms(lambda: out_lib.scatter_reduce_(
+                0, idx, src, "amax", include_self=True)),
+            bound_ms=bms, bound_by=by)
+    return row
+
+
+def adam_close(name, card, cpu, lr, tol=GRAPHREC_TOL):
+    """A rows-Adam table [R, D] and its slots after one step on the card
+    and on the CPU: rows whose gradient is float noise in either (|m| <
+    1e-6; Adam moves such a row by up to lr whatever the noise) within
+    lr + tol, every other row within tol; each slot within 1e-3 of its
+    value plus 1e-5 of its largest magnitude. The card sums a row's
+    gradient terms with atomics in no fixed order: the sum moves by a few
+    ulps of its terms' magnitudes, which can dwarf a sum that cancels to
+    near 0, so the bound follows the slot's scale; a row updated wrongly
+    or not at all is off by its whole value. Returns the largest gaps."""
+    noise = (np.abs(card["table_m"]).max(1) < 1e-6) \
+        | (np.abs(cpu["table_m"]).max(1) < 1e-6)
+    d = np.abs(card["table"] - cpu["table"])
+    rec = {"table": float(d[~noise].max(initial=0.0)),
+           "noise_rows": int(noise.sum()),
+           "noise_rows_table": float(d[noise].max(initial=0.0))}
+    ok = rec["table"] <= tol and rec["noise_rows_table"] <= lr + tol
+    for k in ("table_m", "table_v"):
+        gap = np.abs(card[k] - cpu[k])
+        rec[k] = float(gap.max())
+        rec[k + "_scale"] = float(np.abs(cpu[k]).max())
+        ok &= bool((gap <= 1e-3 * np.abs(cpu[k])
+                    + 1e-5 * rec[k + "_scale"]).all())
+    if not ok:
+        raise AssertionError(f"{name}: card against CPU {rec}")
+    return rec
+
+
+def _sketch_equal(name, card, cpu):
+    for f, v in cpu.items():
+        if not np.array_equal(card[f], v):
+            raise AssertionError(f"{name}: sketch {f} differs card vs CPU")
+
+
+def graphrec_cli(main_fn, argv, log_name, kernels):
+    """main_graphrec_torch.main(argv): (its result, prints, wall s, K1
+    launches)."""
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, lines = run_cli(main_fn, argv, log_name)
+    return res, lines, time.perf_counter() - t0, kernels["land_max"].launches
+
+
+def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
+                            flags=LIGHTGCN_FLAGS, device="cuda",
+                            threshold=LIGHTGCN_THRESHOLD):
+    """LightGCN at the reference's width (dim 64, 3 layers, Adam, cr 0.1)
+    on a synthetic graph of Gowalla's size: one epoch at the default
+    threshold 500 (its hot ids recorded), then at `threshold` one
+    epoch saved and a second run that auto-resumes and trains one more;
+    K1 once a step, recall@20 above a random ranking's. Then K1 on the
+    inputs a step of the trained state gives it, and one step from that
+    state (frequency scores) on the card and on the CPU: the sketch
+    exact, the table and its Adam slots within adam_close."""
+    plat = ["--force_platform", "cpu"] if device == "cpu" else []
+    root = tempfile.mkdtemp(prefix="chip_smoke_lightgcn_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        out = {}
+        for name, extra in (
+                ("default_threshold", ["--epochs", "1"]),
+                ("run_a", ["--epochs", "1", "--save_dir", root,
+                           "--sketch_threshold", threshold]),
+                ("run_b", ["--epochs", "2", "--save_dir", root,
+                           "--sketch_threshold", threshold])):
+            res, lines, wall, k1 = graphrec_cli(
+                gr.main, flags + plat + extra, f"graphrec_lightgcn_{name}.txt",
+                kernels)
+            ep = res["epochs"][-1]
+            random_recall = 20 / int(flags[flags.index(
+                "--synthetic_items") + 1])
+            if len(res["epochs"]) != 1 or not (
+                    np.isfinite(ep["loss"]) and ep["recall"] > random_recall):
+                raise AssertionError(f"lightgcn {name}: {res}")
+            if device == "cuda" and k1 != ep["steps"]:
+                raise AssertionError(f"lightgcn {name}: K1 launched {k1} "
+                                     f"times in {ep['steps']} steps")
+            out[name] = {**ep, "wall_s": wall, "land_max_launches": k1,
+                         "lines": [ln for ln in lines
+                                   if ln.startswith(("epoch", "resumed"))]}
+        if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
+                   for ln in out["run_b"]["lines"]) \
+                or out["run_b"]["epoch"] != 1 or out["run_a"]["hot_ids"] <= 0:
+            raise AssertionError(f"lightgcn resume: {out['run_b']}")
+
+        args = gr.parse_args(flags + ["--sketch_threshold", threshold])
+        train, _, n_items = gr.make_synthetic_interactions(
+            args.synthetic_users, args.synthetic_items, seed=args.seed)
+        rng = np.random.default_rng(0)
+        users = rng.integers(0, len(train), args.bpr_batch)
+        pos = np.array([train[u][0] for u in users], np.int32)
+        neg = rng.integers(0, n_items, args.bpr_batch).astype(np.int32)
+        ck = os.path.join(root, "lightgcn_epoch_1.ckpt")
+        steps = {}
+        for dev in dict.fromkeys([device, "cpu"]):
+            model = gr.lightgcn_model(args, train, n_items, dev)
+            model.part.use_freq = True
+            state, _ = load_tree(ck, model.init(), model.device)
+            new = []
+            calls = land_captured(land, lambda: new.append(model.bpr_step(
+                state, users, pos, neg)[0]))
+            steps[dev] = (to_numpy(new[0]), calls)
+            if dev == "cuda":
+                batch = [torch.from_numpy(x).cuda() for x in (users, pos,
+                                                              neg)]
+
+                def one(i):
+                    new[0] = model.bpr_step(new[0], *batch)[0]
+
+                one(0)
+                out["profile"] = trace_steps("graphrec_lightgcn", one)
+            del model, state, new
+        (card, calls), (cpu, _) = steps[device], steps["cpu"]
+        out["land_max_cases"] = [land_real_case(land, *c) for c in calls]
+        _sketch_equal("lightgcn", card["sketch"], cpu["sketch"])
+        if card["tick"] != cpu["tick"]:
+            raise AssertionError("lightgcn: tick differs card vs CPU")
+        out["card_vs_cpu"] = adam_close("lightgcn", card, cpu, args.lr)
+        out["card_vs_cpu"]["sketch_equal"] = True
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
+                           flags=PINSAGE_FLAGS, device="cuda"):
+    """PinSAGE at the reference's width (hidden 16, 2 layers, T = 3, 10
+    walks, Adam) with CAFE (compress ratio 4) on a synthetic graph of
+    MovieLens-1M's size at B = 2048 (79,872 padded ids a step):
+    PINSAGE_STEPS steps an epoch, one epoch saved, then a run that
+    auto-resumes and trains one more; hit@10 and NDCG; the host sampler
+    timed apart from the device step; K1 once a step. Then K1 on the
+    inputs a step of the trained state gives it, and one step from that
+    state and one block (frequency scores) on the card and on the CPU:
+    the sketch exact, conv params and their Adam slots within
+    GRAPHREC_TOL, the table within adam_close."""
+    plat = ["--force_platform", "cpu"] if device == "cpu" else []
+    root = tempfile.mkdtemp(prefix="chip_smoke_pinsage_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        out = {}
+        for name, epochs in (("run_a", "1"), ("run_b", "2")):
+            res, lines, wall, k1 = graphrec_cli(
+                gr.main, flags + plat + ["--epochs", epochs, "--save_dir",
+                                         root, "--steps_per_epoch",
+                                         PINSAGE_STEPS],
+                f"graphrec_pinsage_{name}.txt", kernels)
+            ep = res["epochs"][-1]
+            if len(res["epochs"]) != 1 or not (
+                    np.isfinite(ep["loss"]) and 0 < ep["hit"] <= 1
+                    and 0 < ep["ndcg"] <= 1):
+                raise AssertionError(f"pinsage {name}: {res}")
+            if device == "cuda" and k1 != ep["steps"]:
+                raise AssertionError(f"pinsage {name}: K1 launched {k1} "
+                                     f"times in {ep['steps']} steps")
+            out[name] = {**ep, "wall_s": wall, "land_max_launches": k1,
+                         "lines": [ln for ln in lines
+                                   if ln.startswith(("epoch", "resumed"))]}
+        if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
+                   for ln in out["run_b"]["lines"]) \
+                or out["run_b"]["epoch"] != 1:
+            raise AssertionError(f"pinsage resume: {out['run_b']}")
+
+        args = gr.parse_args(flags)
+        train, _, n_items = gr.make_synthetic_interactions(
+            args.synthetic_users, args.synthetic_items, seed=args.seed)
+        ck = os.path.join(root, "pinsage_epoch_1.ckpt")
+        block, steps = None, {}
+        for dev in dict.fromkeys([device, "cpu"]):
+            model, sampler = gr.pinsage_model(args, train, n_items, dev)
+            model.part.use_freq = True
+            state, _ = load_tree(ck, model.init(), model.device)
+            if block is None:
+                block = {k: v.cpu() for k, v in model.make_batch(
+                    sampler, args.bpr_batch).items()}
+            b = {k: v.to(model.device) for k, v in block.items()}
+            new = []
+            calls = land_captured(land, lambda: new.append(model.train_step(
+                state, b, args.lr)[0]))
+            steps[dev] = (to_numpy(new[0]), calls)
+            if dev == "cuda":       # the device step alone: one block
+
+                def one(i):
+                    new[0] = model.train_step(new[0], b, args.lr)[0]
+
+                one(0)
+                out["profile"] = trace_steps("graphrec_pinsage", one)
+            del model, state, new
+        (card, calls), (cpu, _) = steps[device], steps["cpu"]
+        out["land_max_cases"] = [land_real_case(land, *c) for c in calls]
+        _sketch_equal("pinsage", card["embed"]["sketch"],
+                      cpu["embed"]["sketch"])
+        rec = adam_close("pinsage", card["embed"], cpu["embed"], args.lr)
+        for key in [k for k in cpu if k.startswith("conv")] + ["opt"]:
+            gaps = [float(np.max(np.abs(np.asarray(a) - np.asarray(c))))
+                    for a, c in zip(_flat(card[key]), _flat(cpu[key]))]
+            rec[key] = max(gaps)
+            if not rec[key] <= GRAPHREC_TOL:
+                raise AssertionError(f"pinsage {key}: card against CPU "
+                                     f"{gaps}")
+        out["card_vs_cpu"] = {**rec, "sketch_equal": True}
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flat(v)]
+    return [tree]
 
 
 def load_tool(name):
@@ -2476,6 +2954,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cafe_tpu_torch.bridge import from_reference, to_numpy
     from cafe_tpu_torch.config import Config, parse_args
+    import main_graphrec_torch
     import main_torch
     from cafe_tpu_torch.data import (CTRArrays, make_criteo_arrays,
                                      make_criteo_batches, num_batches)
@@ -2490,6 +2969,7 @@ def main() -> int:
                                       build_quantized_eval_step, run)
     from cafe_tpu_torch.train.loop import pretrain_autoencoders
     from cafe_tpu_torch.train.capture import WARMUP_CALLS, copy_into
+    from cafe_tpu_torch.train.checkpoint import load_tree
     from cafe_tpu_torch.train.step import (_bce, build_train_step,
                                            clone_state, init_state)
     from cafe_tpu_torch.utils.timing import fence
@@ -2706,13 +3186,29 @@ def main() -> int:
             build_all, init_state, copy_into, build_quantized_eval_step,
             cfg, data, batches, mesh_gpu)})
 
+    t0 = time.perf_counter()
     clis = phase_cli_sharded(main_torch.main, make_criteo_arrays, KERNELS)
     by_path["cli_sharded"] = clis["launches"]
-    emit({"phase": "cli_sharded", **clis})
+    emit({"phase": "cli_sharded", "wall_s": time.perf_counter() - t0,
+          **clis})
     mesh_gpu.close()
     mesh_cpu.close()
     dist.destroy_process_group()
     torch.cuda.empty_cache()
+
+    # ---- the graph recommenders (LightGCN, PinSAGE) and their driver
+    land_shapes = {}
+    for name, phase in (("graphrec_lightgcn", phase_graphrec_lightgcn),
+                        ("graphrec_pinsage", phase_graphrec_pinsage)):
+        t0 = time.perf_counter()
+        rec = phase(main_graphrec_torch, land, load_tree, to_numpy, KERNELS)
+        land_shapes[name] = rec["land_max_cases"]
+        by_path[name] = {n: 0 for n in KERNELS}
+        by_path[name]["land_max"] = sum(
+            r["land_max_launches"] for r in rec.values()
+            if isinstance(r, dict) and "land_max_launches" in r)
+        emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
+        torch.cuda.empty_cache()
 
     # ---- the measurement tools of the hot path (K4's path)
     abd = phase_ab_decisions(
@@ -2814,6 +3310,8 @@ def main() -> int:
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
+    # K1 also at the shapes the graph recommenders' inserts give it
+    lines[0]["other_paths"] = land_shapes
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

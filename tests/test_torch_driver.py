@@ -350,8 +350,6 @@ def test_inference_throughput_cycles_small_test_set():
     ["--mesh_shape", "2", "--mesh_inner", "2"],
     ["--shard_embeddings", "true", "--shard_exchange", "auto"],
     ["--dist_num_processes", "2", "--shard_unique_frac", "0.25"],
-    ["--mesh_shape", "1", "--inference_only", "true", "--load_model", "m",
-     "--quantize_emb_bits", "8"],
     ["--compress_method", "qr", "--shard_embeddings", "true"],
     ["--compress_method", "off", "--shard_embeddings", "true"],
     ["--compress_method", "ada", "--shard_embeddings", "true"]])

@@ -287,5 +287,5 @@ def test_mesh_refusals(tmp_path):
     has."""
     for res in w.run_ranks(w.mesh_errors, 2, tmp_path):
         assert res["inner"].startswith("NotImplementedError") \
-            and "Q8" in res["inner"]
+            and "item 6.1" in res["inner"]
         assert res["size"].startswith("ValueError")

@@ -5,6 +5,7 @@ numpy-only modules stay equal to the originals."""
 import ast
 import dataclasses
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -42,7 +43,8 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
 
 
 # files the card's machine (no jax) runs besides the package
-JAX_FREE = ["chip_smoke.py", "main_torch.py", "tests/torch_dist_worker.py",
+JAX_FREE = ["chip_smoke.py", "main_torch.py", "main_graphrec_torch.py",
+            "tests/torch_dist_worker.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
             "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",
             "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py",
@@ -181,7 +183,7 @@ def test_batch_iterator_matches_jax_package():
 
 
 COPIES = ["train/metrics.py", "utils/logging.py", "data/datasets.py",
-          "sketch/oracle.py"]
+          "sketch/oracle.py", "models/graphrec/sampling.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -247,3 +249,41 @@ def test_collectives_name_the_mesh_group(path):
         if hit:
             assert any(k.arg == "group" for k in node.keywords), \
                 f"{path}:{node.lineno} {name} without group="
+
+
+def _roadmap_items():
+    """The item numbers ROADMAP.md section 1 lists ("**Item 6.5:",
+    "**Items 6.2, 6.3:")."""
+    text = (REPO / "ROADMAP.md").read_text()
+    sec = text[text.index("### 1."):text.index("### 2.")]
+    heads = re.findall(r"\*\*Items? ([\d., and]+?):", sec)
+    return {n for h in heads for n in re.findall(r"\d+(?:\.\d+)?", h)}
+
+
+def test_port_names_only_roadmap_items_that_exist():
+    """Every "ROADMAP queue ... item N" the port names is an item that
+    ROADMAP.md section 1 still lists, and no message names a queue by a
+    letter ("queue Q8") any more."""
+    listed = _roadmap_items()
+    assert {"6.5", "6.2", "6.3", "6.1"} <= listed
+    paths = sorted(PKG.rglob("*.py")) + [REPO / p for p in JAX_FREE
+                                         if not p.startswith("tests/")]
+    named = {}
+    for path in paths:
+        text = path.read_text()
+        assert not re.search(r"queue Q\d", text), path
+        for n in re.findall(r"\bitem (\d+(?:\.\d+)?)", text):
+            named.setdefault(n, path)
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.train.loop import check_supported
+    for kw in (dict(mesh_inner=2), dict(shard_unique_frac=0.25),
+               dict(shard_exchange="auto"),
+               dict(compress_method="qr")):
+        with pytest.raises(NotImplementedError) as e:
+            check_supported(Config(mesh_shape=2, shard_embeddings=True,
+                                   **kw))
+        for n in re.findall(r"item (\d+(?:\.\d+)?)", str(e.value)):
+            named.setdefault(n, "check_supported")
+    assert named and set(named) <= listed, {n: str(p) for n, p in
+                                            named.items()
+                                            if n not in listed}

@@ -272,12 +272,20 @@ def test_cafe_plus_steps_match(tmp_path_factory, n, pairs):
 
 @pytest.mark.parametrize("flags", [
     dict(mesh_inner=2), dict(shard_unique_frac=0.25),
-    dict(shard_exchange="auto"), dict(save_model="m"),
-    dict(test_throughput=True), dict(steps_per_dispatch=2)])
+    dict(shard_exchange="auto")])
 def test_unported_mesh_flags_raise(flags):
     cfg = TConfig(**dict(SHARD, mesh_shape=2, **flags))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(save_model="m", load_model="m"), dict(test_throughput=True),
+    dict(steps_per_dispatch=2)])
+def test_mesh_checkpoint_flags_are_accepted(flags):
+    """Checkpoints, the latency protocol and K-step dispatches run under
+    a mesh (tests/test_torch_mesh_checkpoint.py drives them)."""
+    check_supported(TConfig(**dict(SHARD, mesh_shape=2, **flags)))
 
 
 def test_mesh_larger_than_the_world_raises_and_cleans_up():

@@ -319,3 +319,181 @@ def quantized_serving(mesh, cfg_kw, batches, eval_batch, bits_list):
     out["parts"] = [(type(p).__name__, p.mesh is not None)
                     for p in embed.parts]
     return out
+
+
+# ------------------------------------------------- mesh checkpoints (6.4)
+
+def _run_cli(argv):
+    """loop.run on this mesh's ranks (the group exists: run() makes its
+    own mesh on it); rank 0's prints and run()'s result."""
+    import contextlib
+    import io
+    from cafe_tpu_torch.config import parse_args
+    from cafe_tpu_torch.train import run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = run(parse_args(argv))
+    return buf.getvalue(), res
+
+
+def save_resume_runs(mesh, argv, root, ks):
+    """For each k of `ks`: run A trains with rolling saves every 4 its at
+    --steps_per_dispatch k; run B resumes from A's other rolling slot
+    (the mid-run one) and saves at the end. Returns their prints and the
+    slot B resumed from."""
+    out = {}
+    for k in ks:
+        base = argv + ["--steps_per_dispatch", str(k), "--save_freq", "4"]
+        a = os.path.join(root, f"k{k}", "a")
+        text_a, _ = _run_cli(base + ["--save_model", a])
+        latest = os.path.realpath(a + ".latest")
+        other = a + (".rb" if latest.endswith(".ra") else ".ra")
+        text_b, _ = _run_cli(base + ["--save_model",
+                                     os.path.join(root, f"k{k}", "b"),
+                                     "--load_model", other])
+        out[k] = {"a": text_a, "b": text_b, "latest": latest,
+                  "resumed_from": other}
+    return out
+
+
+def dispatch_trajectories(mesh, cfg_kw, k):
+    """The mesh's step at k = 1 and k (build_multi_step over
+    loop.train_batches) from build_all's one state, through one epoch:
+    the global state after every k steps (rank 0) and the metrics."""
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.parallel import unshard_state
+    from cafe_tpu_torch.train import build_all, build_multi_step
+    from cafe_tpu_torch.train.loop import get_dataset, train_batches
+    cfg = Config(**cfg_kw)
+    data = get_dataset(cfg, "train")
+    out = {}
+    for kk in (1, k):
+        _, embed, state, step, _ = build_all(cfg, data, mesh=mesh)
+        if kk > 1:
+            step = build_multi_step(step, kk, donate=True,
+                                    mesh_size=mesh.size)
+        states, metrics, valids = [], [], []
+        for i, (dense, sparse, label, valid) in enumerate(train_batches(
+                data, cfg.mini_batch_size, kk, 0, mesh)):
+            state, m = step(state, *(None if x is None
+                                     else torch.from_numpy(x)
+                                     for x in (dense, sparse, label)),
+                            valid)
+            metrics.append({n: float(v) for n, v in m.items()})
+            valids.append(valid)
+            if (i + 1) * kk % k == 0:
+                full = _to_numpy(unshard_state(state, mesh, embed))
+                states.append(full if mesh.rank == 0 else None)
+        out[kk] = {"states": states, "metrics": metrics, "valids": valids}
+    return out
+
+
+def dispatch_past_the_end(mesh, cfg_kw, k, device="cpu"):
+    """One epoch at k steps a dispatch (build_multi_step over
+    loop.train_batches), whose last block runs past the data's end, and
+    the step at k = 1 over the same global batches built here from the
+    rows: a partial batch is padded with its own first row on the mesh
+    (as at k = 1) and with its block's first row on one device (as
+    batch_iterator pads a [k*B] block); the block's batches past the end
+    are that row repeated, valid 0. On the mesh (or on one device with
+    `mesh` None): the global states after both (rank 0), the dispatches'
+    valids and the number of empty sub-steps."""
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.data.datasets import batch_iterator
+    from cafe_tpu_torch.parallel import batch_slice, unshard_state
+    from cafe_tpu_torch.train import build_all, build_multi_step
+    from cafe_tpu_torch.train.loop import get_dataset, train_batches
+    cfg = Config(**cfg_kw)
+    data = get_dataset(cfg, "train")
+    b = cfg.mini_batch_size
+    size = 1 if mesh is None else mesh.size
+    where = dict(device=device) if mesh is None else dict(mesh=mesh)
+
+    def tensors(*arrays):
+        return tuple(None if x is None else torch.from_numpy(x)
+                     for x in arrays)
+
+    def saved(state, embed):
+        if mesh is None:
+            return _to_numpy(state)
+        full = _to_numpy(unshard_state(state, mesh, embed))
+        return full if mesh.rank == 0 else None
+
+    out = {"valids": [], "empty_steps": 0}
+    _, embed, state, step, _ = build_all(cfg, data, **where)
+    multi = build_multi_step(step, k, donate=True, mesh_size=size)
+    for dense, sparse, label, valid in train_batches(data, b, k, 0, mesh):
+        state, _ = multi(state, *tensors(dense, sparse, label), valid)
+        out["valids"].append(valid)
+    out["k"] = saved(state, embed)
+
+    _, embed, state, step, _ = build_all(cfg, data, **where)
+    rows = len(data)
+    every = next(iter(batch_iterator(data, rows)))[:3]
+    for j in range(-(-rows // (k * b)) * k):
+        lo, block = j * b, j // k * k * b
+        pad = lo if mesh is not None and lo < rows else block
+        idx = np.minimum(np.arange(lo, lo + b), rows - 1)
+        idx = np.where(np.arange(lo, lo + b) < rows, idx, pad)
+        batch = tuple(None if a is None else a[idx] for a in every)
+        if mesh is not None:
+            batch = batch_slice(mesh, *batch)
+        valid = int(np.clip(rows - lo, 0, b))
+        out["empty_steps"] += valid == 0
+        state, _ = step(state, *tensors(*batch), valid)
+    out["one"] = saved(state, embed)
+    return out
+
+
+def latency_calls(mesh, argv):
+    """loop.inference's latency protocol on the mesh with a counted eval
+    step: (this rank's call count, ms per call)."""
+    from cafe_tpu_torch.config import parse_args
+    from cafe_tpu_torch.train import build_all, get_dataset, inference
+    cfg = parse_args(argv)
+    _, _, state, _, eval_step = build_all(cfg, get_dataset(cfg, "train"),
+                                          mesh=mesh)
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return eval_step(*args)
+
+    _, ms = inference(cfg, counted, state, get_dataset(cfg, "test"),
+                      throughput=True, mesh=mesh)
+    return calls[0], ms
+
+
+def mesh_steps_saved(mesh, cfg_kw, ref_state, batches, path):
+    """The bridged global `ref_state` cut to this rank, the batches'
+    slices stepped, then saved under the mesh (every rank calls the
+    save). Returns the step's metrics."""
+    from cafe_tpu_torch.bridge import from_reference_sharded
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.train.checkpoint import save_checkpoint
+    cfg = Config(**cfg_kw)
+    _, embed, _, step, _ = build_all(cfg, get_dataset(cfg, "train"),
+                                     mesh=mesh)
+    state = from_reference_sharded(ref_state, mesh, embed)
+    metrics = []
+    for dense, sparse, label, valid in batches:
+        state, m = step(state, *_on(mesh, dense, sparse, label), valid)
+        metrics.append({k: float(v) for k, v in m.items()})
+    save_checkpoint(path, state, {"iter": len(batches)}, mesh, embed)
+    return metrics
+
+
+def load_error(mesh, argv, path):
+    """What loading `path` on this mesh raises (its string), else None."""
+    from cafe_tpu_torch.config import parse_args
+    from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.train.checkpoint import load_checkpoint
+    cfg = parse_args(argv)
+    _, embed, state, _, _ = build_all(cfg, get_dataset(cfg, "train"),
+                                      mesh=mesh)
+    try:
+        load_checkpoint(path, state, mesh, embed)
+    except ValueError as e:
+        return str(e)
+    return None
