@@ -22,7 +22,9 @@ packages (torch cannot run jax.random); the tests pin them.
 A sharded JAX state is one global state; under a mesh each port rank
 holds its slices (parallel/sharding.py). `from_reference_sharded` cuts
 rank r's state from the global arrays, and `to_reference_sharded`
-gathers the ranks' shards back into the JAX layout.
+gathers the ranks' shards back into the JAX layout. Both packages store
+a sharded AdaEmbed's dic and importance cyclic-permuted in the global
+state, so they cross as they are; QR's remainder table crosses whole.
 
 The graph recommenders' states (models/graphrec/) cross whole through
 `to_torch` and `to_reference`: LightGCN.init's part dict and PinSAGE's

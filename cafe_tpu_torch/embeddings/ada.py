@@ -23,6 +23,21 @@ The step reads its step count back to the host (to pick the decay and
 check steps) and the check reads its churn count: the step stays eager
 (`capture_blocker`). Ties among importances resolve as `jax.lax.top_k`
 resolves them, lower id first, through a stable descending sort.
+
+Under a mesh (enable_mesh) the admission policy is SHARD-LOCAL, as in
+the JAX package: the pool splits into per-rank slot ranges, ids belong
+to ranks CYCLICALLY (id % n; dic and grad_norm are stored
+cyclic-permuted, so a rank's contiguous slice is its id slice), and each
+rank runs its own sampled check and rebuild over its ids with a budget
+of hotn / n (`_check_local`, `_rebuild_local`: no collective inside, so
+ranks may branch apart). The forward all-gathers the ids, their cyclic
+owners answer dic, the pool's owners answer the rows. The update
+coalesces, all-gathers and lets the pool's owners apply (K2 / K3 through
+ops/sparse.apply_rows); the importance lands at the cyclic owners,
+normalised over the GLOBAL batch (per-field sums all-reduced). Each
+rank's check samples sample / n of its ids from a generator seeded from
+(key, step, rank). A mesh-less part in the n-shard layout
+(enable_sharded_layout) serves such a state on one device.
 """
 
 from __future__ import annotations
@@ -32,8 +47,12 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..ops.sparse import SLOT_SUFFIXES
-from .base import Part, _offsets, round_up
+from ..ops.sparse import SLOT_SUFFIXES, apply_rows, coalesce
+from ..parallel.exchange import (DROP_ROW, _local_idx, _owner_rows,
+                                 all_gather, owner_lookup_cyclic, psum,
+                                 psum_scatter)
+from ..parallel.sharding import rows_of
+from .base import _MIN_SHARD_ROWS, Part, _offsets, round_up
 
 CHECK_EVERY = 4096
 DECAY_EVERY = 16384
@@ -90,11 +109,46 @@ class AdaPart(Part):
         self.hot_rate = self.hotn / max(self.total_n, 1)
         self.sample = min(SAMPLE, self.total_n)
         self._p95 = [_p95_weights(n) for n in self.counts]
+        # the storage layout's shard count: the mesh's size under a mesh,
+        # n under enable_sharded_layout(n), else 1
+        self.n_shards = 1
+
+    def _shardable(self, n: int) -> bool:
+        wpad = round_up(self.hotn + 1)
+        np_pad = round_up(self.total_n)
+        return not (wpad % n or np_pad % n) and \
+            wpad >= max(n, _MIN_SHARD_ROWS) and self.hotn // n >= 1
+
+    def enable_mesh(self, mesh) -> bool:
+        if not self._shardable(mesh.size):
+            return False
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        return True
+
+    def enable_sharded_layout(self, n: int) -> bool:
+        """Adopt the n-shard STATE layout (cyclic-permuted dic and
+        grad_norm) without a mesh, so that the global state of a run on n
+        ranks serves on one device. Serving only: training raises."""
+        if n < 1 or self.mesh is not None or not self._shardable(n):
+            return False
+        self.n_shards = n
+        return True
+
+    def _store_perm(self, np_pad: int) -> np.ndarray:
+        """store[k] holds global id g = (k % L)*n + k // L (shard-major
+        cyclic permutation; L = np_pad // n)."""
+        n = self.n_shards
+        L = np_pad // n
+        k = np.arange(np_pad, dtype=np.int64)
+        return (k % L) * n + k // L
 
     def init(self, rng: np.random.Generator) -> Dict:
         np_pad = round_up(self.total_n)
         gn = np.full(np_pad, -1.0, dtype=np.float32)
         gn[: self.total_n] = 0.0
+        if self.n_shards > 1:
+            gn = gn[self._store_perm(np_pad)]
         dev = self.device
         state = {
             "weight": torch.zeros((round_up(self.hotn + 1), self.dim),
@@ -110,11 +164,34 @@ class AdaPart(Part):
 
     def gather(self, state: Dict, ids: torch.Tensor):
         gid = ids + self._const("np_offsets")
-        rows = state["dic"][gid.long()]
+        if self.mesh is not None:
+            rows = owner_lookup_cyclic(
+                state["dic"], all_gather(gid.reshape(-1), self.mesh),
+                self.mesh)
+            raw = psum_scatter(_owner_rows(state["weight"], rows, self.mesh),
+                               self.mesh)
+            rows = rows[rows_of(self.mesh, rows.shape[0])]
+            return raw.reshape(*gid.shape, -1), (gid, rows.reshape(gid.shape))
+        rows = self._dic_lookup(state, gid)
         return state["weight"][rows.long()], (gid, rows)
+
+    def _dic_lookup(self, state: Dict, gid: torch.Tensor) -> torch.Tensor:
+        """dic[gid] through the storage layout (cyclic-permuted in the
+        n-shard layout)."""
+        n = self.n_shards
+        gid = gid.long()
+        if n > 1:
+            gid = (gid % n) * (state["dic"].shape[0] // n) + gid // n
+        return state["dic"][gid]
 
     def apply_grads(self, state: Dict, ids, g_raw, aux, lr: float):
         gid, rows = aux
+        if self.mesh is not None:
+            return self._apply_sharded(state, gid, rows, g_raw, lr)
+        if self.n_shards > 1:
+            raise RuntimeError(
+                "AdaPart: training in the sharded layout requires the mesh "
+                "(enable_mesh); enable_sharded_layout serves only")
         b, f, d = g_raw.shape
         # weight update; slot-0 (not admitted) lanes go past the last row
         # and are dropped
@@ -141,17 +218,149 @@ class AdaPart(Part):
 
     def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
         gid = ids + self._const("np_offsets")
-        return self._dequantize(qt["weight"], state["dic"][gid.long()])
+        if self.mesh is not None:
+            # the cyclic owners answer dic, the pool's owners dequantize:
+            # O(batch) traffic, the dic and the codes never move
+            rows = owner_lookup_cyclic(
+                state["dic"], all_gather(gid.reshape(-1), self.mesh),
+                self.mesh)
+            return self._dequantize_owned(qt["weight"], rows).reshape(
+                *gid.shape, -1)
+        return self._dequantize(qt["weight"], self._dic_lookup(state, gid))
+
+    def _draw(self, seeds, high: int, size: int) -> torch.Tensor:
+        seed = np.random.SeedSequence(seeds).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return torch.randint(0, high, (size,), generator=gen,
+                             device=self.device)
 
     def sample_ids(self, state: Dict, step: int) -> torch.Tensor:
         """The check's `sample` ids, drawn with replacement from a
         generator seeded from (key, step)."""
-        seed = np.random.SeedSequence(
-            [int(state["key"]), step]).generate_state(1, np.uint64)[0]
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return torch.randint(0, self.total_n, (self.sample,),
-                             generator=gen, device=self.device)
+        return self._draw([int(state["key"]), step], self.total_n,
+                          self.sample)
+
+    def sample_ids_local(self, state: Dict, step: int,
+                         me: int) -> torch.Tensor:
+        """Rank `me`'s check sample: sample / n local positions of its
+        live ids, seeded from (key, step, rank)."""
+        n = self.n_shards
+        n_live = max((self.total_n - 1 - me) // n + 1, 1)
+        return self._draw([int(state["key"]), step, me],
+                          min(n_live, state["dic"].shape[0]),
+                          max(self.sample // n, 1))
+
+    # -- the sharded step ----------------------------------------------
+    def _apply_sharded(self, state: Dict, gid, rows, g_raw, lr: float):
+        """The pool's owners apply the coalesced, all-gathered update;
+        the importance accumulates at the cyclic owners; then this rank's
+        decay, check and rebuild (no collective in them), and the
+        admitted count summed over the mesh."""
+        mesh, n = self.mesh, self.n_shards
+        b, f, d = g_raw.shape
+        m = b * f
+        weight, slots = state["weight"], self._slots_of(state, "weight")
+        widx = torch.where(rows > 0, rows, DROP_ROW).reshape(m)
+        widx, g2 = coalesce(widx, g_raw.reshape(m, d), DROP_ROW)
+        weight, slots = apply_rows(
+            weight, slots, _local_idx(weight.shape[0],
+                                      all_gather(widx, mesh), mesh),
+            all_gather(g2, mesh), lr, self.optimizer, self.apply_impl)
+        # importance, normalised to mean 1 per field over the GLOBAL batch
+        norms = torch.sqrt((g_raw * g_raw).sum(-1) + 1e-30)
+        norms = norms * (b * n) / (psum(norms.sum(0, keepdim=True), mesh)
+                                   + 1e-30)
+        all_gid = all_gather(gid.reshape(-1), mesh).long()
+        all_sc = all_gather(norms.reshape(-1), mesh)
+        mine = all_gid % n == mesh.rank
+        grad_norm = state["grad_norm"]
+        grad_norm.index_add_(0, torch.where(mine, all_gid // n, 0),
+                             torch.where(mine, all_sc, 0.0))
+        step = int(state["step"]) + 1
+        if step % DECAY_EVERY == 0:
+            grad_norm.mul_(DECAY)
+        carry = (weight, slots, state["dic"], grad_norm)
+        if step == 1 or step % CHECK_EVERY == 0:
+            carry, _ = self._check_local(
+                carry, self.sample_ids_local(state, step, mesh.rank),
+                mesh.rank)
+        weight, slots, dic, grad_norm = carry
+        n_adm = psum((dic != 0).sum(dtype=torch.int32), mesh)
+        out = self._put_slots({**state, "weight": weight, "dic": dic,
+                               "grad_norm": grad_norm,
+                               "step": state["step"] + 1}, "weight", slots)
+        return out, {"ada_admitted": n_adm}
+
+    def _check_local(self, carry, idx: torch.Tensor, me: int):
+        """Rank `me`'s sampled churn estimate over the local positions
+        `idx` of its id slice (the statistic of _check at sample / n
+        draws). Returns (carry, whether it rebuilt)."""
+        _, _, dic_l, gn_l = carry
+        sample_l = max(self.sample // self.n_shards, 1)
+        cnt = gn_l[idx.long()]
+        m_l = max(int(np.ceil(sample_l * self.hot_rate)), 1)
+        kth = torch.topk(cnt, m_l).values[-1]
+        churn = int(((cnt >= kth) & (dic_l[idx.long()] == 0)).sum())
+        if churn > np.float32(CHURN_FRAC * m_l):
+            return self._rebuild_local(carry, me), True
+        return carry, False
+
+    def _field_lanes(self, me: int, L: int):
+        """Per field, the contiguous local positions [k0, k1) of rank
+        `me`'s id slice (global id k * n + me) that hold the field's ids,
+        with the p95 weights of their count; empty fields left out."""
+        n = self.n_shards
+        out = []
+        for i, cnt in enumerate(self.counts):
+            lo = int(self.np_offsets[i])
+            k0 = max(-(-(lo - me) // n), 0)
+            k1 = min(-(-(lo + cnt - me) // n), L)
+            if k1 > k0:
+                out.append((k0, k1, _p95_weights(k1 - k0)))
+        return out
+
+    def _rebuild_local(self, carry, me: int):
+        """Rank `me`'s admit/evict swap over its id slice and its OWN slot
+        range [me * W_l, (me + 1) * W_l): the local top-(hotn / n) by
+        per-field p95-normalised importance (the JAX package's
+        shard-local rebuild); global slot 0, the not-admitted sentinel,
+        is never handed out. In place; returns the carry."""
+        w_l, sl, dic_l, gn_l = carry
+        n = self.n_shards
+        L, W_l = gn_l.shape[0], w_l.shape[0]
+        dev = gn_l.device
+        normed = torch.full_like(gn_l, -float("inf"))   # unelectable
+        for k0, k1, weights in self._field_lanes(me, L):
+            seg = gn_l[k0:k1]
+            p = percentile95(seg, weights)
+            normed[k0:k1] = torch.where(p != 0, seg / p, seg)
+        top = torch.sort(normed, descending=True,
+                         stable=True).indices[:max(self.hotn // n, 1)]
+        new_hot = torch.zeros(L, dtype=torch.bool, device=dev)
+        new_hot[top] = True
+        new_hot &= torch.isfinite(normed)
+        old_hot = dic_l != 0
+        admit = new_hot & ~old_hot
+        evict = old_hot & ~new_hot
+        keep = new_hot & old_hot
+        lo_slot = me * W_l
+        used = torch.zeros(W_l + 1, dtype=torch.bool, device=dev)
+        used[torch.where(keep, dic_l - lo_slot, W_l).long()] = True
+        used = used[:W_l]
+        free_mask = ~used
+        if me == 0:
+            free_mask[0] = False      # global slot 0: not admitted
+        free = torch.nonzero(free_mask)[:, 0]
+        admit_pos = torch.nonzero(admit)[:, 0]
+        k = min(len(admit_pos), len(free))
+        dic_l[admit_pos[:k]] = (free[:k] + lo_slot).to(torch.int32)
+        dic_l.masked_fill_(evict, 0)
+        w_l.masked_fill_(~used[:, None], 0.0)
+        for v in sl.values():
+            if v.dim() == 2:
+                v.masked_fill_(~used[:, None], 0.0)
+        return w_l, sl, dic_l, gn_l
 
     # -- policy -------------------------------------------------------
     def _check(self, state: Dict, idx: torch.Tensor):

@@ -42,9 +42,11 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..ops.quantized import dequantize_rows, quantize_rowwise
 from ..ops.sparse import SLOT_SUFFIXES, apply_rows, init_slots
-from ..parallel.exchange import (all_gather, owner_rows_with, psum_scatter,
+from ..parallel.exchange import (_owner_rows, all_gather, owner_lookup_1d,
+                                 owner_rows_with, psum_scatter,
                                  sharded_apply, sharded_apply_a2a,
                                  sharded_fetch, sharded_fetch_a2a)
+from ..parallel.sharding import rows_of
 from ..utils.timing import tensors_of
 
 # All tables are padded to a multiple of this row count (the JAX package
@@ -154,19 +156,26 @@ class Part:
             bits = 8   # int4 packs code pairs: an odd width serves at 8
         return quantize_rowwise(table, bits)
 
-    def _dequantize(self, qt, rows: torch.Tensor) -> torch.Tensor:
+    def _dequantize(self, qt, rows: torch.Tensor,
+                    replicated: bool = False) -> torch.Tensor:
         """Dequantized rows [b, F, D] at row ids [b, F]: on a mesh this
         rank's lanes through the explicit exchange (all-gather the row ids,
         each owner dequantizes the rows of its shard of the codes, a
         reduce-scatter returns the f32 rows), so only O(batch) bytes move
-        and the codes never leave their owner."""
+        and the codes never leave their owner. `replicated`: the codes
+        are whole on every rank (QR's remainder table)."""
         b, f = rows.shape
-        if self.mesh is None:
+        if self.mesh is None or replicated:
             return dequantize_rows(qt, rows.reshape(-1)).reshape(b, f, -1)
-        all_rows = all_gather(rows.reshape(-1), self.mesh)
+        return self._dequantize_owned(
+            qt, all_gather(rows.reshape(-1), self.mesh)).reshape(b, f, -1)
+
+    def _dequantize_owned(self, qt, all_rows: torch.Tensor) -> torch.Tensor:
+        """This rank's [m, D] lanes of the mesh's row ids `all_rows`
+        [n*m]: the owners dequantize, a reduce-scatter returns them."""
         vals = owner_rows_with(lambda i: dequantize_rows(qt, i),
                                qt.codes.shape[0], all_rows, self.mesh)
-        return psum_scatter(vals, self.mesh).reshape(b, f, -1)
+        return psum_scatter(vals, self.mesh)
 
     def _const(self, name: str) -> torch.Tensor:
         """Per-field int32 constant attribute `name` as a [1, F] tensor on
@@ -196,6 +205,37 @@ class Part:
                                   self.apply_impl)
         return self._put_slots({**state, key: table}, key, slots)
 
+    def _update_rows(self, state: Dict, key: str, idx: torch.Tensor,
+                     grad: torch.Tensor, lr: float) -> Dict:
+        """The update of table `key` at rows idx [b, F] by grad [b, F, d]:
+        the plain sparse apply on one device, the configured row exchange
+        under a mesh."""
+        if self.mesh is None:
+            return self._table_update(state, key, idx.reshape(-1),
+                                      grad.reshape(idx.numel(), -1), lr)
+        table, slots = self._sharded_apply(state[key],
+                                           self._slots_of(state, key), idx,
+                                           grad, lr)
+        return self._put_slots({**state, key: table}, key, slots)
+
+    def _replicated_update(self, state: Dict, key: str, idx: torch.Tensor,
+                           grad: torch.Tensor, lr: float) -> Dict:
+        """_table_update of a table that stays whole on every rank of a
+        sharded part (QR's `r`, weighted pooling's `w`): the global
+        batch's (row, grad) pairs are all-gathered and applied on every
+        rank, which then takes rank 0's table and slots (the layer's rule
+        for a replicated part, EmbeddingLayer.apply_grads)."""
+        if self.mesh is None:
+            return self._table_update(state, key, idx, grad, lr)
+        state = self._table_update(state, key, all_gather(idx, self.mesh),
+                                   all_gather(grad.contiguous(), self.mesh),
+                                   lr)
+        if self.mesh.size > 1:
+            for k in [key] + [key + sfx for sfx in
+                              SLOT_SUFFIXES[self.optimizer].values()]:
+                dist.broadcast(state[k], src=0, group=self.mesh.group)
+        return state
+
     def _maybe_acc(self, state: Dict, key: str) -> Dict:
         return self._put_slots(state, key,
                                init_slots(state[key], self.optimizer))
@@ -207,8 +247,9 @@ class HashedTablePart(Part):
     `weighted` is the legacy v_W_l weighted pooling: a per-RAW-ID scalar
     weight `w` (gathered by the raw id before hashing, init 1) multiplies
     the looked-up row; "learned" trains it with the part's sparse
-    optimizer, "fixed" keeps it at 1. A weighted part stays replicated
-    under a mesh (its update needs the whole batch's raw ids)."""
+    optimizer, "fixed" keeps it at 1. Under a mesh the table is
+    row-sharded as for any hashed part and `w` stays whole on every rank
+    (the JAX package's layout; see Part._replicated_update)."""
 
     def __init__(self, field_idx, counts, real_ns, dim, optimizer="sgd",
                  weighted: str = ""):
@@ -226,8 +267,6 @@ class HashedTablePart(Part):
         self.w_rows = int(sum(self.counts))
 
     def enable_mesh(self, mesh) -> bool:
-        if self.weighted:
-            return False
         n = mesh.size
         rows_pad = round_up(self.rows)
         if rows_pad % n or rows_pad < max(n, _MIN_SHARD_ROWS):
@@ -252,9 +291,8 @@ class HashedTablePart(Part):
 
     def gather(self, state, ids):
         flat = (ids % self._const("real_ns")) + self._const("np_offsets")
-        if self.mesh is not None:
-            return self._sharded_fetch(state["table"], flat), flat
-        rows = state["table"][flat.long()]
+        rows = state["table"][flat.long()] if self.mesh is None \
+            else self._sharded_fetch(state["table"], flat)
         if not self.weighted:
             return rows, flat
         out = rows * state["w"][self._w_index(ids).long()]
@@ -264,16 +302,7 @@ class HashedTablePart(Part):
     def apply_grads(self, state, ids, g_raw, aux, lr):
         if self.weighted:
             return self._apply_weighted(state, ids, g_raw, aux, lr), {}
-        if self.mesh is not None:
-            table, slots = self._sharded_apply(
-                state["table"], self._slots_of(state, "table"), aux, g_raw,
-                lr)
-            return self._put_slots({**state, "table": table}, "table",
-                                   slots), {}
-        b, f, d = g_raw.shape
-        state = self._table_update(state, "table", aux.reshape(b * f),
-                                   g_raw.reshape(b * f, d), lr)
-        return state, {}
+        return self._update_rows(state, "table", aux, g_raw, lr), {}
 
     def _apply_weighted(self, state, ids, g_raw, aux, lr):
         """raw = table[hash(i)] * w[i]: the chain rule through both
@@ -285,9 +314,9 @@ class HashedTablePart(Part):
         g_table = g * state["w"][widx.long()]
         if self.weighted == "learned":
             g_w = (g * aux[1].reshape(b * f, d)).sum(-1, keepdim=True)
-            state = self._table_update(state, "w", widx, g_w, lr)
-        return self._table_update(state, "table", flat.reshape(b * f),
-                                  g_table, lr)
+            state = self._replicated_update(state, "w", widx, g_w, lr)
+        return self._update_rows(state, "table", flat,
+                                 g_table.reshape(b, f, d), lr)
 
     def quantize_for_serving(self, state, bits):
         return {"table": self._quantize(state["table"], bits)}
@@ -304,7 +333,13 @@ class QRPart(Part):
     """Quotient-remainder fields: the feature vector combines
     q[id // coll] and r[id % coll] by `operation`: "add", "mult"
     (elementwise product) or "concat" (the two tables hold the halves of
-    the dim, q_dim = (dim + 1) // 2, so the output dim stays `dim`)."""
+    the dim, q_dim = (dim + 1) // 2, so the output dim stays `dim`).
+
+    Under a mesh only the quotient table is row-sharded (the exchange);
+    the O(collisions) remainder table stays whole on every rank: each
+    rank gathers its lanes' r rows locally, and the update all-gathers
+    the global batch's (row, grad) pairs, applies them on every rank and
+    takes rank 0's result, as the layer does for a replicated part."""
 
     def __init__(self, field_idx, counts, collisions, dim, optimizer="sgd",
                  operation: str = "add"):
@@ -322,6 +357,14 @@ class QRPart(Part):
         self.q_off = _offsets(self.q_rows)
         self.r_off = _offsets(self.r_rows)
 
+    def enable_mesh(self, mesh) -> bool:
+        n = mesh.size
+        q_pad = round_up(int(sum(self.q_rows)))
+        if q_pad % n or q_pad < max(n, _MIN_SHARD_ROWS):
+            return False
+        self.mesh = mesh
+        return True
+
     def init(self, rng):
         scales = [np.sqrt(1.0 / n) for n in self.counts]
         state = {"q": _uniform_init(rng, self.q_rows, scales, self.q_dim),
@@ -334,7 +377,8 @@ class QRPart(Part):
     def gather(self, state, ids):
         qi = ids // self.collisions + self._const("q_off")
         ri = ids % self.collisions + self._const("r_off")
-        qv = state["q"][qi.long()]
+        qv = state["q"][qi.long()] if self.mesh is None \
+            else self._sharded_fetch(state["q"], qi)
         rv = state["r"][ri.long()]
         if self.operation == "add":
             raw = qv + rv
@@ -355,11 +399,9 @@ class QRPart(Part):
             gq, gr = g_raw * aux[3], g_raw * aux[2]
         else:
             gq, gr = g_raw[..., :self.q_dim], g_raw[..., self.q_dim:]
-        state = self._table_update(state, "q", qi.reshape(-1),
-                                   gq.reshape(b * f, -1), lr)
-        state = self._table_update(state, "r", ri.reshape(-1),
-                                   gr.reshape(b * f, -1), lr)
-        return state, {}
+        state = self._update_rows(state, "q", qi, gq, lr)
+        return self._replicated_update(state, "r", ri.reshape(-1),
+                                       gr.reshape(b * f, -1), lr), {}
 
     def quantize_for_serving(self, state, bits):
         return {"q": self._quantize(state["q"], bits),
@@ -369,7 +411,7 @@ class QRPart(Part):
         qv = self._dequantize(qt["q"], ids // self.collisions
                               + self._const("q_off"))
         rv = self._dequantize(qt["r"], ids % self.collisions
-                              + self._const("r_off"))
+                              + self._const("r_off"), replicated=True)
         if self.operation == "add":
             return qv + rv
         if self.operation == "mult":
@@ -436,7 +478,15 @@ class OffPart(Part):
     by modulo.
 
     Layout: one table, hot rows first and cold rows from `cold_base`, so
-    the forward is one routed gather and the backward one scatter."""
+    the forward is one routed gather and the backward one scatter.
+
+    Under a mesh the unified table and the int32 hot_dict are both
+    row-sharded (the O(vocab) dict is never replicated): the ranks
+    all-gather their ids, the dict's owners answer its lanes, every rank
+    routes the global batch and the table's owners answer the rows, a
+    reduce-scatter returning each rank its lanes (the JAX package's
+    owner-compute forward, whatever the exchange mode); the update runs
+    the configured row exchange."""
 
     def __init__(self, field_idx, counts, hot_dicts, num_colds, dim,
                  optimizer="sgd"):
@@ -457,6 +507,15 @@ class OffPart(Part):
         self.cold_rows = int(sum(self.cold_n))
         self.cold_base = round_up(self.hot_rows)
         self.total_rows = self.cold_base + round_up(self.cold_rows)
+
+    def enable_mesh(self, mesh) -> bool:
+        n = mesh.size
+        if self.total_rows % n or self.total_rows < max(n, _MIN_SHARD_ROWS):
+            return False
+        if round_up(len(self._hot_dict_np)) % n:
+            return False
+        self.mesh = mesh
+        return True
 
     def init(self, rng):
         scales = [np.sqrt(1.0 / max(n, 5)) for n in self.counts]
@@ -484,20 +543,43 @@ class OffPart(Part):
         return torch.where(use_hot, hrow, crow), use_hot
 
     def gather(self, state, ids):
+        if self.mesh is not None:
+            row_all, hot_all = self._route_sharded(state, ids)
+            raw = psum_scatter(_owner_rows(state["table"], row_all,
+                                           self.mesh), self.mesh)
+            me = rows_of(self.mesh, row_all.shape[0])
+            return raw.reshape(*ids.shape, -1), (
+                row_all[me].reshape(ids.shape),
+                hot_all[me].reshape(ids.shape))
         gid = ids + self._const("dict_off")
         row, use_hot = self._route(ids, state["hot_dict"][gid.long()])
         return state["table"][row.long()], (row, use_hot)
 
+    def _route_sharded(self, state, ids):
+        """The global batch's (row, use_hot), flat [n*b*F], from this
+        rank's ids [b, F]: the dict's owners answer its lanes (one owner a
+        lane, so an int32 psum publishes them exactly)."""
+        f = ids.shape[1]
+        all_ids = all_gather(ids.reshape(-1), self.mesh).reshape(-1, f)
+        hd = owner_lookup_1d(state["hot_dict"],
+                             (all_ids + self._const("dict_off")).reshape(-1),
+                             self.mesh)
+        row, use_hot = self._route(all_ids, hd.reshape(-1, f))
+        return row.reshape(-1), use_hot.reshape(-1)
+
     def apply_grads(self, state, ids, g_raw, aux, lr):
-        b, f, d = g_raw.shape
-        state = self._table_update(state, "table", aux[0].reshape(b * f),
-                                   g_raw.reshape(b * f, d), lr)
-        return state, {}
+        return self._update_rows(state, "table", aux[0], g_raw, lr), {}
 
     def quantize_for_serving(self, state, bits):
         return {"table": self._quantize(state["table"], bits)}
 
     def gather_quantized(self, state, qt, ids):
+        if self.mesh is not None:
+            # the owners answer the dict lanes and dequantize their rows:
+            # O(batch) traffic, the dict and the codes never move
+            row_all, _ = self._route_sharded(state, ids)
+            return self._dequantize_owned(qt["table"], row_all).reshape(
+                *ids.shape, -1)
         gid = ids + self._const("dict_off")
         row, _ = self._route(ids, state["hot_dict"][gid.long()])
         return self._dequantize(qt["table"], row)
@@ -540,18 +622,17 @@ class EmbeddingLayer:
     def set_mesh(self, mesh, unique_frac: float = 0.0,
                  exchange_mode: str = "explicit") -> List[str]:
         """Turn on the explicit exchange on every part that supports it
-        (big hashed tables, CAFE parts with shard-local sketches). Must
-        run BEFORE init(); returns the names of the parts that turned it
-        on (the rest stay replicated)."""
+        (big hashed tables, QR's quotient table, Off, AdaEmbed, CAFE parts
+        with shard-local sketches). Must run BEFORE init(); returns the
+        names of the parts that turned it on (the rest stay replicated).
+        unique_frac > 0 turns on the unique-compact buffers of the
+        explicit exchange (the a2a and pallas modes ignore it, as in the
+        JAX package)."""
         if exchange_mode not in ("explicit",) + tuple(EXCHANGE_IMPLS):
             raise NotImplementedError(
                 f"shard_exchange {exchange_mode!r} is not ported yet "
                 f"(ROADMAP queue 1 item 6.3); use explicit, a2a or "
                 f"pallas")
-        if unique_frac > 0.0:
-            raise NotImplementedError(
-                "shard_unique_frac > 0: the unique-compact exchange is not "
-                "ported yet (ROADMAP queue 1 item 6.2)")
         self.mesh = mesh
         active = []
         for i, p in enumerate(self.parts):

@@ -65,19 +65,65 @@ def init_slots(table: torch.Tensor, optimizer: str) -> dict:
     return {}
 
 
+def _sorted_groups(idx: torch.Tensor):
+    """(order, sorted ids, head mask, int32 group of each sorted lane):
+    one stable sort and a scan."""
+    order = torch.argsort(idx, stable=True)
+    sidx = idx[order]
+    head = torch.ones_like(sidx, dtype=torch.bool)
+    head[1:] = sidx[1:] != sidx[:-1]
+    seg = torch.cumsum(head.to(torch.int32), 0, dtype=torch.int32) - 1
+    return order, sidx, head, seg
+
+
 def coalesce(idx: torch.Tensor, grad: torch.Tensor, drop_sentinel: int):
     """Combine duplicate row indices: (unique_idx, summed_grad), same
     length as idx; duplicate lanes carry `drop_sentinel` as index and a
     zero gradient. One stable sort, one segment sum."""
-    order = torch.argsort(idx, stable=True)
-    sidx, sgrad = idx[order], grad[order]
-    head = torch.ones_like(sidx, dtype=torch.bool)
-    head[1:] = sidx[1:] != sidx[:-1]
-    seg = torch.cumsum(head.to(torch.int64), 0) - 1
-    summed = torch.zeros_like(sgrad).index_add_(0, seg, sgrad)
+    order, sidx, head, seg = _sorted_groups(idx)
+    seg = seg.long()
+    summed = torch.zeros_like(grad).index_add_(0, seg, grad[order])
     out_grad = summed[seg] * head[:, None]
     out_idx = torch.where(head, sidx, drop_sentinel)
     return out_idx, out_grad
+
+
+def _compact_ids(sidx, head, seg, capacity: int, drop_sentinel: int):
+    """The group heads' ids at their group positions in a [capacity]
+    buffer (sentinel elsewhere); groups past the capacity are dropped."""
+    pos = torch.where(head & (seg < capacity), seg, capacity).long()
+    out = torch.full((capacity + 1,), drop_sentinel, dtype=sidx.dtype,
+                     device=sidx.device)
+    out[pos] = sidx          # in-range positions are distinct
+    return out[:capacity]
+
+
+def unique_compact(idx: torch.Tensor, capacity: int, drop_sentinel: int):
+    """The distinct values of idx [M] in sorted order in a fixed
+    [capacity] buffer (sentinel in unused lanes); inv [M] int32, each
+    lane's position in the buffer (valid only when n_unique <= capacity);
+    n_unique, an int32 scalar. The capacity-bounded exchange ships C
+    instead of M ids when the batch is skewed."""
+    order, sidx, head, seg = _sorted_groups(idx)
+    uids = _compact_ids(sidx, head, seg, capacity, drop_sentinel)
+    inv = torch.empty_like(seg)
+    inv[order] = seg
+    return uids, inv, seg[-1] + 1
+
+
+def coalesce_compact(idx: torch.Tensor, grad: torch.Tensor, capacity: int,
+                     drop_sentinel: int):
+    """coalesce() into a fixed [capacity] buffer: (cidx [C], cgrad [C, D],
+    n_unique). Each group's gradients sum in sorted-lane order; groups
+    beyond the capacity are DROPPED, so callers check n_unique <=
+    capacity and fall back to the full-size path
+    (parallel/exchange.sharded_apply)."""
+    order, sidx, head, seg = _sorted_groups(idx)
+    cgrad = torch.zeros((capacity + 1,) + tuple(grad.shape[1:]),
+                        dtype=grad.dtype, device=grad.device)
+    cgrad.index_add_(0, seg.clamp_max(capacity).long(), grad[order])
+    return (_compact_ids(sidx, head, seg, capacity, drop_sentinel),
+            cgrad[:capacity], seg[-1] + 1)
 
 
 def _kept_rows(table, idx, grad):

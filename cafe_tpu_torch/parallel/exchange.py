@@ -16,11 +16,16 @@ rows or grads of those ids; `impl='pallas'` runs them through kernel K5
 (kernels/a2a.py, the peer-write all-to-all), `impl='lax'` through
 `dist.all_to_all_single`.
 
+With a unique fraction (--shard_unique_frac) the explicit legs ship a
+capacity-bounded buffer of the batch's DISTINCT ids (and their summed
+grads) instead of every lane; when any rank's distinct count overflows
+the capacity, every rank takes the full-size path; the mesh's
+`unique_branches` counts which branch each leg took.
+
 Each function here is the body of the JAX package's `shard_map`: it takes
 this rank's shard of the table and this rank's slice of the batch, and
 every collective names the mesh's group. The two-level mesh (ROADMAP
-queue 1 item 6.1) and the unique-compact buffers (item 6.2) are not
-ported.
+queue 1 item 6.1) and its hierarchical legs are not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 from ..kernels import a2a as _a2a_kernel
-from ..ops.sparse import apply_rows, coalesce
+from ..ops.sparse import (apply_rows, coalesce, coalesce_compact,
+                          unique_compact)
 
 # sentinel row index far above any real table; survives the owner's
 # `- lo` shift still out of range, so scatters drop these lanes
@@ -113,6 +119,18 @@ def owner_lookup_1d(arr_l: torch.Tensor, all_idx: torch.Tensor,
     return psum(torch.where(mine, vals, torch.zeros_like(vals)), mesh)
 
 
+def owner_lookup_cyclic(arr_l: torch.Tensor, all_idx: torch.Tensor,
+                        mesh) -> torch.Tensor:
+    """CYCLIC-sharded 1-D lookup (owner = idx % n, local position = idx
+    // n: AdaPart's dic / grad_norm layout): one owner per lane, so a
+    psum publishes the exact values."""
+    n, rows_l = mesh.size, arr_l.shape[0]
+    all_idx = all_idx.long()
+    mine = all_idx % n == mesh.rank
+    vals = arr_l[torch.where(mine, all_idx // n, 0).clamp(0, rows_l - 1)]
+    return psum(torch.where(mine, vals, torch.zeros_like(vals)), mesh)
+
+
 def unique_cap(m: int, frac: float) -> int:
     """Per-device unique-id capacity for a flattened batch of m lanes:
     ceil(m*frac) rounded up to 64 lanes; 0 (== off) when frac is 0 or the
@@ -124,13 +142,6 @@ def unique_cap(m: int, frac: float) -> int:
     return c if 0 < c < m else 0
 
 
-def _no_unique_compact(unique_frac: float) -> None:
-    if unique_frac > 0.0:
-        raise NotImplementedError(
-            "shard_unique_frac > 0: the unique-compact exchange is not "
-            "ported yet (ROADMAP queue 1 item 6.2)")
-
-
 def _fetch_full(mesh, tbl: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
     all_idx = all_gather(flat, mesh)
     return psum_scatter(_owner_rows(tbl, all_idx, mesh), mesh)
@@ -139,10 +150,24 @@ def _fetch_full(mesh, tbl: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
 def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
                   unique_frac: float = 0.0) -> torch.Tensor:
     """This rank's row shard [R/n, D] x this rank's global row ids
-    [b, F] -> [b, F, D]."""
-    _no_unique_compact(unique_frac)
+    [b, F] -> [b, F, D].
+
+    unique_frac > 0 turns on the UNIQUE-COMPACT exchange: the distinct
+    row ids compact into a C-lane buffer (C = unique_cap), the exchange
+    ships C rows instead of b*F, and a local expand restores the lanes.
+    If any rank overflows C, every rank takes the full-size path."""
     b, fld = idx.shape
-    return _fetch_full(mesh, table, idx.reshape(b * fld)).reshape(b, fld, -1)
+    flat = idx.reshape(b * fld)
+    capacity = unique_cap(b * fld, unique_frac)
+    if capacity:
+        uids, inv, nu = unique_compact(flat, capacity, DROP_ROW)
+        if not any_rank(nu > capacity, mesh):   # pmax(nu) > C
+            mesh.unique_branches["fetch_compact"] += 1
+            urows = _fetch_full(mesh, table, uids)          # [C, D]
+            return urows[inv.clamp(0, capacity - 1).long()].reshape(
+                b, fld, -1)
+        mesh.unique_branches["fetch_full"] += 1
+    return _fetch_full(mesh, table, flat).reshape(b, fld, -1)
 
 
 def a2a_cap(m: int, n: int, slack: float = 1.5) -> int:
@@ -268,11 +293,20 @@ def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     """Owner-compute sparse update: (idx [b, F] global rows, grad
     [b, F, D]) of this rank's batch slice; duplicates coalesce locally
     before the all-gather. `slots` as ops.sparse.init_slots makes them
-    (row slots are sharded with the table). Updates the shard in place;
-    returns (table, slots)."""
-    _no_unique_compact(unique_frac)
+    (row slots are sharded with the table). unique_frac > 0 ships the
+    coalesced (id, grad) pairs in C-lane buffers, with the full-size
+    path when any rank overflows (see sharded_fetch). Updates the shard
+    in place; returns (table, slots)."""
     m = idx.numel()
-    fi, fg = coalesce(idx.reshape(m), grad.reshape(m, -1),
-                      drop_sentinel=DROP_ROW)
+    flat, g = idx.reshape(m), grad.reshape(m, -1)
+    capacity = unique_cap(m, unique_frac)
+    if capacity:
+        cidx, cgrad, nu = coalesce_compact(flat, g, capacity, DROP_ROW)
+        if not any_rank(nu > capacity, mesh):   # pmax(nu) > C
+            mesh.unique_branches["apply_compact"] += 1
+            return _apply_full(mesh, table, slots, cidx, cgrad, lr,
+                               optimizer, apply_impl)
+        mesh.unique_branches["apply_full"] += 1
+    fi, fg = coalesce(flat, g, drop_sentinel=DROP_ROW)
     return _apply_full(mesh, table, slots, fi, fg, lr, optimizer,
                        apply_impl)

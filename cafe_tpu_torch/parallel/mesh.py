@@ -15,6 +15,7 @@ them on its own.
 from __future__ import annotations
 
 import os
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -33,7 +34,10 @@ class Mesh:
     `group` is the mesh's own process group: every collective of the
     sharded path names it. `a2a_workspaces` holds the peer-write
     all-to-all's shared buffers (kernels/a2a.py), one per chunk size,
-    owned here so that they live and die with the mesh."""
+    owned here so that they live and die with the mesh.
+    `unique_branches` counts the legs of the unique-compact exchange by
+    the branch they took ("fetch_compact", "fetch_full", "apply_compact",
+    "apply_full"; parallel/exchange.py)."""
 
     size: int
     rank: int
@@ -41,6 +45,7 @@ class Mesh:
     group: object
     axis_names: tuple = (AXIS,)
     a2a_workspaces: dict = field(default_factory=dict, repr=False)
+    unique_branches: Counter = field(default_factory=Counter, repr=False)
 
     @property
     def backend(self) -> str:

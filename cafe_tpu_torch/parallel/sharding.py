@@ -6,13 +6,20 @@ XLA place it; here each rank holds its slices outright. The leaf rules
 are the JAX package's `state_shardings` rules:
 
   * every embedding table / optimizer slot [rows, dim] of a part that
-    runs the explicit exchange -> this rank's rows;
+    runs the explicit exchange -> this rank's rows, except QR's
+    remainder table `r` and its slots, which a sharded QRPart keeps whole
+    on every rank (the JAX package annotates `r` row-sharded but updates
+    it as one global array, which is the same values);
+  * AdaEmbed's dic / grad_norm and Off's hot_dict ([N] int32 / f32) ->
+    this rank's slice (Ada's is cyclic-permuted, so the slice is the
+    rank's ids);
   * sketch bucket arrays val/cnt/dic [n*S_l, C] and the free stacks
     [n*S_l] -> this rank's buckets;
   * the per-shard scalar lanes free_top / tot ([n]) -> this rank's lane
     ([1]; sketch/sharded.shard_local_view squeezes it);
   * everything else (dense towers, optimizer state of the towers, tick,
-    step, every leaf of a part that stays replicated) -> a full copy.
+    step, AdaEmbed's step and key, every leaf of a part that stays
+    replicated) -> a full copy.
 
 A part that does not run the exchange (Part.mesh is None) stays
 replicated as a whole: the JAX package leaves such a part to XLA's
@@ -28,7 +35,7 @@ import torch
 
 from .exchange import all_gather
 
-_ROW_TABLES = {"table", "hash", "high", "q", "r", "hot", "cold", "weight"}
+_ROW_TABLES = {"table", "hash", "high", "q", "hot", "cold", "weight"}
 _ROW_SHARDED_2D = {t + sfx for t in _ROW_TABLES
                    for sfx in ("", "_acc", "_m", "_v")}
 _ROW_SHARDED_1D = {"dic", "grad_norm", "hot_dict"}

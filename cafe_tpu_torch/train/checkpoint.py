@@ -174,8 +174,8 @@ def load_checkpoint(path: str, state: TrainState, mesh=None, embed=None
     next to the real slot. Under a mesh (`mesh`, `embed`: every rank
     calls it) the file is the global state of a mesh of the same size
     and each rank keeps its slices. Without a mesh a mesh run's file
-    loads into a state of its layout (CafePart.enable_sharded_layout:
-    serving only). Returns the state and the sidecar's `extra`."""
+    loads into a state of its layout (`enable_sharded_layout` of the
+    CAFE and AdaEmbed parts: serving only). Returns the state and the sidecar's `extra`."""
     path = os.path.realpath(osp.abspath(path))
     meta = checkpoint_meta(path)
     got = int(meta.pop("mesh_size", 0))

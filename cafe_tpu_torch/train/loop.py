@@ -90,9 +90,9 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
     state is made (the state layout depends on it), and the returned
     state is this rank's slice of the global one.
 
-    `layout_shards` n > 0 (one device, no mesh) gives every CAFE part
-    the n-shard state layout (CafePart.enable_sharded_layout), so that
-    the global state of a run on n ranks serves here."""
+    `layout_shards` n > 0 (one device, no mesh) gives every CAFE and
+    AdaEmbed part the n-shard state layout (`enable_sharded_layout`), so
+    that the global state of a run on n ranks serves here."""
     dev = resolve_device(device) if mesh is None else mesh.device
     if train_data is None:
         train_data = get_dataset(cfg, "train")
@@ -174,18 +174,9 @@ def check_supported(cfg: Config) -> None:
         unported = [
             (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)",
              "6.1"),
-            (cfg.shard_unique_frac > 0, "shard_unique_frac > 0 (the "
-             "unique-compact exchange)", "6.2"),
             (cfg.shard_embeddings and cfg.shard_exchange == "auto",
              "shard_exchange auto", "6.3"),
         ]
-        if cfg.shard_embeddings and cfg.method in ("qr", "off", "ada"):
-            # replicated parts would be another result for ada: the JAX
-            # package's sharded AdaPart runs a shard-local admission
-            raise NotImplementedError(
-                f"compress method {cfg.method} under --shard_embeddings "
-                f"(its sharded part) is not ported yet (ROADMAP queue 1 "
-                f"item 6.5)")
         for bad, what, item in unported:
             if bad:
                 raise NotImplementedError(f"{what} is not ported yet "

@@ -228,6 +228,32 @@ phase 12; each phase prints its wall time):
    and the card-against-CPU step as phase 39 (conv params and their
    Adam slots within GRAPHREC_TOL).
 
+QR, Off and AdaEmbed on the mesh, and the unique-compact exchange (world
+size 1, after phase 12; eager steps; each line carries its wall time):
+
+41. sharded_methods: QR (add, mult, concat) and Off at the headline flags
+   (dense apply) and AdaEmbed at the sibling's, sharded, each in the
+   explicit, a2a and pallas modes on the card, 3 steps from one state:
+   integer state, routing and AdaEmbed's admitted counts equal, tables,
+   loss and dense params within DENSE_TOL of the pallas run; the pallas
+   mode against the CPU's through phase 23's `card_vs_cpu` gate on two
+   meshes of one rank; then ms/step (2
+   windows of 5), the exchange's device time a step (CUDA events around
+   parallel/exchange.py's calls, less the optimizer apply in them) and
+   its share, K2 / K3 launched as the apply routes predict and K5 as
+   predicted_a2a counts the parts' pallas legs;
+42. sharded_methods_unique_compact: hash and CAFE v1 (frequency scores)
+   under the explicit exchange with --shard_unique_frac 0.5 (every leg
+   takes the compact branch) and 0.1 (every leg overflows to the
+   full-size branch), each against the full-size run from one state:
+   loss within 1e-5 relative, tables within COMPACT_TOL, the sketch
+   equal; the branches a step took; ms/step;
+43. sharded_methods_cli_qr: main_torch.main --compress_method qr
+   --mesh_shape 1 --shard_embeddings true --shard_exchange pallas: run A
+   trains with 2 evals and rolling saves, run B resumes from its mid-run
+   slot with A's losses, the best checkpoint served at f32 and int8 on
+   the mesh (score_gate); K3 twice and K5 4 times a step.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
 and, last, the device line. Every JSON line carries `elapsed_s`, the
@@ -1788,6 +1814,433 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- QR, Off and AdaEmbed on the mesh, and the unique-compact exchange
+SHARDED_MODES = ("explicit", "a2a", "pallas")
+SHARDED_GATE_STEPS = 3
+SHARDED_WINDOWS, SHARDED_STEPS = 2, 5
+# the unique fraction of the compact runs: C = 26,624 lanes of a batch's
+# 53,248 hold its ~7-9 thousand distinct rows; C = 5,376 cannot
+UNIQUE_FRACS = {"compact": 0.5, "overflow": 0.1}
+COMPACT_TOL = 3e-6            # the JAX package's compact-vs-full bound
+EXCHANGE_FNS = ("all_gather", "psum", "psum_scatter", "any_rank",
+                "_owner_rows", "owner_rows_with", "_local_idx",
+                "owner_lookup_1d", "owner_lookup_cyclic", "sharded_fetch",
+                "sharded_fetch_a2a", "sharded_apply", "sharded_apply_a2a")
+
+
+def sharded_method_configs(Config):
+    """{name: config} at world size 1: QR (3 operations) and Off at the
+    headline flags with the dense apply (K3), AdaEmbed at the sibling's
+    (its pool's apply is K2)."""
+    mesh = dict(mesh_shape=1, shard_embeddings=True)
+    dense = dict(sparse_apply_impl="dense", **mesh)
+    return {
+        "qr_add": headline_cfg(Config, compress_method="qr", **dense),
+        "qr_mult": headline_cfg(Config, compress_method="qr",
+                                qr_operation="mult", **dense),
+        "qr_concat": headline_cfg(Config, compress_method="qr",
+                                  qr_operation="concat", **dense),
+        "off": headline_cfg(Config, compress_method="off", **dense),
+        "ada_sibling": headline_cfg(Config, compress_method="ada",
+                                    dataset="criteotb", embedding_dim=128,
+                                    compress_rate=0.1, learning_rate=1.0,
+                                    **mesh)}
+
+
+def predicted_a2a(embed):
+    """K5 launches one pallas train step makes: an ids and a rows leg for
+    each row fetch and each row apply through the exchange (Off's forward
+    and AdaEmbed's whole step are owner-compute, as in the JAX package)."""
+    legs = {"OffPart": 2, "AdaPart": 0}
+    return sum(legs.get(type(p).__name__, 4) for p in embed.parts
+               if p.mesh is not None and p.exchange_mode == "pallas")
+
+
+@contextlib.contextmanager
+def exchange_timer():
+    """CUDA events around every outermost call of parallel/exchange.py's
+    functions (EXCHANGE_FNS) from the port's modules, less the optimizer
+    apply (ops/sparse.apply_rows) nested in them. Yields a list of
+    (start, end, sign) to read after a synchronize (exchange_ms)."""
+    from cafe_tpu_torch.parallel import exchange
+    marks, depth = [], [0]
+
+    def wrap(fn, sign):
+        def wrapped(*args, **kwargs):
+            outer = depth[0] == 0 if sign > 0 else depth[0] == 1
+            depth[0] += sign > 0
+            if outer:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= sign > 0
+                if outer:
+                    ev[1].record()
+                    marks.append(ev + (sign,))
+        return wrapped
+
+    fns = {n: getattr(exchange, n) for n in EXCHANGE_FNS}
+    patched = [(exchange, "apply_rows", exchange.apply_rows)]
+    exchange.apply_rows = wrap(exchange.apply_rows, -1)
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("cafe_tpu_torch"):
+            for name, fn in fns.items():
+                if getattr(mod, name, None) is fn:
+                    patched.append((mod, name, fn))
+                    setattr(mod, name, wrap(fn, 1))
+    try:
+        yield marks
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
+def exchange_ms(marks) -> float:
+    return sum(sign * a.elapsed_time(b) for a, b, sign in marks)
+
+
+def timed_steps(step, state, batches, fence, windows, steps, start=0):
+    """`windows` windows of `steps` eager steps, each ended by a fence,
+    then one more window inside exchange_timer. Returns (state, ms/step
+    of each window, exchange ms/step and ms/step of the timed window)."""
+    win, n = [], start
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, *batches[n % len(batches)])
+            n += 1
+        fence(state, m)
+        win.append((time.perf_counter() - t0) * 1e3 / steps)
+    with exchange_timer() as marks:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, *batches[n % len(batches)])
+            n += 1
+        fence(state, m)
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+    return state, win, exchange_ms(marks) / steps, ms
+
+
+def _int_aux(embed, state, ids):
+    """The integer tensors of the layer's aux for `ids` (routing), as
+    numpy, keyed by part and position."""
+    _, aux = embed.gather(state.embed, ids)
+    out = {}
+    for k, v in aux.items():
+        for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+            if not t.is_floating_point():
+                out[f"{k}[{i}]"] = t.cpu().numpy()
+    return out
+
+
+def _np_leaves(tree, path=""):
+    """(path, numpy array) of every leaf of nested dicts / lists of numpy
+    arrays (to_numpy's trees), dict keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k],
+                                                            f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _np_leaves(v, f"{path}[{i}]")]
+    return [] if tree is None else [(path, np.asarray(tree))]
+
+
+def _held(name, got, ref, tol, rel=False):
+    """Integer leaves equal, float leaves within `tol` (with `rel`, within
+    tol * (1 + |reference|)); returns the largest float gap by path
+    (relative to 1 + |reference| with `rel`)."""
+    gaps = {}
+    got, ref = _np_leaves(got), _np_leaves(ref)
+    if [p for p, _ in got] != [p for p, _ in ref]:
+        raise AssertionError(f"{name}: another structure")
+    for (path, a), (_, b) in zip(got, ref):
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: {path} shape {a.shape}")
+        if a.dtype.kind in "biu":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: {path} differs")
+            continue
+        d = np.abs(a - b) / (1 + np.abs(b)) if rel else np.abs(a - b)
+        gaps[path] = float(d.max()) if d.size else 0.0
+        if not gaps[path] <= tol:
+            raise AssertionError(f"{name}: {path} differs by {gaps[path]}"
+                                 f"{' relative' if rel else ''}")
+    return gaps
+
+
+def sharded_method_run(build_all, from_reference, to_numpy, cfg, data,
+                       batches, mesh, start, fence, kernels):
+    """SHARDED_GATE_STEPS steps of `cfg` on `mesh` from the global state
+    `start` (numpy), then a warm-up step and timed_steps. Returns (state
+    after the gate steps as numpy, per-step metrics, routing of batch 0
+    after them, record)."""
+    _, embed, own, step, _ = build_all(cfg, data, mesh=mesh,
+                                       capture=False)
+    del own
+    state = from_reference(start, mesh.device)
+    metrics = []
+    for i in range(SHARDED_GATE_STEPS):
+        state, m = step(state, *batches[i % len(batches)])
+        metrics.append({k: float(v) for k, v in m.items()})
+    routing = _int_aux(embed, state, batches[0][1])
+    gated = to_numpy(state)
+    for k in kernels.values():
+        k.launches = 0
+    state, m = step(state, *batches[0])
+    fence(state, m)
+    state, win, ex_ms, ex_win = timed_steps(
+        step, state, batches, fence, SHARDED_WINDOWS, SHARDED_STEPS, 1)
+    steps = 1 + (SHARDED_WINDOWS + 1) * SHARDED_STEPS
+    launches = {name: k.launches for name, k in kernels.items()}
+    want = {name: v * steps for name, v in predicted_launches(
+        embed, state, cfg.mini_batch_size).items()}
+    want["a2a"] = predicted_a2a(embed) * steps
+    if mesh.device.type == "cuda" and any(
+            launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{cfg.compress_method} {cfg.shard_exchange}: "
+                             f"launches {launches}, predicted {want}")
+    ms = float(np.median(win))
+    rec = {"parts": [(type(p).__name__, p.mesh is not None)
+                     for p in embed.parts],
+           "ms_per_step": ms, "window_ms": win, "steps": steps,
+           "examples_per_s": cfg.mini_batch_size * 1e3 / ms,
+           "exchange_ms_per_step": ex_ms, "exchange_window_ms": ex_win,
+           "exchange_share": ex_ms / ex_win, "launches": launches,
+           "a2a_per_step": predicted_a2a(embed)}
+    del state, embed, step
+    torch.cuda.empty_cache()
+    return gated, metrics, routing, rec
+
+
+def phase_sharded_methods(build_all, from_reference, to_numpy, bce, Config,
+                          data, batches, batches_cpu, mesh_gpu, mesh_cpu,
+                          fence, kernels):
+    """QR (add, mult, concat) and Off at the headline flags (dense apply)
+    and AdaEmbed at the sibling's, sharded at world size 1. On the card
+    in the explicit, a2a and pallas modes, SHARDED_GATE_STEPS steps from
+    one state: integer state (Off's hot_dict, AdaEmbed's dic and step),
+    the routing and AdaEmbed's admitted counts equal to the pallas run's;
+    tables, loss and dense params within DENSE_TOL of it (AdaEmbed's
+    importance within DENSE_TOL relative). The pallas mode against the
+    CPU's (gloo, K5's plain version): gate_card_cpu on the two meshes,
+    phase 23's gate (integer state and routing exact, each scatter-added
+    table and AdaEmbed's importance within its lanes' card-vs-CPU gap
+    plus twice the reordering bound, dense params within DENSE_TOL).
+    Then eager ms/step (SHARDED_WINDOWS windows of SHARDED_STEPS), the
+    exchange's device time a step and its share, and the launches: K2 /
+    K3 by the apply routes, K5 by predicted_a2a."""
+    out = {}
+    for name, base in sharded_method_configs(Config).items():
+        t0 = time.perf_counter()
+
+        def cfg(mode):
+            return dataclasses.replace(base, shard_exchange=mode)
+
+        _, _, start, _, _ = build_all(cfg("pallas"), data, mesh=mesh_cpu,
+                                      capture=False)
+        start = to_numpy(start)          # n = 1: the rank's state is global
+        runs = {}
+        for mode in ("pallas",) + tuple(m for m in SHARDED_MODES
+                                        if m != "pallas"):
+            runs[mode] = sharded_method_run(
+                build_all, from_reference, to_numpy, cfg(mode), data,
+                batches, mesh_gpu, start, fence, kernels)
+        ref_state, ref_metrics, ref_routing, _ = runs["pallas"]
+        rec = {"dim": base.embedding_dim, "compress_rate":
+               base.compress_rate, "tolerance": DENSE_TOL,
+               "max_abs_diff": {}, "modes": {}}
+        for mode, (st, metrics, routing, r) in runs.items():
+            where = f"sharded_methods {name} {mode}"
+            for i, (a, b) in enumerate(zip(metrics, ref_metrics)):
+                if a.get("ada_admitted") != b.get("ada_admitted") or \
+                        not abs(a["loss"] - b["loss"]) <= DENSE_TOL:
+                    raise AssertionError(f"{where}: step {i} {a} against "
+                                         f"the card's pallas run {b}")
+            _held(where, routing, ref_routing, 0)
+            gaps = {}
+            for key, part in st["embed"].items():
+                for leaf, v in part.items():
+                    gaps.update(_held(
+                        where, {f"{key}/{leaf}": v},
+                        {f"{key}/{leaf}": ref_state["embed"][key][leaf]},
+                        DENSE_TOL, rel=leaf == "grad_norm"))
+            gaps.update(_held(where, st["params"], ref_state["params"],
+                              DENSE_TOL))
+            rec["max_abs_diff"][mode] = {
+                "loss": max(abs(a["loss"] - b["loss"])
+                            for a, b in zip(metrics, ref_metrics)),
+                **{k: v for k, v in gaps.items() if v}}
+            rec["modes"][mode] = r
+        rec["metrics"] = ref_metrics
+        rec["card_vs_cpu"] = gate_card_cpu(
+            build_all, from_reference, to_numpy, bce, cfg("pallas"), data,
+            batches, batches_cpu, meshes=(mesh_gpu, mesh_cpu))
+        rec.update(integer_state_equal=True, routing_equal=True,
+                   wall_s=time.perf_counter() - t0)
+        out[name] = rec
+    return out
+
+
+def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
+                         batches, mesh, fence):
+    """hash and CAFE v1 (frequency scores, threshold 2) at the headline
+    flags under the explicit exchange at world size 1, with
+    shard_unique_frac 0.5 (the compact branch) and 0.1 (it overflows: the
+    full-size branch), each against the full-size run (frac 0) from one
+    state: loss within 1e-5 relative, tables within COMPACT_TOL, every
+    integer leaf (the sketch) equal; the branch each leg of each step
+    took; eager ms/step of each."""
+    out = {}
+    for method in ("hash", "cafe"):
+        base = headline_cfg(Config, compress_method=method, mesh_shape=1,
+                            shard_embeddings=True, cafe_use_freq=True,
+                            cafe_sketch_threshold=2.0)
+        _, _, start, _, _ = build_all(base, data, mesh=mesh, capture=False)
+        start = to_numpy(start)
+        runs = {}
+        for tag, frac in (("full", 0.0), *UNIQUE_FRACS.items()):
+            cfg = dataclasses.replace(base, shard_unique_frac=frac)
+            _, embed, _, step, _ = build_all(cfg, data, mesh=mesh,
+                                             capture=False)
+            state = from_reference(start, mesh.device)
+            losses, branches = [], []
+            for i in range(SHARDED_GATE_STEPS):
+                mesh.unique_branches.clear()
+                state, m = step(state, *batches[i])
+                losses.append(float(m["loss"]))
+                branches.append(dict(mesh.unique_branches))
+            gated = to_numpy(state.embed)
+            state, win, ex_ms, ex_win = timed_steps(
+                step, state, batches, fence, SHARDED_WINDOWS,
+                SHARDED_STEPS, SHARDED_GATE_STEPS)
+            ms = float(np.median(win))
+            runs[tag] = (gated, losses, {
+                "unique_frac": frac, "branches_by_step": branches,
+                "ms_per_step": ms, "window_ms": win,
+                "exchange_ms_per_step": ex_ms,
+                "exchange_share": ex_ms / ex_win})
+            del state, embed, step
+        ref, ref_losses, _ = runs["full"]
+        rec = {}
+        for tag, (gated, losses, r) in runs.items():
+            want = {"full": [{}] * SHARDED_GATE_STEPS,
+                    "compact": [{"fetch_compact": 1, "apply_compact": 1}]
+                    * SHARDED_GATE_STEPS,
+                    "overflow": [{"fetch_full": 1, "apply_full": 1}]
+                    * SHARDED_GATE_STEPS}[tag]
+            if r["branches_by_step"] != want:
+                raise AssertionError(f"unique_compact {method} {tag}: "
+                                     f"branches {r['branches_by_step']}")
+            if not np.allclose(losses, ref_losses, rtol=1e-5, atol=0):
+                raise AssertionError(f"unique_compact {method} {tag}: "
+                                     f"losses {losses} against {ref_losses}")
+            r["max_abs_diff_vs_full"] = _held(
+                f"unique_compact {method} {tag}", gated, ref, COMPACT_TOL)
+            r["losses"] = losses
+            rec[tag] = r
+        out[method] = rec
+    return out
+
+
+def phase_cli_sharded_qr(main_fn, make_criteo_arrays, kernels,
+                         device="cuda"):
+    """main_torch.main --compress_method qr --mesh_shape 1
+    --shard_embeddings true --shard_exchange pallas on the CLI_ROWS
+    memmap (dense apply): run A trains 48 steps with 2 evals and rolling
+    saves every 20 its, run B resumes from A's mid-run slot and must print
+    A's losses where both print; then A's best checkpoint served on the
+    mesh at f32 and int8 (score_gate, accuracy within QUANT_GAP). K3
+    launches twice a train step (q and r), K5 4 times a train step and
+    twice an f32 eval batch (the quantized lookup's owners dequantize
+    behind an all-gather and a reduce-scatter: no K5)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_qr_",
+                            dir=os.path.join(here, "build"))
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
+        plat = ["--force_platform", "cpu"] if device == "cpu" else []
+        mesh = CLI_FLAGS + plat + [
+            "--data_path", root, "--compress_method", "qr", "--mesh_shape",
+            "1", "--shard_embeddings", "true", "--shard_exchange", "pallas",
+            "--print_freq", "8", "--test_freq", "24", "--save_freq", "20"]
+        model = os.path.join(root, "m")
+        out, total = {}, {name: 0 for name in kernels}
+
+        def cli(name, argv, steps, evals):
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            res, lines = run_cli(main_fn, argv, f"cli_sharded_qr_{name}.txt")
+            got = {n: k.launches for n, k in kernels.items()}
+            want = {**{n: 0 for n in kernels}, "rowsum": 2 * steps,
+                    "a2a": 4 * steps + 2 * 8 * evals}
+            if device == "cuda" and got != want:
+                raise AssertionError(f"cli_sharded_qr {name}: launches "
+                                     f"{got}, expected {want}")
+            for n, v in got.items():
+                total[n] += v
+            return res, lines, {"wall_s": time.perf_counter() - t0,
+                                "launches": got}
+
+        _, lines_a, rec_a = cli("a", mesh + ["--save_model", model,
+                                             "--tensor_board_filename", ""],
+                                48, 2)
+        losses_a = _cli_losses(lines_a)
+        evals = [ln for ln in lines_a if ln.startswith(" accuracy")]
+        if max(losses_a) != 48 or len(evals) != 2 or not all(
+                np.isfinite(float(v)) for v in losses_a.values()):
+            raise AssertionError(f"cli_sharded_qr run A: its "
+                                 f"{sorted(losses_a)}, {evals}")
+        latest = os.path.realpath(model + ".latest")
+        other = model + (".rb" if latest.endswith(".ra") else ".ra")
+        with open(other + ".meta.json") as f:
+            start = json.load(f)["iter"]
+        _, lines_b, rec_b = cli("b", mesh + [
+            "--load_model", other, "--save_model",
+            os.path.join(root, "b"), "--tensor_board_filename", ""],
+            48 - start, 1 + (start < 24))
+        losses_b = _cli_losses(lines_b)
+        common = sorted(set(losses_a) & set(losses_b))
+        if not common or common[-1] != 48 or any(
+                losses_a[i] != losses_b[i] for i in common):
+            raise AssertionError(f"cli_sharded_qr: resumed from it {start}: "
+                                 f"losses {losses_b} against {losses_a}")
+        out["run_a"] = {**rec_a, "eval_lines": evals,
+                        "loss_first": losses_a[min(losses_a)],
+                        "loss_last": losses_a[48]}
+        out["run_b"] = {**rec_b, "resumed_from_it": start,
+                        "equal_losses_at": common}
+        serve, scores = {}, {}
+        for bits in (0, 8):
+            for k in kernels.values():
+                k.launches = 0
+            res, scores[bits] = serve_cli(main_fn, mesh + [
+                "--inference_only", "true", "--load_model", model,
+                "--quantize_emb_bits", str(bits),
+                "--tensor_board_filename", ""],
+                f"cli_sharded_qr_serve_int{bits}.txt")
+            want = 0 if bits else 2 * 8
+            if device == "cuda" and kernels["a2a"].launches != want:
+                raise AssertionError(f"cli_sharded_qr serve int{bits}: K5 "
+                                     f"launched {kernels['a2a'].launches}")
+            total["a2a"] += kernels["a2a"].launches
+            serve[f"int{bits}" if bits else "f32"] = res["metrics"]
+        gap = abs(serve["int8"]["accuracy"] - serve["f32"]["accuracy"])
+        if not gap < QUANT_GAP:
+            raise AssertionError(f"cli_sharded_qr serving: {serve}")
+        serve["int8_vs_f32"] = score_gate("cli_sharded_qr int8 serving", 8,
+                                          scores[0], scores[8])
+        out["serve"] = serve
+        out["launches"] = total
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---- the graph recommenders (main_graphrec_torch.py), at the reference's
 # widths on synthetic graphs of the reference datasets' sizes
 LIGHTGCN_FLAGS = ["--model", "lightgcn", "--dim", "64", "--layers", "3",
@@ -2377,7 +2830,8 @@ def _pairs(card, cpu):
 
 
 def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
-                  batches, batches_cpu, pretrain=None, pre_steps=0):
+                  batches, batches_cpu, pretrain=None, pre_steps=0,
+                  meshes=(None, None)):
     """GATE_STEPS steps of `cfg` on the card (build_all's default step)
     and on the CPU, each step from one state (the card's, copied to the
     CPU before it); AE pretraining first when `pretrain`, `pre_steps`
@@ -2396,11 +2850,14 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
       pretraining within AE_TOL.
     AdaEmbed's step 1 rebuilds on both (nothing is admitted, so every
     sample churns); the samples themselves differ (CPU and CUDA
-    generators)."""
+    generators). `meshes`: (the card's, the CPU's) meshes of one rank
+    to build both sides on."""
     g_model, g_embed, g_state, g_step, _ = build_all(cfg, data,
-                                                     device="cuda")
+                                                     device="cuda",
+                                                     mesh=meshes[0])
     c_model, c_embed, _, c_step, _ = build_all(cfg, data, device="cpu",
-                                               capture=False)
+                                               capture=False,
+                                               mesh=meshes[1])
     lr = cfg.learning_rate
     rec = {"steps": GATE_STEPS, "graphed": bool(g_step.graphed),
            "max_abs_diff": {}, "max_share_of_bound": {}}
@@ -3191,6 +3648,26 @@ def main() -> int:
     by_path["cli_sharded"] = clis["launches"]
     emit({"phase": "cli_sharded", "wall_s": time.perf_counter() - t0,
           **clis})
+
+    # ---- QR, Off and AdaEmbed on the mesh; the unique-compact exchange
+    t0 = time.perf_counter()
+    shm = phase_sharded_methods(build_all, from_reference, to_numpy, _bce,
+                                Config, data, batches, batches_cpu,
+                                mesh_gpu, mesh_cpu, fence, KERNELS)
+    by_path["sharded_methods"] = {
+        name: sum(r["modes"][m]["launches"][name] for r in shm.values()
+                  for m in SHARDED_MODES) for name in KERNELS}
+    emit({"phase": "sharded_methods", "wall_s": time.perf_counter() - t0,
+          **shm})
+    t0 = time.perf_counter()
+    emit({"phase": "sharded_methods_unique_compact", **phase_unique_compact(
+        build_all, from_reference, to_numpy, Config, data, batches, mesh_gpu,
+        fence), "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    clq = phase_cli_sharded_qr(main_torch.main, make_criteo_arrays, KERNELS)
+    by_path["sharded_methods_cli_qr"] = clq["launches"]
+    emit({"phase": "sharded_methods_cli_qr",
+          "wall_s": time.perf_counter() - t0, **clq})
     mesh_gpu.close()
     mesh_cpu.close()
     dist.destroy_process_group()

@@ -7,9 +7,10 @@ port runs one gloo process per rank (tests/torch_dist_worker.py), each on
 its row shard and batch slice, and the parent joins the ranks' outputs.
 
 Tolerances: routing, capacities, the sketch layout and every fetch are
-EXACT (integer logic and data movement). Sparse applies sum the
-duplicate rows of different ranks in another order: within 1e-5
-(|grads| ~ 1, lr 0.1, a few duplicates per row).
+EXACT (integer logic and data movement), and so is rows-Adam's step
+count. Sparse applies sum the duplicate rows of different ranks in
+another order: within 1e-5 (|grads| ~ 1, lr 0.1, a few duplicates per
+row).
 """
 
 import numpy as np
@@ -213,7 +214,8 @@ def _exchange_case(optimizer, skew, seed):
     return table, idx, grad, 0.1, optimizer, 1.5
 
 
-CASES = [("sgd", False), ("adagrad", False), ("sgd", True)]
+CASES = [("sgd", False), ("adagrad", False), ("adam", False),
+         ("sgd", True)]
 
 
 @pytest.fixture(scope="module")
@@ -276,6 +278,11 @@ def test_applies_match(exchange_runs, case):
         np.testing.assert_allclose(table, np.asarray(want[ref][0]),
                                    rtol=1e-5, atol=1e-5, err_msg=key)
         for slot, ref_slot in want[ref][1].items():
+            if np.ndim(ref_slot) == 0:
+                # rows-Adam's step count: replicated, on every rank
+                for _, s in port[key]:
+                    assert s[slot] == ref_slot, (key, slot)
+                continue
             got = np.concatenate([s[slot] for _, s in port[key]])
             np.testing.assert_allclose(got, np.asarray(ref_slot),
                                        rtol=1e-5, atol=1e-5, err_msg=slot)

@@ -252,8 +252,8 @@ def test_collectives_name_the_mesh_group(path):
 
 
 def _roadmap_items():
-    """The item numbers ROADMAP.md section 1 lists ("**Item 6.5:",
-    "**Items 6.2, 6.3:")."""
+    """The item numbers ROADMAP.md section 1 lists ("**Item 6.3:",
+    "**Items 6.1, 6.7:")."""
     text = (REPO / "ROADMAP.md").read_text()
     sec = text[text.index("### 1."):text.index("### 2.")]
     heads = re.findall(r"\*\*Items? ([\d., and]+?):", sec)
@@ -265,7 +265,7 @@ def test_port_names_only_roadmap_items_that_exist():
     ROADMAP.md section 1 still lists, and no message names a queue by a
     letter ("queue Q8") any more."""
     listed = _roadmap_items()
-    assert {"6.5", "6.2", "6.3", "6.1"} <= listed
+    assert {"6.3", "6.1"} <= listed
     paths = sorted(PKG.rglob("*.py")) + [REPO / p for p in JAX_FREE
                                          if not p.startswith("tests/")]
     named = {}
@@ -276,9 +276,7 @@ def test_port_names_only_roadmap_items_that_exist():
             named.setdefault(n, path)
     from cafe_tpu_torch.config import Config
     from cafe_tpu_torch.train.loop import check_supported
-    for kw in (dict(mesh_inner=2), dict(shard_unique_frac=0.25),
-               dict(shard_exchange="auto"),
-               dict(compress_method="qr")):
+    for kw in (dict(mesh_inner=2), dict(shard_exchange="auto")):
         with pytest.raises(NotImplementedError) as e:
             check_supported(Config(mesh_shape=2, shard_embeddings=True,
                                    **kw))

@@ -52,8 +52,8 @@ STEPS = 3
 
 def _jax_run(kw, n, mode, steps):
     """The JAX package's sharded step at mesh n: (bridged init state,
-    per-step metrics, final state, first batch's routing and scores,
-    the batches)."""
+    per-step metrics, final state, first batch's routing, aux tensors and
+    scores, the batches)."""
     cfg = JConfig(**dict(kw, shard_exchange=mode))
     train = jdata(cfg, "train")
     mesh = jmake_mesh(n)
@@ -75,6 +75,9 @@ def _jax_run(kw, n, mode, steps):
                         if isinstance(v, tuple)},
             "hot": {k: np.asarray(v[-1]) for k, v in aux.items()
                     if isinstance(v, tuple)},
+            "aux": {k: [np.asarray(x) for x in (
+                v if isinstance(v, tuple) else (v,))]
+                for k, v in aux.items()},
             "scores": np.asarray(eval_step(st, batches[0][0],
                                            batches[0][1])),
             "parts": [(type(p).__name__, p.mesh is not None)
@@ -271,8 +274,7 @@ def test_cafe_plus_steps_match(tmp_path_factory, n, pairs):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(mesh_inner=2), dict(shard_unique_frac=0.25),
-    dict(shard_exchange="auto")])
+    dict(mesh_inner=2), dict(shard_exchange="auto")])
 def test_unported_mesh_flags_raise(flags):
     cfg = TConfig(**dict(SHARD, mesh_shape=2, **flags))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):

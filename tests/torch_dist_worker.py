@@ -13,6 +13,7 @@ refuses two ranks on one card), for K5's CUDA-IPC check on one card.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import traceback
@@ -150,12 +151,13 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
     """For each exchange mode: the layer built on the mesh, this rank's
     state cut from the bridged global `ref_state` (None: build_all's own
     state), the batches' slices stepped; returns per mode the metrics of
-    every step, the global state after them (rank 0) and the routing and
-    eval scores of the first batch."""
+    every step, the global state after them (rank 0), the routing, every
+    aux tensor and the eval scores of the first batch, and the branches
+    the unique-compact legs took."""
     from cafe_tpu_torch.bridge import from_reference_sharded
     from cafe_tpu_torch.config import Config
     from cafe_tpu_torch.parallel import unshard_state
-    from cafe_tpu_torch.parallel.exchange import all_gather
+    from cafe_tpu_torch.parallel import exchange as ex
     from cafe_tpu_torch.train import build_all, get_dataset
     out = {}
     for mode in modes:
@@ -165,24 +167,99 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
         init_embed = _to_numpy(unshard_state(own, mesh, embed).embed)
         state = own if ref_state is None else \
             from_reference_sharded(ref_state, mesh, embed)
+        mesh.unique_branches.clear()
         metrics = []
         for dense, sparse, label, valid in batches:
             state, m = step(state, *_on(mesh, dense, sparse, label), valid)
             metrics.append({k: float(v) for k, v in m.items()})
+        branches = dict(mesh.unique_branches)
         d, s, _ = _on(mesh, *batches[0][:3])
         _, aux = embed.gather(state.embed, s)
-        routing = {k: all_gather(v[1], mesh).cpu().numpy()
-                   for k, v in aux.items() if isinstance(v, tuple)}
-        hot = {k: all_gather(v[-1], mesh).cpu().numpy()
-               for k, v in aux.items() if isinstance(v, tuple)}
-        scores = all_gather(eval_step(state, d, s), mesh).cpu().numpy()
+
+        def joined(x):
+            return ex.all_gather(x, mesh).cpu().numpy()
+
+        routing = {k: joined(v[1]) for k, v in aux.items()
+                   if isinstance(v, tuple)}
+        hot = {k: joined(v[-1]) for k, v in aux.items()
+               if isinstance(v, tuple)}
+        scores = joined(eval_step(state, d, s))
         full = _to_numpy(unshard_state(state, mesh, embed))
         out[mode] = {"metrics": metrics, "state": full if mesh.rank == 0
                      else None, "init_embed": init_embed,
                      "routing": routing, "hot": hot,
-                     "scores": scores,
+                     "aux": {k: [joined(x) for x in (
+                         v if isinstance(v, tuple) else (v,))]
+                         for k, v in aux.items()},
+                     "scores": scores, "branches": branches,
                      "parts": [(type(p).__name__, p.mesh is not None)
                                for p in embed.parts]}
+    return out
+
+
+def train_runs(mesh, runs):
+    """train_steps for each (cfg_kw, ref_state, batches, modes) of
+    `runs`, in one set of ranks."""
+    return [train_steps(mesh, *run) for run in runs]
+
+
+@contextlib.contextmanager
+def recording_collectives(sizes):
+    """Records (name, bytes) of every all-gather, reduce-scatter and
+    all-reduce the exchange makes (the larger of the call's tensors)
+    into the list `sizes` while the context is open."""
+    from cafe_tpu_torch.parallel import exchange as ex
+
+    def recording(fn, name):
+        def wrapped(*args, **kwargs):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            sizes.append((name, max(t.numel() * t.element_size()
+                                    for t in ts)))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    prims = {"_all_gather_single": ex._all_gather_single,
+             "_reduce_scatter_single": ex._reduce_scatter_single}
+    all_reduce = dist.all_reduce
+    for name, fn in prims.items():
+        setattr(ex, name, recording(fn, name))
+    dist.all_reduce = recording(all_reduce, "all_reduce")
+    try:
+        yield sizes
+    finally:
+        for name, fn in prims.items():
+            setattr(ex, name, fn)
+        dist.all_reduce = all_reduce
+
+
+def unique_exchanges(mesh, cases):
+    """For each (table, idx, grad, lr, optimizer, frac): the explicit
+    fetch and apply at unique fraction `frac` and at 0 on this rank's
+    shard and batch slice, with the branches the compact legs took and
+    the (name, bytes) of every collective of each call."""
+    from cafe_tpu_torch.ops.sparse import init_slots
+    from cafe_tpu_torch.parallel import exchange as ex
+    out = []
+    for table, idx, grad, lr, optimizer, frac in cases:
+        tbl = torch.from_numpy(table[rank_slice(mesh, table.shape[0])])
+        i_l = torch.from_numpy(idx[rank_slice(mesh, idx.shape[0])])
+        g_l = torch.from_numpy(grad[rank_slice(mesh, grad.shape[0])])
+        res = {}
+        for tag, f in (("compact", frac), ("full", 0.0)):
+            mesh.unique_branches.clear()
+            sizes = []
+            with recording_collectives(sizes):
+                fetched = ex.sharded_fetch(mesh, tbl, i_l, f)
+            t = tbl.clone()
+            apply_sizes = []
+            with recording_collectives(apply_sizes):
+                t, s = ex.sharded_apply(mesh, t, init_slots(t, optimizer),
+                                        i_l, g_l, lr, optimizer, f)
+            res[tag] = {"fetch": fetched.numpy(), "table": t.numpy(),
+                        "slots": {k: v.numpy() for k, v in s.items()},
+                        "branches": dict(mesh.unique_branches),
+                        "fetch_sizes": sizes, "apply_sizes": apply_sizes}
+        out.append(res)
     return out
 
 
@@ -281,32 +358,13 @@ def quantized_serving(mesh, cfg_kw, batches, eval_batch, bits_list):
         state, _ = step(state, *_on(mesh, dense, sparse, label), valid)
     d, s = _on(mesh, *eval_batch)
     sizes = []
-
-    def recording(fn, name):
-        def wrapped(*args, **kwargs):
-            ts = [a for a in args if isinstance(a, torch.Tensor)]
-            sizes.append((name, max(t.numel() * t.element_size()
-                                    for t in ts)))
-            return fn(*args, **kwargs)
-        return wrapped
-
-    prims = {"_all_gather_single": ex._all_gather_single,
-             "_reduce_scatter_single": ex._reduce_scatter_single}
-    all_reduce = dist.all_reduce
     out = {"float": ex.all_gather(eval_step(state, d, s), mesh).numpy(),
            "sizes": {}, "graphed": {}}
     for bits in bits_list:
         q = build_quantized_eval_step(model, embed, state, bits)
         sizes.clear()
-        for name, fn in prims.items():
-            setattr(ex, name, recording(fn, name))
-        dist.all_reduce = recording(all_reduce, "all_reduce")
-        try:
+        with recording_collectives(sizes):
             p = q(state, d, s)
-        finally:
-            for name, fn in prims.items():
-                setattr(ex, name, fn)
-            dist.all_reduce = all_reduce
         out["sizes"][bits] = list(sizes)
         out["graphed"][bits] = q.graphed
         out[bits] = ex.all_gather(p, mesh).numpy()
@@ -319,6 +377,12 @@ def quantized_serving(mesh, cfg_kw, batches, eval_batch, bits_list):
     out["parts"] = [(type(p).__name__, p.mesh is not None)
                     for p in embed.parts]
     return out
+
+
+def serve_runs(mesh, runs):
+    """quantized_serving for each (cfg_kw, batches, eval_batch, bits_list)
+    of `runs`, in one set of ranks."""
+    return [quantized_serving(mesh, *run) for run in runs]
 
 
 # ------------------------------------------------- mesh checkpoints (6.4)
@@ -482,6 +546,12 @@ def mesh_steps_saved(mesh, cfg_kw, ref_state, batches, path):
         metrics.append({k: float(v) for k, v in m.items()})
     save_checkpoint(path, state, {"iter": len(batches)}, mesh, embed)
     return metrics
+
+
+def saved_runs(mesh, runs):
+    """mesh_steps_saved for each (cfg_kw, ref_state, batches, path) of
+    `runs`, in one set of ranks."""
+    return [mesh_steps_saved(mesh, *run) for run in runs]
 
 
 def load_error(mesh, argv, path):
