@@ -25,6 +25,9 @@ rank r's state from the global arrays, and `to_reference_sharded`
 gathers the ranks' shards back into the JAX layout. Both packages store
 a sharded AdaEmbed's dic and importance cyclic-permuted in the global
 state, so they cross as they are; QR's remainder table crosses whole.
+The same two functions carry a JAX state sharded under
+--shard_exchange auto (the single-device layout; the port cuts only
+its row tables) and one of a two-level mesh (the flat mesh's layout).
 
 The graph recommenders' states (models/graphrec/) cross whole through
 `to_torch` and `to_reference`: LightGCN.init's part dict and PinSAGE's

@@ -173,7 +173,7 @@ class AdaPart(Part):
             rows = rows[rows_of(self.mesh, rows.shape[0])]
             return raw.reshape(*gid.shape, -1), (gid, rows.reshape(gid.shape))
         rows = self._dic_lookup(state, gid)
-        return state["weight"][rows.long()], (gid, rows)
+        return self._lookup(state, "weight", rows), (gid, rows)
 
     def _dic_lookup(self, state: Dict, gid: torch.Tensor) -> torch.Tensor:
         """dic[gid] through the storage layout (cyclic-permuted in the
@@ -193,9 +193,9 @@ class AdaPart(Part):
                 "AdaPart: training in the sharded layout requires the mesh "
                 "(enable_mesh); enable_sharded_layout serves only")
         b, f, d = g_raw.shape
-        # weight update; slot-0 (not admitted) lanes go past the last row
-        # and are dropped
-        widx = torch.where(rows > 0, rows, state["weight"].shape[0])
+        # weight update; slot-0 (not admitted) lanes go past the pool's
+        # last row (under auto, past the last shard's) and are dropped
+        widx = torch.where(rows > 0, rows, round_up(self.hotn + 1))
         state = self._table_update(state, "weight", widx.reshape(-1),
                                    g_raw.reshape(b * f, d), lr)
         # importance, normalised to mean 1 per field
@@ -209,6 +209,9 @@ class AdaPart(Part):
         state = {**state, "grad_norm": grad_norm,
                  "step": state["step"] + 1}
         if step == 1 or step % CHECK_EVERY == 0:
+            # the importance sums in float atomics on the card: under auto
+            # every rank's check reads rank 0's
+            self._agree(grad_norm)
             state, _ = self._check(state, self.sample_ids(state, step))
         return state, {"ada_admitted": (state["dic"] > 0).sum()}
 
@@ -226,7 +229,8 @@ class AdaPart(Part):
                 self.mesh)
             return self._dequantize_owned(qt["weight"], rows).reshape(
                 *gid.shape, -1)
-        return self._dequantize(qt["weight"], self._dic_lookup(state, gid))
+        return self._dequantize(qt["weight"], self._dic_lookup(state, gid),
+                                key="weight")
 
     def _draw(self, seeds, high: int, size: int) -> torch.Tensor:
         seed = np.random.SeedSequence(seeds).generate_state(1, np.uint64)[0]
@@ -400,7 +404,7 @@ class AdaPart(Part):
         evict = old_hot & ~new_hot
         keep = new_hot & old_hot
         weight = state["weight"]
-        wpad = weight.shape[0]
+        wpad = round_up(self.hotn + 1)   # the pool (a shard under auto)
         used = torch.zeros(wpad, dtype=torch.bool, device=cnt.device)
         used[torch.where(keep, dic, 0).long()] = True
         slot = torch.arange(wpad, device=cnt.device)
@@ -409,8 +413,8 @@ class AdaPart(Part):
         k = min(len(admit_pos), len(free))
         dic[admit_pos[:k]] = free[:k].to(torch.int32)
         dic.masked_fill_(evict, 0)
-        weight.masked_fill_(~used[:, None], 0.0)
-        for sfx in SLOT_SUFFIXES[self.optimizer].values():
+        for sfx in [""] + list(SLOT_SUFFIXES[self.optimizer].values()):
             if state["weight" + sfx].ndim == 2:
-                state["weight" + sfx].masked_fill_(~used[:, None], 0.0)
+                state["weight" + sfx].masked_fill_(
+                    ~self._owned_rows("weight" + sfx, used)[:, None], 0.0)
         return state

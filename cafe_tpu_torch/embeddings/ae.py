@@ -26,7 +26,10 @@ PRETRAIN_FRACTION = 1e-5
 
 class AEGroupPart(Part):
     """Fields sharing one reduced dim; embeddings frozen after
-    pretraining."""
+    pretraining. Whole on every rank under --shard_exchange auto too: the
+    pretraining differentiates through the table itself."""
+
+    auto_shardable = False
 
     def __init__(self, field_idx: List[int], counts: List[int],
                  low_dim: int, base_dim: int, optimizer: str = "sgd"):

@@ -29,6 +29,16 @@ holds this rank's row shard and runs the explicit exchange
 (parallel/exchange.py) on this rank's batch slice; a part that does not
 stays replicated and applies the global batch's update on every rank,
 as XLA's partitioner does for the JAX package.
+
+Under --shard_exchange auto every part keeps its single-device semantics
+on the global batch, as the JAX package's partitioned step does: its big
+row tables (`auto_keys`) are row-sharded, the lookup of this rank's ids
+goes through the explicit fetch, the update runs the single-device
+apply_grads on every rank over the all-gathered batch, and each table
+write lands in its owner's shard only. Every other leaf (sketches, hot
+dicts, AdaEmbed's dic and importance, small tables) is whole on every
+rank and updated identically there; where a float sum in atomics could
+round apart by rank, rank 0's values are broadcast (`Part._agree`).
 """
 
 from __future__ import annotations
@@ -37,16 +47,16 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.quantized import dequantize_rows, quantize_rowwise
 from ..ops.sparse import SLOT_SUFFIXES, apply_rows, init_slots
-from ..parallel.exchange import (_owner_rows, all_gather, owner_lookup_1d,
-                                 owner_rows_with, psum_scatter,
+from ..parallel.exchange import (_local_idx, _owner_rows, all_gather,
+                                 broadcast, owner_lookup_1d,
+                                 owner_rows_with, psum, psum_scatter,
                                  sharded_apply, sharded_apply_a2a,
                                  sharded_fetch, sharded_fetch_a2a)
-from ..parallel.sharding import rows_of
+from ..parallel.sharding import auto_leaf_is_sharded, rows_of
 from ..utils.timing import tensors_of
 
 # All tables are padded to a multiple of this row count (the JAX package
@@ -59,6 +69,8 @@ _MIN_SHARD_ROWS = 1024
 
 # --shard_exchange -> the all-to-all impl of the a2a legs
 EXCHANGE_IMPLS = {"a2a": "lax", "pallas": "pallas"}
+# every --shard_exchange mode (EmbeddingLayer.set_mesh)
+SHARD_EXCHANGES = ("explicit", "auto") + tuple(EXCHANGE_IMPLS)
 
 
 def round_up(n: int, align: int = ROW_ALIGN) -> int:
@@ -100,6 +112,12 @@ class Part:
     # why this part's step cannot replay a CUDA graph (the code that reads
     # a value back to the host), or None (train/step.capture_blockers)
     capture_blocker = None
+    # --shard_exchange auto (module docstring): the mesh its big tables
+    # are row-sharded over, and their keys (set by EmbeddingLayer.init
+    # from the global shapes); a part that cannot take it stays whole
+    auto_mesh = None
+    auto_keys = frozenset()
+    auto_shardable = True
 
     def enable_mesh(self, mesh) -> bool:
         """Opt this part into the explicit exchange. Default: stay
@@ -156,26 +174,31 @@ class Part:
             bits = 8   # int4 packs code pairs: an odd width serves at 8
         return quantize_rowwise(table, bits)
 
-    def _dequantize(self, qt, rows: torch.Tensor,
-                    replicated: bool = False) -> torch.Tensor:
-        """Dequantized rows [b, F, D] at row ids [b, F]: on a mesh this
-        rank's lanes through the explicit exchange (all-gather the row ids,
-        each owner dequantizes the rows of its shard of the codes, a
-        reduce-scatter returns the f32 rows), so only O(batch) bytes move
-        and the codes never leave their owner. `replicated`: the codes
-        are whole on every rank (QR's remainder table)."""
+    def _dequantize(self, qt, rows: torch.Tensor, replicated: bool = False,
+                    key: str = "table") -> torch.Tensor:
+        """Dequantized rows [b, F, D] at row ids [b, F] of table `key`: on
+        a mesh this rank's lanes through the explicit exchange (all-gather
+        the row ids, each owner dequantizes the rows of its shard of the
+        codes, a reduce-scatter returns the f32 rows), so only O(batch)
+        bytes move and the codes never leave their owner. `replicated`:
+        the codes are whole on every rank (QR's remainder table)."""
         b, f = rows.shape
-        if self.mesh is None or replicated:
+        mesh = None if replicated else self.mesh
+        if mesh is None and key in self.auto_keys:
+            mesh = self.auto_mesh
+        if mesh is None:
             return dequantize_rows(qt, rows.reshape(-1)).reshape(b, f, -1)
         return self._dequantize_owned(
-            qt, all_gather(rows.reshape(-1), self.mesh)).reshape(b, f, -1)
+            qt, all_gather(rows.reshape(-1), mesh), mesh).reshape(b, f, -1)
 
-    def _dequantize_owned(self, qt, all_rows: torch.Tensor) -> torch.Tensor:
+    def _dequantize_owned(self, qt, all_rows: torch.Tensor,
+                          mesh=None) -> torch.Tensor:
         """This rank's [m, D] lanes of the mesh's row ids `all_rows`
         [n*m]: the owners dequantize, a reduce-scatter returns them."""
+        mesh = mesh or self.mesh
         vals = owner_rows_with(lambda i: dequantize_rows(qt, i),
-                               qt.codes.shape[0], all_rows, self.mesh)
-        return psum_scatter(vals, self.mesh)
+                               qt.codes.shape[0], all_rows, mesh)
+        return psum_scatter(vals, mesh)
 
     def _const(self, name: str) -> torch.Tensor:
         """Per-field int32 constant attribute `name` as a [1, F] tensor on
@@ -200,10 +223,69 @@ class Part:
 
     def _table_update(self, state: Dict, key: str, idx: torch.Tensor,
                       grad: torch.Tensor, lr: float) -> Dict:
+        """The sparse apply of table `key` at rows idx by grad. Under auto
+        the (global) rows of a sharded table land in their owner's shard
+        only; a whole table is updated on every rank and agreed."""
+        sharded = key in self.auto_keys
+        if sharded:
+            idx = _local_idx(state[key].shape[0], idx, self.auto_mesh)
         table, slots = apply_rows(state[key], self._slots_of(state, key),
                                   idx, grad, lr, self.optimizer,
                                   self.apply_impl)
+        if not sharded:
+            self._agree(table, *slots.values())
         return self._put_slots({**state, key: table}, key, slots)
+
+    # --- --shard_exchange auto ----------------------------------------
+    def _agree(self, *tensors) -> None:
+        """Under auto on several ranks, every rank takes rank 0's values
+        of these whole-on-every-rank tensors (in place): a float sum in
+        atomics may round apart by rank, and replicated state must not."""
+        mesh = self.auto_mesh
+        if mesh is not None and mesh.size > 1:
+            for t in tensors:
+                broadcast(t, mesh)
+
+    def _lookup(self, state: Dict, key: str, idx: torch.Tensor
+                ) -> torch.Tensor:
+        """Rows of table `key` at this rank's row ids idx [b, F]: a plain
+        gather, or under auto for a sharded table the explicit fetch."""
+        if key in self.auto_keys:
+            return sharded_fetch(self.auto_mesh, state[key], idx)
+        return state[key][idx.long()]
+
+    def _read_rows(self, state: Dict, key: str, idx: torch.Tensor
+                   ) -> torch.Tensor:
+        """Rows of table `key` at row ids idx that are the same on every
+        rank (any shape): under auto for a sharded table the owners answer
+        and a sum publishes them (one owner a row, so exactly)."""
+        if key not in self.auto_keys:
+            return state[key][idx.long()]
+        mesh = self.auto_mesh
+        rows = _owner_rows(state[key], idx.reshape(-1), mesh)
+        return psum(rows, mesh).reshape(*idx.shape, -1)
+
+    def _write_owned(self, table: torch.Tensor, idx: torch.Tensor,
+                     vals: torch.Tensor, mask: torch.Tensor) -> None:
+        """Under auto, table[idx[i]] = vals[i] where mask[i] for a sharded
+        `table`, in place, each owner writing its rows; the masked rows
+        must be distinct and the same on every rank. Two accumulating
+        puts, -table then +vals (x - x and 0 + v are exact), where lanes
+        owned elsewhere add zeros, so the mask is never read back."""
+        loc = _local_idx(table.shape[0], idx, self.auto_mesh).long()
+        keep = (mask & (loc < table.shape[0]))[:, None]
+        loc = loc.clamp_max(table.shape[0] - 1)
+        table.index_put_((loc,), torch.where(keep, -table[loc], 0.0),
+                         accumulate=True)
+        table.index_put_((loc,), torch.where(keep, vals, 0.0),
+                         accumulate=True)
+
+    def _owned_rows(self, key: str, mask: torch.Tensor) -> torch.Tensor:
+        """A per-row mask of table `key` cut to this rank's shard under
+        auto (whole otherwise)."""
+        if key in self.auto_keys:
+            return mask[rows_of(self.auto_mesh, mask.shape[0])]
+        return mask
 
     def _update_rows(self, state: Dict, key: str, idx: torch.Tensor,
                      grad: torch.Tensor, lr: float) -> Dict:
@@ -233,7 +315,7 @@ class Part:
         if self.mesh.size > 1:
             for k in [key] + [key + sfx for sfx in
                               SLOT_SUFFIXES[self.optimizer].values()]:
-                dist.broadcast(state[k], src=0, group=self.mesh.group)
+                broadcast(state[k], self.mesh)
         return state
 
     def _maybe_acc(self, state: Dict, key: str) -> Dict:
@@ -291,7 +373,7 @@ class HashedTablePart(Part):
 
     def gather(self, state, ids):
         flat = (ids % self._const("real_ns")) + self._const("np_offsets")
-        rows = state["table"][flat.long()] if self.mesh is None \
+        rows = self._lookup(state, "table", flat) if self.mesh is None \
             else self._sharded_fetch(state["table"], flat)
         if not self.weighted:
             return rows, flat
@@ -377,7 +459,7 @@ class QRPart(Part):
     def gather(self, state, ids):
         qi = ids // self.collisions + self._const("q_off")
         ri = ids % self.collisions + self._const("r_off")
-        qv = state["q"][qi.long()] if self.mesh is None \
+        qv = self._lookup(state, "q", qi) if self.mesh is None \
             else self._sharded_fetch(state["q"], qi)
         rv = state["r"][ri.long()]
         if self.operation == "add":
@@ -409,7 +491,7 @@ class QRPart(Part):
 
     def gather_quantized(self, state, qt, ids):
         qv = self._dequantize(qt["q"], ids // self.collisions
-                              + self._const("q_off"))
+                              + self._const("q_off"), key="q")
         rv = self._dequantize(qt["r"], ids % self.collisions
                               + self._const("r_off"), replicated=True)
         if self.operation == "add":
@@ -449,7 +531,7 @@ class MDEGroupPart(Part):
 
     def gather(self, state, ids):
         flat = ids + self._const("np_offsets")
-        return state["table"][flat.long()], flat
+        return self._lookup(state, "table", flat), flat
 
     def transform(self, dense_params, raw):
         if self.low_dim == self.dim:
@@ -553,7 +635,7 @@ class OffPart(Part):
                 hot_all[me].reshape(ids.shape))
         gid = ids + self._const("dict_off")
         row, use_hot = self._route(ids, state["hot_dict"][gid.long()])
-        return state["table"][row.long()], (row, use_hot)
+        return self._lookup(state, "table", row), (row, use_hot)
 
     def _route_sharded(self, state, ids):
         """The global batch's (row, use_hot), flat [n*b*F], from this
@@ -623,31 +705,50 @@ class EmbeddingLayer:
                  exchange_mode: str = "explicit") -> List[str]:
         """Turn on the explicit exchange on every part that supports it
         (big hashed tables, QR's quotient table, Off, AdaEmbed, CAFE parts
-        with shard-local sketches). Must run BEFORE init(); returns the
-        names of the parts that turned it on (the rest stay replicated).
-        unique_frac > 0 turns on the unique-compact buffers of the
-        explicit exchange (the a2a and pallas modes ignore it, as in the
-        JAX package)."""
-        if exchange_mode not in ("explicit",) + tuple(EXCHANGE_IMPLS):
-            raise NotImplementedError(
-                f"shard_exchange {exchange_mode!r} is not ported yet "
-                f"(ROADMAP queue 1 item 6.3); use explicit, a2a or "
-                f"pallas")
+        with shard-local sketches), or under `exchange_mode` 'auto' the
+        auto layout on every part (module docstring). Must run BEFORE
+        init(); returns the names of the parts that turned it on (the rest
+        stay replicated). unique_frac > 0 turns on the unique-compact
+        buffers of the explicit exchange (the a2a and pallas modes and
+        auto ignore it, as in the JAX package). On a two-level mesh the
+        a2a and pallas modes take the explicit exchange's hierarchical
+        legs (parallel/exchange.py)."""
+        if exchange_mode not in SHARD_EXCHANGES:
+            raise ValueError(f"unknown --shard_exchange {exchange_mode!r}: "
+                             f"one of {', '.join(SHARD_EXCHANGES)}")
         self.mesh = mesh
         active = []
         for i, p in enumerate(self.parts):
-            if p.enable_mesh(mesh):
+            if exchange_mode == "auto":
+                if p.auto_shardable:
+                    p.auto_mesh = mesh
+                    active.append(f"part{i}:{type(p).__name__}")
+            elif p.enable_mesh(mesh):
                 p.unique_frac = float(unique_frac)
                 p.exchange_mode = exchange_mode
                 active.append(f"part{i}:{type(p).__name__}")
         return active
 
     def init(self, seed: int) -> Tuple[Dict, Dict]:
+        """The GLOBAL state (and the differentiable params). Under auto
+        each part learns which of its tables shard (`auto_keys`) from
+        their global shapes here."""
         rng = np.random.default_rng(seed)
         state = {f"part{i}": p.init(rng) for i, p in enumerate(self.parts)}
         dense = {f"part{i}": p.init_dense(rng)
                  for i, p in enumerate(self.parts)}
+        for i, p in enumerate(self.parts):
+            if p.auto_mesh is not None:
+                p.auto_keys = frozenset(
+                    k for k, v in state[f"part{i}"].items()
+                    if isinstance(v, torch.Tensor) and auto_leaf_is_sharded(
+                        k, tuple(v.shape), p.auto_mesh.size))
         return state, dense
+
+    def auto_layout(self) -> Dict[str, List[str]]:
+        """The sharded tables of each part under auto, by part."""
+        return {f"part{i}:{type(p).__name__}": sorted(p.auto_keys)
+                for i, p in enumerate(self.parts) if p.auto_keys}
 
     def gather(self, state: Dict, ids: torch.Tensor):
         raws, auxs = {}, {}
@@ -687,12 +788,13 @@ class EmbeddingLayer:
             if replicated:
                 args = _gather_tree(args, self.mesh)
             s, st = p.apply_grads(state[f"part{i}"], *args, lr)
-            if replicated and self.mesh.size > 1:
+            if replicated and p.auto_mesh is None and self.mesh.size > 1:
                 # the card sums duplicate rows with atomics in no fixed
                 # order, so replicas could drift apart by f32 rounding:
-                # every rank takes rank 0's (small) replicated state
+                # every rank takes rank 0's (small) replicated state (a
+                # part under auto agrees on its own: Part._agree)
                 for t in tensors_of(s):
-                    dist.broadcast(t, src=0, group=self.mesh.group)
+                    broadcast(t, self.mesh)
             new_state[f"part{i}"] = s
             for k, v in st.items():
                 collected.setdefault(k, []).append(v)

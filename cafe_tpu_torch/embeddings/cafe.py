@@ -251,7 +251,7 @@ class CafePart(Part):
         if self.mesh is not None:
             return self._gather_sharded(state, ids)
         oids, row, hrow, is_hot = self._route(state, ids)
-        raw = state["table"][row.long()]
+        raw = self._lookup(state, "table", row)
         return raw, (oids, row, hrow, is_hot)
 
     def _route_sharded(self, state: Dict, ids: torch.Tensor):
@@ -354,20 +354,38 @@ class CafePart(Part):
             sk, p_ids, p_slots, p_mask = self._insert_and_compact(
                 state["sketch"], flat_oids, g_raw)
 
+        if self.plus and self.auto_mesh is not None:
+            # the CAFE+ insert sums scores in float atomics on the card:
+            # every rank takes rank 0's sketch and promotions (v1's insert
+            # is deterministic: sorts, scans and K1's max)
+            lanes = torch.stack([p_ids, p_slots, p_mask.to(torch.int32)])
+            self._agree(*sk.values(), lanes)
+            p_ids, p_slots, p_mask = lanes[0], lanes[1], lanes[2] > 0
+
         # migration BEFORE the optimizer touches the cold rows (reference
         # insert_grad-then-step order). Lanes without a promotion write
         # their source row onto itself: hash rows never receive a
         # promotion, so those writes change nothing and need no mask.
         prow = self._hash_rows(p_ids)
-        dst = torch.where(p_mask, p_slots, prow).long()
         table = state["table"]
-        table[dst] = table[prow.long()]
         state = {**state, "sketch": sk, "tick": state["tick"] + 1}
-        # freshly promoted slots restart their optimizer state (the same
-        # write-back trick for lanes without a promotion)
-        for sfx in SLOT_SUFFIXES[self.optimizer].values():
-            slot_t = state["table" + sfx]
-            if slot_t.dim() == 2:
+        slot_ts = [state["table" + sfx]
+                   for sfx in SLOT_SUFFIXES[self.optimizer].values()
+                   if state["table" + sfx].dim() == 2]
+        if "table" in self.auto_keys:
+            # the owners of the promoted slots write them (auto)
+            self._write_owned(table, p_slots,
+                              self._read_rows(state, "table", prow), p_mask)
+            for slot_t in slot_ts:
+                self._write_owned(slot_t, p_slots, torch.zeros(
+                    p_slots.shape[0], slot_t.shape[1],
+                    device=slot_t.device), p_mask)
+        else:
+            dst = torch.where(p_mask, p_slots, prow).long()
+            table[dst] = table[prow.long()]
+            # freshly promoted slots restart their optimizer state (the
+            # same write-back trick for lanes without a promotion)
+            for slot_t in slot_ts:
                 slot_t[dst] = torch.where(p_mask[:, None], 0.0,
                                           slot_t[prow.long()])
 

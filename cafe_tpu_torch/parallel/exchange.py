@@ -1,5 +1,5 @@
-"""The sharded embedding exchange on torch.distributed (port of the flat
-parts of cafe_tpu/parallel/exchange.py).
+"""The sharded embedding exchange on torch.distributed (port of
+cafe_tpu/parallel/exchange.py).
 
 Tables are row-sharded over the mesh, batches sharded over the same
 ranks, and per step only O(batch) bytes cross the wire:
@@ -22,13 +22,26 @@ grads) instead of every lane; when any rank's distinct count overflows
 the capacity, every rank takes the full-size path; the mesh's
 `unique_branches` counts which branch each leg took.
 
+On a two-level ("dcn", "ici") mesh the explicit legs are HIERARCHICAL:
+ids (and grads) combine over "ici", this rank's host, before anything
+crosses "dcn", so only the host's combined (or compacted) set crosses
+the outer links. Row ownership stays the flat one. The a2a and pallas
+legs fall back to the explicit path there, as in the JAX package.
+
 Each function here is the body of the JAX package's `shard_map`: it takes
-this rank's shard of the table and this rank's slice of the batch, and
-every collective names the mesh's group. The two-level mesh (ROADMAP
-queue 1 item 6.1) and its hierarchical legs are not ported.
+this rank's shard of the table and this rank's slice of the batch. Every
+collective goes through the wrappers below (`all_gather`, `psum`,
+`psum_scatter`, `broadcast`, `any_rank`, `_a2a`), which name the mesh's
+flat group or one level of a two-level mesh (`axis` "ici" / "dcn"), and
+which record each call while `record_collectives` is open
+(tools/wire_audit.py, the port's counterpart of the JAX package's HLO
+traffic audit).
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -47,37 +60,106 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
-def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Tiled all-gather along dim 0 (jax.lax.all_gather(tiled=True))."""
-    out = torch.empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]),
+class Collective(NamedTuple):
+    """One recorded collective: the op, the axis it ran over ("data" =
+    the mesh's flat group, "ici", "dcn") and its result's bytes on this
+    rank (the JAX audit's measure: an all-gather's gathered buffer)."""
+    op: str
+    axis: str
+    bytes: int
+
+
+# the open recorder's list, else None (no cost when no recorder is open)
+_RECORD: Optional[List[Collective]] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective this module makes while the context is
+    open; yields the list of Collective records. Shapes only: no host
+    sync is added."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _note(op: str, axis: Optional[str], out: torch.Tensor) -> None:
+    if _RECORD is not None:
+        _RECORD.append(Collective(op, axis or "data",
+                                  out.numel() * out.element_size()))
+
+
+def mesh_axes(mesh) -> tuple:
+    """The mesh's exchange axes: ("data",) flat, ("dcn", "ici")
+    two-level. Tables and batches shard over all of them jointly."""
+    return tuple(mesh.axis_names)
+
+
+def _group(mesh, axis: Optional[str]):
+    """(process group, its size) of `axis`: None = the flat group."""
+    if axis is None:
+        return mesh.group, mesh.size
+    if axis not in mesh_axes(mesh):
+        # a group of None would be torch's default (world) group
+        raise ValueError(f"axis {axis!r} is not one of the mesh's "
+                         f"{mesh_axes(mesh)}")
+    if axis == "ici":
+        return mesh.ici_group, mesh.inner
+    return mesh.dcn_group, mesh.size // mesh.inner
+
+
+def all_gather(x: torch.Tensor, mesh, axis: Optional[str] = None
+               ) -> torch.Tensor:
+    """Tiled all-gather along dim 0 (jax.lax.all_gather(tiled=True)) over
+    the flat group or one level (`axis`) of a two-level mesh."""
+    group, n = _group(mesh, axis)
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _all_gather_single(out, x.contiguous(), group=mesh.group)
+    _all_gather_single(out, x.contiguous(), group=group)
+    _note("all-gather", axis, out)
     return out
 
 
-def psum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum over the mesh (a new tensor)."""
+def psum(x: torch.Tensor, mesh, axis: Optional[str] = None) -> torch.Tensor:
+    """Sum over the mesh or one level of it (a new tensor)."""
     y = x.clone()
-    dist.all_reduce(y, group=mesh.group)
+    dist.all_reduce(y, group=_group(mesh, axis)[0])
+    _note("all-reduce", axis, y)
     return y
 
 
-def psum_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Sum over the mesh, rank r keeping rows [r*k, (r+1)*k) of dim 0."""
-    out = torch.empty((x.shape[0] // mesh.size,) + tuple(x.shape[1:]),
+def psum_scatter(x: torch.Tensor, mesh, axis: Optional[str] = None
+                 ) -> torch.Tensor:
+    """Sum over the mesh (or one level), position p of the group keeping
+    rows [p*k, (p+1)*k) of dim 0."""
+    group, n = _group(mesh, axis)
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _reduce_scatter_single(out, x.contiguous(), group=mesh.group)
+    _reduce_scatter_single(out, x.contiguous(), group=group)
+    _note("reduce-scatter", axis, out)
     return out
 
 
+def broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Rank 0's values of `x` on every rank of the mesh, in place."""
+    dist.broadcast(x, src=0, group=mesh.group)
+    _note("broadcast", None, x)
+    return x
+
+
 def any_rank(flag: torch.Tensor, mesh) -> bool:
-    """True on every rank when `flag` is true on any: a MAX all-reduce and
-    ONE host read. It replaces the JAX package's lax.cond on a replicated
-    pmax. Every rank must take the same branch, or the collectives of the
-    two branches would pair up wrongly and hang, so the flag is read back
-    to the host: one sync per exchange (removing it is later perf work)."""
+    """True on every rank when `flag` is true on any: a MAX all-reduce over
+    the flat group and ONE host read. It replaces the JAX package's
+    lax.cond on a replicated pmax. Every rank must take the same branch,
+    or the collectives of the two branches would pair up wrongly and
+    hang, so the flag is read back to the host: one sync per exchange
+    (removing it is later perf work)."""
     t = flag.reshape(1).to(torch.int32)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    _note("all-reduce", None, t)
     return bool(t.item())
 
 
@@ -155,7 +237,10 @@ def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
     unique_frac > 0 turns on the UNIQUE-COMPACT exchange: the distinct
     row ids compact into a C-lane buffer (C = unique_cap), the exchange
     ships C rows instead of b*F, and a local expand restores the lanes.
-    If any rank overflows C, every rank takes the full-size path."""
+    If any rank overflows C, every rank takes the full-size path. On a
+    two-level mesh the exchange is hierarchical (_fetch_hier)."""
+    if mesh.inner:
+        return _fetch_hier(mesh, table, idx, unique_frac)
     b, fld = idx.shape
     flat = idx.reshape(b * fld)
     capacity = unique_cap(b * fld, unique_frac)
@@ -168,6 +253,41 @@ def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
                 b, fld, -1)
         mesh.unique_branches["fetch_full"] += 1
     return _fetch_full(mesh, table, flat).reshape(b, fld, -1)
+
+
+def _host_fetch(mesh, tbl: torch.Tensor, ids_x: torch.Tensor
+                ) -> torch.Tensor:
+    """The outer leg of the hierarchical fetch. `ids_x` is the
+    host-combined id buffer that every rank of the host holds: all-gather
+    it over "dcn", answer the rows this rank owns (flat ownership), sum
+    the host's partial answers over "ici", then reduce-scatter over "dcn"
+    back to one chunk a host, the same on every rank of the host."""
+    dcn_ids = all_gather(ids_x, mesh, "dcn")
+    rows = psum(_owner_rows(tbl, dcn_ids, mesh), mesh, "ici")
+    return psum_scatter(rows, mesh, "dcn")
+
+
+def _fetch_hier(mesh, table: torch.Tensor, idx: torch.Tensor,
+                unique_frac: float) -> torch.Tensor:
+    """The hierarchical fetch: the host's ids [m_host] all-gathered over
+    "ici" first, so only they (or, compact, their C distinct ids, C =
+    unique_cap(m_host)) cross "dcn"; this rank's m lanes are the slice at
+    ici_index * m of the host's answer. The overflow test runs over the
+    whole mesh, so every rank takes the same branch."""
+    b, fld = idx.shape
+    m = b * fld
+    ici_ids = all_gather(idx.reshape(m), mesh, "ici")     # [m_host]
+    me = slice(mesh.ici_index * m, (mesh.ici_index + 1) * m)
+    capacity = unique_cap(ici_ids.shape[0], unique_frac)
+    if capacity:
+        uids, inv, nu = unique_compact(ici_ids, capacity, DROP_ROW)
+        if not any_rank(nu > capacity, mesh):
+            mesh.unique_branches["fetch_compact"] += 1
+            urows = _host_fetch(mesh, table, uids)          # [C, D]
+            return urows[inv[me].clamp(0, capacity - 1).long()].reshape(
+                b, fld, -1)
+        mesh.unique_branches["fetch_full"] += 1
+    return _host_fetch(mesh, table, ici_ids)[me].reshape(b, fld, -1)
 
 
 def a2a_cap(m: int, n: int, slack: float = 1.5) -> int:
@@ -217,10 +337,13 @@ def _a2a(xs: torch.Tensor, mesh, impl: str) -> torch.Tensor:
     [n, ...] chunk s from peer s. impl: 'lax' (dist.all_to_all_single) or
     'pallas' (kernel K5, kernels/a2a.py)."""
     if impl == "pallas":
-        return _a2a_kernel.all_to_all(xs, mesh)
-    if impl == "lax":
-        return _a2a_kernel.all_to_all_plain(xs, mesh)
-    raise ValueError(f"unknown all-to-all impl {impl!r}")
+        out = _a2a_kernel.all_to_all(xs, mesh)
+    elif impl == "lax":
+        out = _a2a_kernel.all_to_all_plain(xs, mesh)
+    else:
+        raise ValueError(f"unknown all-to-all impl {impl!r}")
+    _note("all-to-all", None, out)
+    return out
 
 
 def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
@@ -228,7 +351,10 @@ def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
     """Request-routed all-to-all forward: each rank sends each owner only
     the ids it needs and receives only those rows (~m*4 + m*D*4*(n-1)/n
     bytes a rank, against sharded_fetch's ~m*D*4*(n-1)). Skew beyond the
-    per-peer capacity takes the full explicit path on every rank."""
+    per-peer capacity takes the full explicit path on every rank, and so
+    does a two-level mesh (the explicit path's hierarchical legs)."""
+    if mesh.inner:
+        return sharded_fetch(mesh, table, idx)
     n = mesh.size
     b, fld = idx.shape
     m = b * fld
@@ -249,9 +375,12 @@ def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
     return out.reshape(b, fld, -1)
 
 
-def _apply_full(mesh, table, slots, fi, fg, lr, optimizer, apply_impl):
-    ai = all_gather(fi, mesh)
-    ag = all_gather(fg, mesh)
+def _apply_full(mesh, table, slots, fi, fg, lr, optimizer, apply_impl,
+                axis=None):
+    """All-gather the (id, grad) pairs over the mesh (or, for the
+    hierarchical apply, over "dcn") and let the owners apply them."""
+    ai = all_gather(fi, mesh, axis)
+    ag = all_gather(fg, mesh, axis)
     return apply_rows(table, slots, _local_idx(table.shape[0], ai, mesh),
                       ag, lr, optimizer, apply_impl)
 
@@ -262,8 +391,11 @@ def sharded_apply_a2a(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
                       apply_impl: str = "auto"):
     """Owner-routed all-to-all backward: duplicates coalesce locally,
     then each (id, grad row) ships only to its owner. Overflow takes the
-    explicit path on every rank. Updates the shard in place; returns
-    (table, slots)."""
+    explicit path on every rank, and so does a two-level mesh. Updates the
+    shard in place; returns (table, slots)."""
+    if mesh.inner:
+        return sharded_apply(mesh, table, slots, idx, grad, lr, optimizer,
+                             apply_impl=apply_impl)
     n = mesh.size
     m = idx.numel()
     g = grad.reshape(m, -1)
@@ -295,18 +427,24 @@ def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     before the all-gather. `slots` as ops.sparse.init_slots makes them
     (row slots are sharded with the table). unique_frac > 0 ships the
     coalesced (id, grad) pairs in C-lane buffers, with the full-size
-    path when any rank overflows (see sharded_fetch). Updates the shard
-    in place; returns (table, slots)."""
+    path when any rank overflows (see sharded_fetch). On a two-level mesh
+    the (id, grad) pairs combine over "ici" before they cross "dcn".
+    Updates the shard in place; returns (table, slots)."""
     m = idx.numel()
     flat, g = idx.reshape(m), grad.reshape(m, -1)
-    capacity = unique_cap(m, unique_frac)
+    axis = None
+    if mesh.inner:
+        # the host's lanes, combined below before anything crosses dcn
+        flat, g = all_gather(flat, mesh, "ici"), all_gather(g, mesh, "ici")
+        axis = "dcn"
+    capacity = unique_cap(flat.shape[0], unique_frac)
     if capacity:
         cidx, cgrad, nu = coalesce_compact(flat, g, capacity, DROP_ROW)
         if not any_rank(nu > capacity, mesh):   # pmax(nu) > C
             mesh.unique_branches["apply_compact"] += 1
             return _apply_full(mesh, table, slots, cidx, cgrad, lr,
-                               optimizer, apply_impl)
+                               optimizer, apply_impl, axis)
         mesh.unique_branches["apply_full"] += 1
     fi, fg = coalesce(flat, g, drop_sentinel=DROP_ROW)
     return _apply_full(mesh, table, slots, fi, fg, lr, optimizer,
-                       apply_impl)
+                       apply_impl, axis)

@@ -1,11 +1,20 @@
-"""Process groups and the 1-D mesh (port of cafe_tpu/parallel/mesh.py).
+"""Process groups and the mesh (port of cafe_tpu/parallel/mesh.py).
 
-One mesh axis, "data", serves double duty as in the JAX package: dense
-towers are data-parallel over it while embedding tables and sketch
-buckets are row-sharded over the same ranks. Where the JAX package has one
-process with many devices, the port has one process per device: rank r
-owns device r of the mesh, its row shard of every sharded table and its
-slice of every batch.
+The flat mesh has one axis, "data", which serves double duty as in the
+JAX package: dense towers are data-parallel over it while embedding
+tables and sketch buckets are row-sharded over the same ranks. Where the
+JAX package has one process with many devices, the port has one process
+per device: rank r owns device r of the mesh, its row shard of every
+sharded table and its slice of every batch.
+
+The two-level mesh (`inner` > 0) lays the same ranks out as a
+("dcn", "ici") grid of shape (n // inner, inner): rank r sits at
+(r // inner, r % inner), so consecutive ranks share a host, as
+consecutive `jax.devices()` do. Row ownership and batch slices stay the
+flat ones (the JAX package's flat-tuple semantics); only the
+hierarchical exchange legs (parallel/exchange.py) run on the row
+(`ici_group`: this rank's host) and the column (`dcn_group`: the ranks
+of the same position on every host).
 
 Backends: NCCL for a mesh on the card, gloo for a mesh on the CPU (the
 tests). The backend follows the mesh's device; nothing switches between
@@ -25,40 +34,71 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 AXIS = "data"
+TWO_LEVEL = ("dcn", "ici")
 
 
 @dataclass
 class Mesh:
-    """This rank's view of a flat ("data",) mesh of `size` ranks.
+    """This rank's view of a mesh of `size` ranks: flat ("data",), or
+    with `inner` > 0 the two-level ("dcn", "ici") grid of shape
+    (size // inner, inner).
 
-    `group` is the mesh's own process group: every collective of the
-    sharded path names it. `a2a_workspaces` holds the peer-write
-    all-to-all's shared buffers (kernels/a2a.py), one per chunk size,
-    owned here so that they live and die with the mesh.
-    `unique_branches` counts the legs of the unique-compact exchange by
-    the branch they took ("fetch_compact", "fetch_full", "apply_compact",
-    "apply_full"; parallel/exchange.py)."""
+    `group` is the mesh's own flat process group: every collective of the
+    sharded path names it, except the hierarchical legs, which take
+    `ici_group` (this rank's row) and `dcn_group` (its column).
+    `a2a_workspaces` holds the peer-write all-to-all's shared buffers
+    (kernels/a2a.py), one per chunk size, owned here so that they live
+    and die with the mesh. `unique_branches` counts the legs of the
+    unique-compact exchange by the branch they took ("fetch_compact",
+    "fetch_full", "apply_compact", "apply_full"; parallel/exchange.py)."""
 
     size: int
     rank: int
     device: torch.device
     group: object
-    axis_names: tuple = (AXIS,)
+    inner: int = 0
+    ici_group: object = None
+    dcn_group: object = None
+    # the groups this rank made but is not in (released by close())
+    other_groups: list = field(default_factory=list, repr=False)
     a2a_workspaces: dict = field(default_factory=dict, repr=False)
     unique_branches: Counter = field(default_factory=Counter, repr=False)
+
+    @property
+    def axis_names(self) -> tuple:
+        return TWO_LEVEL if self.inner else (AXIS,)
+
+    @property
+    def shape(self) -> tuple:
+        """The grid: (size,) flat, (size // inner, inner) two-level."""
+        if self.inner:
+            return (self.size // self.inner, self.inner)
+        return (self.size,)
+
+    @property
+    def ici_index(self) -> int:
+        """This rank's position within its host's row."""
+        return self.rank % self.inner if self.inner else 0
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
 
     def close(self) -> None:
-        """Release the all-to-all workspaces (collective: every rank of
-        the mesh calls it)."""
+        """Release the all-to-all workspaces and the mesh's process groups
+        (collective: every rank of the mesh calls it)."""
         if self.a2a_workspaces:
             dist.barrier(group=self.group)
             for ws in self.a2a_workspaces.values():
                 ws.close()
             self.a2a_workspaces.clear()
+        groups = [g for g in (self.ici_group, self.dcn_group, self.group)
+                  if g is not None] + self.other_groups
+        self.group = self.ici_group = self.dcn_group = None
+        self.other_groups = []
+        for g in groups:
+            if g is not dist.GroupMember.NON_GROUP_MEMBER:
+                dist.destroy_process_group(g)
 
 
 def _backend(device: torch.device) -> str:
@@ -114,21 +154,24 @@ def _local_device(device="cuda") -> torch.device:
 
 def make_mesh(n_devices: Optional[int] = None, inner: int = 0,
               device="cuda") -> Mesh:
-    """The flat ("data",) mesh over all ranks of the default group (which
-    must exist: maybe_init_distributed). `n_devices` must equal the world
-    size, as a JAX mesh under multi-process execution must cover every
-    process's devices. Collectives run on a new group of the mesh's
-    backend (NCCL on the card, gloo on the CPU)."""
-    if inner:
-        raise NotImplementedError(
-            "mesh_inner > 0: the two-level (dcn, ici) mesh and its "
-            "hierarchical exchange are not ported yet (ROADMAP queue 1 "
-            "item 6.1)")
+    """The mesh over all ranks of the default group (which must exist:
+    maybe_init_distributed): flat ("data",), or with `inner` > 0 the
+    two-level ("dcn", "ici") mesh of shape (n // inner, inner), which
+    raises when `inner` does not divide n. `n_devices` must equal the
+    world size, as a JAX mesh under multi-process execution must cover
+    every process's devices. Collectives run on new groups of the mesh's
+    backend (NCCL on the card, gloo on the CPU).
+
+    Every rank creates every row and column group, in the same order,
+    including those it is not in: both backends hang or fail otherwise."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "maybe_init_distributed first")
     world = dist.get_world_size()
     n = world if n_devices is None else int(n_devices)
+    inner = int(inner or 0)
+    if inner and (inner < 0 or n % inner):
+        raise ValueError(f"mesh_inner {inner} does not divide {n} devices")
     if n != world:
         raise ValueError(f"requested a {n}-device mesh but the process "
                          f"group has {world} ranks (one device each); "
@@ -136,5 +179,19 @@ def make_mesh(n_devices: Optional[int] = None, inner: int = 0,
     dev = _local_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    group = dist.new_group(list(range(n)), backend=_backend(dev))
-    return Mesh(size=n, rank=dist.get_rank(), device=dev, group=group)
+    backend = _backend(dev)
+    rank = dist.get_rank()
+    mesh = Mesh(size=n, rank=rank, device=dev, inner=inner,
+                group=dist.new_group(list(range(n)), backend=backend))
+    if inner:
+        rows = [list(range(h * inner, (h + 1) * inner))
+                for h in range(n // inner)]
+        cols = [list(range(c, n, inner)) for c in range(inner)]
+        for kind, ranks in [("ici", r) for r in rows] + \
+                [("dcn", c) for c in cols]:
+            g = dist.new_group(ranks, backend=backend)
+            if rank in ranks:
+                setattr(mesh, f"{kind}_group", g)
+            else:
+                mesh.other_groups.append(g)
+    return mesh

@@ -25,6 +25,20 @@ A part that does not run the exchange (Part.mesh is None) stays
 replicated as a whole: the JAX package leaves such a part to XLA's
 partitioner, which gives the same values as a replicated table updated
 with the global batch (embeddings/base.EmbeddingLayer does that).
+
+The `auto` layout (--shard_exchange auto; a part's `auto_keys`): the row
+tables and their optimizer slots (the _ROW_SHARDED_2D names) with >= 512
+rows that divide by n are row-sharded, as the JAX package's
+`state_shardings` shards them; everything else, the sketch included,
+stays whole on every rank. The JAX package also shards the sketch there,
+but its partitioner keeps the single-device values; a whole sketch fed
+the global batch gives them by construction (the port has no
+partitioner, and a bucket-sharded sketch would need one allocation order
+across the ranks' free stacks). Only the placement differs.
+
+Which leaves a part shards is the part's own: the explicit rule above
+for a part that runs the exchange, `auto_keys` under auto; shard_state,
+unshard_state and global_like read it from each part of the layer.
 """
 
 from __future__ import annotations
@@ -67,6 +81,12 @@ def leaf_is_sharded(name: str, shape, n: int) -> bool:
         and name in _ROW_SHARDED_1D
 
 
+def auto_leaf_is_sharded(name: str, shape, n: int) -> bool:
+    """The auto layout's rule, on a leaf's GLOBAL shape."""
+    return len(shape) == 2 and name in _ROW_SHARDED_2D \
+        and shape[0] >= _MIN_ROWS and shape[0] % n == 0
+
+
 def _map_named(fn: Callable, node, name: str = ""):
     if isinstance(node, dict):
         return {k: _map_named(fn, v, k) for k, v in node.items()}
@@ -77,10 +97,19 @@ def _map_named(fn: Callable, node, name: str = ""):
     return fn(name, node)
 
 
+def _sharded(part, name: str, global_shape, n: int) -> bool:
+    """Whether leaf `name` of `part` is row-sharded (its layout)."""
+    if part.mesh is not None:
+        return leaf_is_sharded(name, global_shape, n)
+    return name in part.auto_keys
+
+
 def _map_embed(state, embed_layer, fn):
-    """state with fn(name, leaf) applied to the leaves of every part that
-    runs the exchange; other fields and parts unchanged."""
-    embed = {key: (_map_named(fn, sub) if p.mesh is not None else sub)
+    """state with fn(part, name, leaf) applied to the leaves of every part
+    that shards any (the explicit exchange or auto); other fields and
+    parts unchanged."""
+    embed = {key: (_map_named(lambda nm, x, p=p: fn(p, nm, x), sub)
+                   if p.mesh is not None or p.auto_keys else sub)
              for (key, sub), p in zip(state.embed.items(),
                                       embed_layer.parts)}
     return state._replace(embed=embed)
@@ -95,29 +124,29 @@ def rows_of(mesh, rows: int) -> slice:
 def shard_state(state: Any, mesh, embed_layer) -> Any:
     """This rank's state from a global TrainState (a copy of every sharded
     leaf's slice; replicated leaves are shared, not copied)."""
-    def cut(name, x):
-        if leaf_is_sharded(name, tuple(x.shape), mesh.size):
+    def cut(part, name, x):
+        if _sharded(part, name, tuple(x.shape), mesh.size):
             return x[rows_of(mesh, x.shape[0])].clone()
         return x
     return _map_embed(state, embed_layer, cut)
 
 
-def _joined(name: str, x, n: int):
+def _joined(part, name: str, x, n: int):
     """The global shape of a rank's leaf `x` if it is a shard of a
-    sharded leaf, else None. A sharded leaf is told apart by its global
-    shape (local rows x mesh size), which is exact for the leaves the
-    ported parts hold."""
+    sharded leaf, else None. Under the explicit rule a sharded leaf is
+    told apart by its global shape (local rows x mesh size), which is
+    exact for the leaves the ported parts hold."""
     if not x.dim():
         return None
     shape = (x.shape[0] * n,) + tuple(x.shape[1:])
-    return shape if leaf_is_sharded(name, shape, n) else None
+    return shape if _sharded(part, name, shape, n) else None
 
 
 def unshard_state(state: Any, mesh, embed_layer) -> Any:
     """The global TrainState from every rank's shards (collective: every
     rank calls it and gets the whole state)."""
-    def join(name, x):
-        return x if _joined(name, x, mesh.size) is None \
+    def join(part, name, x):
+        return x if _joined(part, name, x, mesh.size) is None \
             else all_gather(x, mesh)
     return _map_embed(state, embed_layer, join)
 
@@ -126,8 +155,8 @@ def global_like(state: Any, mesh, embed_layer) -> Any:
     """unshard_state's result as shapes only, without communication:
     every sharded leaf becomes an empty tensor on the meta device with
     its global shape and dtype; other leaves stay as they are."""
-    def grow(name, x):
-        shape = _joined(name, x, mesh.size)
+    def grow(part, name, x):
+        shape = _joined(part, name, x, mesh.size)
         return x if shape is None else torch.empty(shape, dtype=x.dtype,
                                                    device="meta")
     return _map_embed(state, embed_layer, grow)

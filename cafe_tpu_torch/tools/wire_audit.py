@@ -1,0 +1,181 @@
+"""Wire-traffic audit CLI (port of cafe_tpu/tools/wire_audit.py): run one
+train step of YOUR sharded configuration on a mesh, print every
+collective with its payload and mesh axis, and pass or fail the O(batch)
+contract.
+
+torch has no compiled program to read, so the audit records the calls
+themselves: every collective of the sharded step goes through the
+wrappers of parallel/exchange.py, which note (op, axis, result bytes)
+while `record_collectives` is open; the table is rank 0's. The axis is
+"data" for the mesh's flat group and "ici" / "dcn" for the two levels of
+a --mesh_inner mesh. Only the branch a step takes is recorded (the JAX
+audit sees both branches of a lax.cond).
+
+Usage (gloo ranks on the CPU, one process each; no port is opened):
+  python -m cafe_tpu_torch.tools.wire_audit --devices 4 \\
+      --force_platform cpu --compress_method cafe --compress_rate 0.05 \\
+      --synthetic_vocab 262144 --mini_batch_size 512
+  python -m cafe_tpu_torch.tools.wire_audit --devices 4 --mesh_inner 2 \\
+      --shard_unique_frac 0.25 --force_platform cpu ...
+Without --force_platform cpu the ranks are NCCL ranks, one card each.
+At --devices 1 (or inside an existing process group) the step runs in
+this process: a mesh of one prices the payloads, it moves no bytes.
+
+Exit code 1 if any collective passes the bound max(8*m*(dim+4)*4,
+2*dense_bytes) (m = batch lanes), as the JAX tool's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import tempfile
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+TOP = 20
+
+
+def audit(cfg, mesh) -> Dict:
+    """One train step of `cfg` (eager) on this rank's share of `mesh`,
+    from build_all's own state and the first global batch, with every
+    collective recorded. Returns this rank's report."""
+    from ..data import batch_iterator
+    from ..parallel import global_batches
+    from ..parallel.exchange import record_collectives
+    from ..parallel.sharding import global_like
+    from ..train import build_all, get_dataset
+    from ..train.step import _leaves
+    from ..utils.timing import fence
+    train = get_dataset(cfg, "train")
+    _, embed, state, step, _ = build_all(cfg, train, mesh=mesh,
+                                         capture=False)
+    first = next(iter(batch_iterator(train, cfg.mini_batch_size,
+                                     drop_last=True)))
+    dense, sparse, label, valid = next(iter(global_batches(mesh, [first])))
+    with record_collectives() as rec:
+        state, m = step(state, dense, sparse, label, valid)
+        fence(m["loss"])
+    like = global_like(state, mesh, embed)
+    table_bytes = max([t.numel() * t.element_size()
+                       for t in _leaves(like.embed)
+                       if isinstance(t, torch.Tensor) and t.dim() == 2]
+                      or [0])
+    lanes = cfg.mini_batch_size * train.num_sparse
+    dense_bytes = 4 * sum(t.numel() for t in _leaves(state.params))
+    bound = max(8 * lanes * (cfg.embedding_dim + 4) * 4, 2 * dense_bytes)
+    by_axis: Dict[str, int] = {}
+    for c in rec:
+        by_axis[c.axis] = by_axis.get(c.axis, 0) + c.bytes
+    return {"collectives": [list(c) for c in rec],
+            "total": sum(c.bytes for c in rec), "table_bytes": table_bytes,
+            "bound": bound, "by_axis": by_axis,
+            "over": sum(c.bytes > bound for c in rec),
+            "loss": float(m["loss"]), "world": mesh.size,
+            "mesh_shape": list(mesh.shape)}
+
+
+def report(res: Dict, out=None) -> int:
+    """Print the audit's table and verdict (to `out`, default stdout);
+    0 on pass, 1 on fail."""
+    p = lambda *a: print(*a, file=out or sys.stdout)  # noqa: E731
+    stats: List = res["collectives"]
+    if not stats:
+        p("NO collectives found: nothing is sharded")
+        return 1
+    p(f"\n{'op':<16}{'bytes':>12}  axis")
+    for op, axis, nb in sorted(stats, key=lambda c: -c[2])[:TOP]:
+        p(f"{op:<16}{nb:>12}  {axis}")
+    if len(stats) > TOP:
+        p(f"... {len(stats) - TOP} more")
+    p(f"\ntotal collective bytes/step: {res['total']:,} (rank 0 of "
+      f"{res['world']}, mesh {tuple(res['mesh_shape'])})")
+    p(f"largest table: {res['table_bytes']:,} B; O(batch) per-op bound: "
+      f"{res['bound']:,} B")
+    p(f"per-axis bytes: {res['by_axis']}")
+    if res["over"]:
+        big = [c for c in stats if c[2] > res["bound"]]
+        p(f"\nFAIL: {len(big)} collective(s) exceed the O(batch) bound "
+          f"(table-sized movement):")
+        for op, axis, nb in big[:5]:
+            p(f"  {op} ({axis}): {nb:,} B")
+        return 1
+    p("\nPASS: no collective approaches table size")
+    return 0
+
+
+def _device(cfg) -> str:
+    return "cpu" if cfg.force_platform == "cpu" else "cuda"
+
+
+def _rank(rank: int, world: int, store: str, argv: List[str]) -> None:
+    """One spawned rank: join the group, audit, rank 0 writes its report."""
+    from ..config import parse_args
+    from ..parallel import make_mesh
+    torch.set_num_threads(1)
+    cfg = parse_args(argv)
+    device = _device(cfg)
+    if device == "cuda":
+        os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=rank,
+                            world_size=world)
+    mesh = make_mesh(world, cfg.mesh_inner, device)
+    try:
+        res = audit(cfg, mesh)
+        if rank == 0:
+            with open(os.path.join(store, "report.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        mesh.close()
+        dist.destroy_process_group()
+
+
+def run_audit(argv: List[str], devices: int) -> Dict:
+    """The audit of `argv` (main_torch.py's flags) on `devices` ranks:
+    spawned processes, or this process at one rank or inside an existing
+    process group of that size."""
+    from ..config import parse_args
+    from ..parallel import make_mesh, maybe_init_distributed
+    argv = ["--dataset", "synthetic", "--shard_embeddings", "true"] \
+        + list(argv) + ["--mesh_shape", str(devices)]
+    cfg = parse_args(argv)
+    if devices == 1 or dist.is_initialized():
+        own = maybe_init_distributed(cfg, _device(cfg))
+        mesh = make_mesh(devices, cfg.mesh_inner, _device(cfg))
+        try:
+            return audit(cfg, mesh)
+        finally:
+            mesh.close()
+            if own:
+                dist.destroy_process_group()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as store:
+        procs = [ctx.Process(target=_rank, args=(r, devices, store, argv))
+                 for r in range(devices)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise RuntimeError(f"audit ranks exited with {codes}")
+        with open(os.path.join(store, "report.json")) as f:
+            return json.load(f)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    devices = 4
+    if "--devices" in argv:
+        i = argv.index("--devices")
+        devices = int(argv[i + 1])
+        del argv[i:i + 2]
+    return report(run_audit(argv, devices))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

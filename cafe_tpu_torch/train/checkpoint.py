@@ -18,9 +18,12 @@ whole. A load maps the global file into memory on every rank (one copy
 in the host's page cache, not one per rank), checks it against the
 global shapes, cuts the rank's slices (shard_state) on the host and moves
 only those to the rank's device. The sidecar records the world size the
-file was saved at (`mesh_size`, 0: one device without a mesh); the
-sketch's per-shard lanes (free_top, tot, ...) cannot be re-cut for
-another size, so a load at another size raises, naming both.
+file was saved at (`mesh_size`, 0: one device without a mesh), the
+two-level mesh's `mesh_inner` (0: flat) and the state's `layout`
+("explicit", or "auto": --shard_exchange auto, whose global state is the
+single-device one). The sketch's per-shard lanes (free_top, tot, ...)
+cannot be re-cut for another size, so a load at another world size,
+mesh_inner or layout raises, naming both.
 """
 
 from __future__ import annotations
@@ -93,9 +96,17 @@ def load_tree(path: str, like: Dict, device) -> Tuple[Dict, Dict]:
     return _restore(saved, like, "", device), checkpoint_meta(path)
 
 
-def _write(path: str, state: TrainState, extra: Dict, mesh_size: int
-           ) -> None:
-    save_tree(path, _to_tree(state), {**extra, "mesh_size": mesh_size})
+def _layout(mesh, embed) -> Dict:
+    """The sidecar's record of where the state was saved."""
+    if mesh is None:
+        return {"mesh_size": 0}
+    auto = any(p.auto_mesh is not None for p in embed.parts)
+    return {"mesh_size": mesh.size, "mesh_inner": mesh.inner,
+            "layout": "auto" if auto else "explicit"}
+
+
+def _write(path: str, state: TrainState, extra: Dict, mesh, embed) -> None:
+    save_tree(path, _to_tree(state), {**extra, **_layout(mesh, embed)})
 
 
 def _global(state: TrainState, mesh, embed) -> TrainState:
@@ -108,7 +119,7 @@ def save_checkpoint(path: str, state: TrainState, extra: Dict, mesh=None,
     calls it (module docstring); `embed` is the mesh's embedding layer."""
     state = _global(state, mesh, embed)
     if mesh is None or mesh.rank == 0:
-        _write(path, state, extra, 0 if mesh is None else mesh.size)
+        _write(path, state, extra, mesh, embed)
     _barrier(mesh)
 
 
@@ -126,7 +137,7 @@ def save_rolling(path: str, state: TrainState, extra: Dict, mesh=None,
     slot = path + (".rb" if cur.endswith(".ra") else ".ra")
     state = _global(state, mesh, embed)
     if mesh is None or mesh.rank == 0:
-        _write(slot, state, extra, 0 if mesh is None else mesh.size)
+        _write(slot, state, extra, mesh, embed)
         tmp_link = latest + ".lnk"
         if osp.lexists(tmp_link):
             os.remove(tmp_link)
@@ -178,13 +189,23 @@ def load_checkpoint(path: str, state: TrainState, mesh=None, embed=None
     CAFE and AdaEmbed parts: serving only). Returns the state and the sidecar's `extra`."""
     path = os.path.realpath(osp.abspath(path))
     meta = checkpoint_meta(path)
-    got = int(meta.pop("mesh_size", 0))
+    # files without the keys were saved flat in the explicit layout
+    where = {"mesh_size": 0, "mesh_inner": 0, "layout": "explicit"}
+    where.update({k: meta.pop(k) for k in list(where) if k in meta})
+    got = int(where["mesh_size"])
     want = 0 if mesh is None else mesh.size
     mismatch = (f"checkpoint {path} was saved at {_where(got)} and is "
                 f"loaded at {_where(want)}")
     if mesh is not None and got != want:
         raise ValueError(f"{mismatch}: the sketch's per-shard lanes cannot "
                          f"be re-cut for another world size")
+    if mesh is not None:
+        here = _layout(mesh, embed)
+        for k in ("mesh_inner", "layout"):
+            if where[k] != here[k]:
+                raise ValueError(f"checkpoint {path} was saved at {k} "
+                                 f"{where[k]!r} and is loaded at {k} "
+                                 f"{here[k]!r}")
     dev = state.step.device
     if mesh is None:
         saved = torch.load(path, map_location="cpu", weights_only=True)

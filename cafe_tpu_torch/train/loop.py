@@ -5,14 +5,16 @@ suite, best-accuracy and rolling checkpoints with exact-batch resume.
 
 `run` takes its device from the config: `--force_platform cpu` runs on
 the CPU (the kernels' plain versions), anything else on the card, which
-must be there. Configurations the port does not have yet raise
-NotImplementedError naming their ROADMAP queue; none is ignored.
+must be there. A configuration no run can take raises (check_supported,
+the embedding builder, make_mesh); none is ignored.
 
 With --mesh_shape / --shard_embeddings, or under torchrun, `run` trains
-on a flat mesh of one process per device (parallel/): each rank reads
-its slice of every batch, the sharded parts exchange rows over the
-mesh's group, eval scores are all-gathered before the metrics, and only
-rank 0 prints and logs. Checkpoints hold the global state (every rank
+on a mesh of one process per device (parallel/; flat, or two-level with
+--mesh_inner): each rank reads its slice of every batch
+(parallel/multihost.global_batches), the sharded parts exchange rows over
+the mesh (--shard_exchange explicit, a2a, pallas or auto), eval scores
+are all-gathered before the metrics (gather_to_host), and only rank 0
+prints and logs. Checkpoints hold the global state (every rank
 takes part in a save; train/checkpoint.py), the latency protocol streams
 each rank's slices through the collective eval step, and a dispatch of
 K steps gives rank r its slice of each of K global batches in turn.
@@ -39,10 +41,11 @@ from ..data.datasets import _read_block, process_batch_iterator
 from ..data.loader import device_prefetch
 from ..device import resolve_device
 from ..embeddings import build_embedding_layer
+from ..embeddings.base import SHARD_EXCHANGES
 from ..embeddings.ae import AEGroupPart, pretrain_batches
 from ..models import MODELS
-from ..parallel import make_mesh, maybe_init_distributed, shard_state
-from ..parallel.exchange import all_gather
+from ..parallel import (gather_to_host, global_batches, make_mesh,
+                        maybe_init_distributed, shard_state)
 from ..parallel.mesh import torchrun_world_size
 from ..utils.logging import ScalarLogger
 from ..utils.timing import fence, queue_bound
@@ -113,15 +116,19 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
         device=dev, **kwargs)
     embed = build_embedding_layer(cfg, counts, cfg.embedding_dim, train_data,
                                   device=dev)
+    auto = cfg.shard_embeddings and cfg.shard_exchange == "auto"
     if mesh is not None:
         embed.mesh = mesh
         if cfg.shard_embeddings:
             active = embed.set_mesh(mesh, cfg.shard_unique_frac,
                                     cfg.shard_exchange)
-            if mesh.rank == 0:
+            if mesh.rank == 0 and not auto:
+                fallback = "" if not mesh.inner or \
+                    cfg.shard_exchange == "explicit" else \
+                    " (two-level mesh: the explicit hierarchical legs)"
                 print(f"{cfg.shard_exchange} exchange on: "
-                      f"{active or 'no part (all small: replicated)'}",
-                      flush=True)
+                      f"{active or 'no part (all small: replicated)'}"
+                      f"{fallback}", flush=True)
     if layout_shards and mesh is None:
         for p in embed.parts:
             if hasattr(p, "enable_sharded_layout"):
@@ -129,6 +136,10 @@ def build_all(cfg: Config, train_data=None, device="cuda", params=None,
     state = init_state(model, embed, cfg.numpy_rand_seed, cfg.optimizer,
                        params=params)
     if mesh is not None:
+        if auto and mesh.rank == 0:
+            print(f"auto exchange: sharded tables "
+                  f"{embed.auto_layout() or 'none (all small: replicated)'}"
+                  f", everything else whole on every rank", flush=True)
         state = shard_state(state, mesh, embed)
     return model, embed, state, \
         build_train_step(model, embed, cfg, mesh, capture=capture), \
@@ -168,19 +179,13 @@ def wants_mesh(cfg: Config) -> bool:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for the configurations the port lacks
-    (the embedding builder raises for the options it lacks)."""
-    if wants_mesh(cfg):
-        unported = [
-            (cfg.mesh_inner > 0, "mesh_inner > 0 (the two-level mesh)",
-             "6.1"),
-            (cfg.shard_embeddings and cfg.shard_exchange == "auto",
-             "shard_exchange auto", "6.3"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet "
-                                          f"(ROADMAP queue 1 item {item})")
+    """Raise ValueError for an exchange mode no run can take, before any
+    process group is made (the embedding builder raises for the options
+    it cannot build; make_mesh for a mesh_inner that does not divide the
+    mesh)."""
+    if cfg.shard_exchange not in SHARD_EXCHANGES:
+        raise ValueError(f"unknown --shard_exchange {cfg.shard_exchange!r}"
+                         f": one of {', '.join(SHARD_EXCHANGES)}")
 
 
 _EVAL_CACHE_BYTES = 256 << 20
@@ -206,6 +211,15 @@ def _eval_batches(test_data, batch: int, mesh):
     if mesh is None:
         return batch_iterator(test_data, batch)
     return process_batch_iterator(test_data, batch, mesh.rank, mesh.size)
+
+
+def _staged(batches, device, mesh):
+    """Host batches as tensors on the device, uploads ahead of the steps:
+    under a mesh `batches` yields this rank's rows already (global_batches
+    with local=True)."""
+    if mesh is None:
+        return device_prefetch(batches, device)
+    return global_batches(mesh, batches, local=True)
 
 
 def train_batches(data, batch: int, k: int, start_row: int = 0, mesh=None):
@@ -257,16 +271,14 @@ def inference(cfg: Config, eval_step, state: TrainState, test_data,
     if not throughput:
         scores, targets = [], []
         batches = _eval_batches(test_data, bs, mesh)
-        for dense, sparse, label, valid in device_prefetch(batches, dev):
-            p = eval_step(state, dense, sparse)
-            if mesh is not None:
-                p, label = all_gather(p, mesh), all_gather(label, mesh)
+        for dense, sparse, label, valid in _staged(batches, dev, mesh):
             # a graphed eval step returns one output tensor, which its
-            # next replay overwrites: keep a copy of each batch's scores
-            scores.append(p[:valid].clone())
-            targets.append(label[:valid])
-        return binary_metrics(torch.cat(targets).cpu().numpy(),
-                              torch.cat(scores).cpu().numpy()), 0.0
+            # next replay overwrites: each batch's scores go to the host
+            p = eval_step(state, dense, sparse)
+            scores.append(gather_to_host(p, mesh)[:valid])
+            targets.append(gather_to_host(label, mesh)[:valid])
+        return binary_metrics(np.concatenate(targets),
+                              np.concatenate(scores)), 0.0
 
     # latency protocol (main.py:51-81): 10 warmup + 1014 timed batches;
     # small test sets cycle. A set small enough is staged on the device
@@ -404,14 +416,17 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
                    f"rolling checkpoint {load_path}", flush=True)
         if mesh is None:
             # a mesh run's global state serves on one device in the
-            # n-shard layout; it cannot resume training here
-            layout = checkpoint_meta(load_path).get("mesh_size", 0)
-            if layout and not cfg.inference_only:
+            # n-shard layout (an auto run's in the single-device one); it
+            # cannot resume training here
+            meta = checkpoint_meta(load_path)
+            size = meta.get("mesh_size", 0)
+            if size and not cfg.inference_only:
                 raise ValueError(
                     f"checkpoint {load_path} was saved at world size "
-                    f"{layout} and is loaded at one device without a "
+                    f"{size} and is loaded at one device without a "
                     f"mesh: serve it with --inference_only, or resume on "
-                    f"a mesh of {layout}")
+                    f"a mesh of {size}")
+            layout = 0 if meta.get("layout") == "auto" else size
     model, embed, state, train_step, eval_step = build_all(
         cfg, train_data, device=device, mesh=mesh, capture=capture,
         layout_shards=layout)
@@ -483,7 +498,7 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
         base_it = skip_batch if ep == skip_epoch else 0
         raw = train_batches(train_data, cfg.mini_batch_size, k_disp,
                             base_it * cfg.mini_batch_size, mesh)
-        batches = device_prefetch(raw, device)
+        batches = _staged(raw, device, mesh)
         for i, (dense, sparse, label, valid) in enumerate(batches):
             if cfg.enable_profiling and main and i == 10 and prof is None:
                 prof = _start_profile(device)

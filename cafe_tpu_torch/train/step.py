@@ -42,8 +42,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
-import torch.distributed as dist
 
+from ..parallel.exchange import psum
 from .capture import GraphedStep
 from .lr_schedule import lr_policy
 
@@ -149,8 +149,7 @@ def _valid_tensor(valid, device) -> torch.Tensor:
 
 def _psum_(tensors, mesh) -> None:
     """Sum each tensor over the mesh, in place, with one all-reduce."""
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
+    flat = psum(torch.cat([t.reshape(-1) for t in tensors]), mesh)
     for t, x in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(x.view_as(t))
 

@@ -233,9 +233,10 @@ size 1, after phase 12; eager steps; each line carries its wall time):
 
 41. sharded_methods: QR (add, mult, concat) and Off at the headline flags
    (dense apply) and AdaEmbed at the sibling's, sharded, each in the
-   explicit, a2a and pallas modes on the card, 3 steps from one state:
-   integer state, routing and AdaEmbed's admitted counts equal, tables,
-   loss and dense params within DENSE_TOL of the pallas run; the pallas
+   explicit, a2a and pallas modes on the card, 3 steps, each from the
+   pallas run's state before it: integer state, routing and AdaEmbed's
+   admitted counts equal, tables, loss and dense params within DENSE_TOL
+   of the pallas run's step; the pallas
    mode against the CPU's through phase 23's `card_vs_cpu` gate on two
    meshes of one rank; then ms/step (2
    windows of 5), the exchange's device time a step (CUDA events around
@@ -253,6 +254,29 @@ size 1, after phase 12; eager steps; each line carries its wall time):
    trains with 2 evals and rolling saves, run B resumes from its mid-run
    slot with A's losses, the best checkpoint served at f32 and int8 on
    the mesh (score_gate); K3 twice and K5 4 times a step.
+
+The rest of the mesh (world size 1, after phase 43; eager steps):
+
+44. sharded_auto: --shard_exchange auto at the headline flags (index_add_
+   apply), with the dense apply (K3) and at the sibling's (K2): against
+   one card's single-device step, SHARDED_GATE_STEPS steps each from one
+   state (gate_auto_single: integer state, promotions and routing exact,
+   the scatter-added tables within twice their reordering bound, other
+   float leaves bit-equal), the headline's card_vs_cpu (phase 23's gate
+   on two meshes of one rank); ms/step, the exchange's device share, K1
+   once a step (K3, K2 once in dense, sibling) and the layout's bytes
+   (sharded tables against what every rank holds whole);
+45. sharded_two_level: the (1, 1) two-level mesh (--mesh_inner 1): CAFE
+   v1 (frequency scores) against the flat mesh from one state
+   (promotions, sketch and routing exact), ms/step and the exchange's
+   share beside the flat run's; hash with --shard_unique_frac 0.5
+   (compact) and 0.1 (full-size) on it, as phase 42;
+46. cli_auto: phase 43's runs (train, resume, serve f32 and int8) of the
+   headline CLI under --shard_exchange auto and with --mesh_inner 1; K1
+   and K3 once a step;
+47. wire_audit: cafe_tpu_torch.tools.wire_audit in this process on the
+   CLI memmap (explicit, --mesh_inner 1, auto): every collective under
+   the O(batch) bound; its tables in OUT_DIR/tools_wire_audit.txt.
 
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
@@ -1972,21 +1996,29 @@ def _held(name, got, ref, tol, rel=False):
 
 
 def sharded_method_run(build_all, from_reference, to_numpy, cfg, data,
-                       batches, mesh, start, fence, kernels):
-    """SHARDED_GATE_STEPS steps of `cfg` on `mesh` from the global state
-    `start` (numpy), then a warm-up step and timed_steps. Returns (state
-    after the gate steps as numpy, per-step metrics, routing of batch 0
-    after them, record)."""
+                       batches, mesh, starts, fence, kernels):
+    """SHARDED_GATE_STEPS steps of `cfg` on `mesh`, step i from the global
+    state starts[i] (numpy), or, given one state, the trajectory from it;
+    then a warm-up step and timed_steps. Returns (the states after each
+    gate step as numpy, per-step metrics, the routing of batch 0 after
+    each, record). A reference's trajectory gives the others their
+    starts: each compared step then begins from one state, as card_vs_cpu
+    and the replay gate compare, since float atomics (index_add_, K2)
+    round apart by run and the bf16 towers can carry a one-ulp gap of one
+    step into the next steps' gradients."""
     _, embed, own, step, _ = build_all(cfg, data, mesh=mesh,
                                        capture=False)
     del own
-    state = from_reference(start, mesh.device)
-    metrics = []
+    trajectory = isinstance(starts, dict)
+    state = from_reference(starts, mesh.device) if trajectory else None
+    metrics, routing, gated = [], [], []
     for i in range(SHARDED_GATE_STEPS):
+        if not trajectory:
+            state = from_reference(starts[i], mesh.device)
         state, m = step(state, *batches[i % len(batches)])
         metrics.append({k: float(v) for k, v in m.items()})
-    routing = _int_aux(embed, state, batches[0][1])
-    gated = to_numpy(state)
+        routing.append(_int_aux(embed, state, batches[0][1]))
+        gated.append(to_numpy(state))
     for k in kernels.values():
         k.launches = 0
     state, m = step(state, *batches[0])
@@ -2020,11 +2052,12 @@ def phase_sharded_methods(build_all, from_reference, to_numpy, bce, Config,
                           fence, kernels):
     """QR (add, mult, concat) and Off at the headline flags (dense apply)
     and AdaEmbed at the sibling's, sharded at world size 1. On the card
-    in the explicit, a2a and pallas modes, SHARDED_GATE_STEPS steps from
-    one state: integer state (Off's hot_dict, AdaEmbed's dic and step),
-    the routing and AdaEmbed's admitted counts equal to the pallas run's;
-    tables, loss and dense params within DENSE_TOL of it (AdaEmbed's
-    importance within DENSE_TOL relative). The pallas mode against the
+    in the explicit, a2a and pallas modes, SHARDED_GATE_STEPS steps, each
+    from the pallas run's state before it (sharded_method_run): integer
+    state (Off's hot_dict, AdaEmbed's dic and step), the routing and
+    AdaEmbed's admitted counts equal to the pallas run's step; tables,
+    loss and dense params within DENSE_TOL of it (AdaEmbed's importance
+    within DENSE_TOL relative). The pallas mode against the
     CPU's (gloo, K5's plain version): gate_card_cpu on the two meshes,
     phase 23's gate (integer state and routing exact, each scatter-added
     table and AdaEmbed's importance within its lanes' card-vs-CPU gap
@@ -2042,33 +2075,40 @@ def phase_sharded_methods(build_all, from_reference, to_numpy, bce, Config,
         _, _, start, _, _ = build_all(cfg("pallas"), data, mesh=mesh_cpu,
                                       capture=False)
         start = to_numpy(start)          # n = 1: the rank's state is global
-        runs = {}
-        for mode in ("pallas",) + tuple(m for m in SHARDED_MODES
-                                        if m != "pallas"):
+        runs = {"pallas": sharded_method_run(
+            build_all, from_reference, to_numpy, cfg("pallas"), data,
+            batches, mesh_gpu, start, fence, kernels)}
+        starts = [start] + runs["pallas"][0][:-1]
+        for mode in (m for m in SHARDED_MODES if m != "pallas"):
             runs[mode] = sharded_method_run(
                 build_all, from_reference, to_numpy, cfg(mode), data,
-                batches, mesh_gpu, start, fence, kernels)
-        ref_state, ref_metrics, ref_routing, _ = runs["pallas"]
+                batches, mesh_gpu, starts, fence, kernels)
+        ref_states, ref_metrics, ref_routing, _ = runs["pallas"]
         rec = {"dim": base.embedding_dim, "compress_rate":
                base.compress_rate, "tolerance": DENSE_TOL,
                "max_abs_diff": {}, "modes": {}}
-        for mode, (st, metrics, routing, r) in runs.items():
-            where = f"sharded_methods {name} {mode}"
+        for mode, (states, metrics, routing, r) in runs.items():
+            gaps = {}
             for i, (a, b) in enumerate(zip(metrics, ref_metrics)):
+                where = f"sharded_methods {name} {mode} step {i}"
                 if a.get("ada_admitted") != b.get("ada_admitted") or \
                         not abs(a["loss"] - b["loss"]) <= DENSE_TOL:
-                    raise AssertionError(f"{where}: step {i} {a} against "
-                                         f"the card's pallas run {b}")
-            _held(where, routing, ref_routing, 0)
-            gaps = {}
-            for key, part in st["embed"].items():
-                for leaf, v in part.items():
-                    gaps.update(_held(
-                        where, {f"{key}/{leaf}": v},
-                        {f"{key}/{leaf}": ref_state["embed"][key][leaf]},
-                        DENSE_TOL, rel=leaf == "grad_norm"))
-            gaps.update(_held(where, st["params"], ref_state["params"],
-                              DENSE_TOL))
+                    raise AssertionError(f"{where}: {a} against the "
+                                         f"card's pallas run {b}")
+                _held(where, routing[i], ref_routing[i], 0)
+                st, ref_state = states[i], ref_states[i]
+                for key, part in st["embed"].items():
+                    for leaf, v in part.items():
+                        got = _held(
+                            where, {f"{key}/{leaf}": v},
+                            {f"{key}/{leaf}": ref_state["embed"][key][leaf]},
+                            DENSE_TOL, rel=leaf == "grad_norm")
+                        for path, gap in got.items():
+                            gaps[path] = max(gaps.get(path, 0.0), gap)
+                for path, gap in _held(where, st["params"],
+                                       ref_state["params"],
+                                       DENSE_TOL).items():
+                    gaps[path] = max(gaps.get(path, 0.0), gap)
             rec["max_abs_diff"][mode] = {
                 "loss": max(abs(a["loss"] - b["loss"])
                             for a, b in zip(metrics, ref_metrics)),
@@ -2085,7 +2125,7 @@ def phase_sharded_methods(build_all, from_reference, to_numpy, bce, Config,
 
 
 def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
-                         batches, mesh, fence):
+                         batches, mesh, fence, methods=("hash", "cafe")):
     """hash and CAFE v1 (frequency scores, threshold 2) at the headline
     flags under the explicit exchange at world size 1, with
     shard_unique_frac 0.5 (the compact branch) and 0.1 (it overflows: the
@@ -2094,7 +2134,7 @@ def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
     integer leaf (the sketch) equal; the branch each leg of each step
     took; eager ms/step of each."""
     out = {}
-    for method in ("hash", "cafe"):
+    for method in methods:
         base = headline_cfg(Config, compress_method=method, mesh_shape=1,
                             shard_embeddings=True, cafe_use_freq=True,
                             cafe_sketch_threshold=2.0)
@@ -2145,42 +2185,60 @@ def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
     return out
 
 
-def phase_cli_sharded_qr(main_fn, make_criteo_arrays, kernels,
-                         device="cuda"):
-    """main_torch.main --compress_method qr --mesh_shape 1
-    --shard_embeddings true --shard_exchange pallas on the CLI_ROWS
-    memmap (dense apply): run A trains 48 steps with 2 evals and rolling
-    saves every 20 its, run B resumes from A's mid-run slot and must print
-    A's losses where both print; then A's best checkpoint served on the
-    mesh at f32 and int8 (score_gate, accuracy within QUANT_GAP). K3
-    launches twice a train step (q and r), K5 4 times a train step and
-    twice an f32 eval batch (the quantized lookup's owners dequantize
-    behind an all-gather and a reduce-scatter: no K5)."""
+# the mesh CLI runs: (name, flags after CLI_FLAGS, launches a train step,
+# launches an f32 eval batch)
+CLI_MESH = {
+    # QR on the mesh (dense apply: K3 for q and r), the pallas legs (K5:
+    # ids and rows of the q fetch and apply, ids and rows of an eval)
+    "sharded_methods_cli_qr": (
+        ["--compress_method", "qr", "--shard_exchange", "pallas"],
+        {"rowsum": 2, "a2a": 4}, {"a2a": 2}),
+    # CAFE v1 under auto: the one-device insert (K1) and dense apply (K3)
+    "cli_auto": (["--shard_exchange", "auto"],
+                 {"land_max": 1, "rowsum": 1}, {}),
+    # CAFE v1 on the (1, 1) two-level mesh: its hierarchical legs
+    "cli_two_level": (["--mesh_inner", "1"],
+                      {"land_max": 1, "rowsum": 1}, {}),
+}
+
+
+def phase_cli_mesh(main_fn, make_criteo_arrays, kernels, name,
+                   device="cuda"):
+    """main_torch.main with CLI_MESH[name]'s flags, --mesh_shape 1
+    --shard_embeddings true on the CLI_ROWS memmap (dense apply): run A
+    trains 48 steps with 2 evals and rolling saves every 20 its, run B
+    resumes from A's mid-run slot and must print A's losses where both
+    print; then A's best checkpoint served on the mesh at f32 and int8
+    (score_gate, accuracy within QUANT_GAP). The kernels launch as
+    CLI_MESH[name] says a train step and an f32 eval batch (the quantized
+    lookup's owners dequantize behind an all-gather and a reduce-scatter:
+    no K5)."""
+    flags, per_step, per_eval = CLI_MESH[name]
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_qr_",
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_",
                             dir=os.path.join(here, "build"))
     try:
         write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
         plat = ["--force_platform", "cpu"] if device == "cpu" else []
-        mesh = CLI_FLAGS + plat + [
-            "--data_path", root, "--compress_method", "qr", "--mesh_shape",
-            "1", "--shard_embeddings", "true", "--shard_exchange", "pallas",
+        mesh = CLI_FLAGS + plat + flags + [
+            "--data_path", root, "--mesh_shape", "1",
+            "--shard_embeddings", "true",
             "--print_freq", "8", "--test_freq", "24", "--save_freq", "20"]
         model = os.path.join(root, "m")
-        out, total = {}, {name: 0 for name in kernels}
+        out, total = {}, {n: 0 for n in kernels}
 
-        def cli(name, argv, steps, evals):
+        def cli(tag, argv, steps, evals):
             for k in kernels.values():
                 k.launches = 0
             t0 = time.perf_counter()
-            res, lines = run_cli(main_fn, argv, f"cli_sharded_qr_{name}.txt")
+            res, lines = run_cli(main_fn, argv, f"{name}_{tag}.txt")
             got = {n: k.launches for n, k in kernels.items()}
-            want = {**{n: 0 for n in kernels}, "rowsum": 2 * steps,
-                    "a2a": 4 * steps + 2 * 8 * evals}
+            want = {n: per_step.get(n, 0) * steps
+                    + per_eval.get(n, 0) * 8 * evals for n in kernels}
             if device == "cuda" and got != want:
-                raise AssertionError(f"cli_sharded_qr {name}: launches "
-                                     f"{got}, expected {want}")
+                raise AssertionError(f"{name} {tag}: launches {got}, "
+                                     f"expected {want}")
             for n, v in got.items():
                 total[n] += v
             return res, lines, {"wall_s": time.perf_counter() - t0,
@@ -2193,7 +2251,7 @@ def phase_cli_sharded_qr(main_fn, make_criteo_arrays, kernels,
         evals = [ln for ln in lines_a if ln.startswith(" accuracy")]
         if max(losses_a) != 48 or len(evals) != 2 or not all(
                 np.isfinite(float(v)) for v in losses_a.values()):
-            raise AssertionError(f"cli_sharded_qr run A: its "
+            raise AssertionError(f"{name} run A: its "
                                  f"{sorted(losses_a)}, {evals}")
         latest = os.path.realpath(model + ".latest")
         other = model + (".rb" if latest.endswith(".ra") else ".ra")
@@ -2207,7 +2265,7 @@ def phase_cli_sharded_qr(main_fn, make_criteo_arrays, kernels,
         common = sorted(set(losses_a) & set(losses_b))
         if not common or common[-1] != 48 or any(
                 losses_a[i] != losses_b[i] for i in common):
-            raise AssertionError(f"cli_sharded_qr: resumed from it {start}: "
+            raise AssertionError(f"{name}: resumed from it {start}: "
                                  f"losses {losses_b} against {losses_a}")
         out["run_a"] = {**rec_a, "eval_lines": evals,
                         "loss_first": losses_a[min(losses_a)],
@@ -2222,20 +2280,273 @@ def phase_cli_sharded_qr(main_fn, make_criteo_arrays, kernels,
                 "--inference_only", "true", "--load_model", model,
                 "--quantize_emb_bits", str(bits),
                 "--tensor_board_filename", ""],
-                f"cli_sharded_qr_serve_int{bits}.txt")
-            want = 0 if bits else 2 * 8
-            if device == "cuda" and kernels["a2a"].launches != want:
-                raise AssertionError(f"cli_sharded_qr serve int{bits}: K5 "
-                                     f"launched {kernels['a2a'].launches}")
-            total["a2a"] += kernels["a2a"].launches
+                f"{name}_serve_int{bits}.txt")
+            got = {n: k.launches for n, k in kernels.items()}
+            want = {n: 0 if bits else per_eval.get(n, 0) * 8
+                    for n in kernels}
+            if device == "cuda" and got != want:
+                raise AssertionError(f"{name} serve int{bits}: launches "
+                                     f"{got}, expected {want}")
+            for n, v in got.items():
+                total[n] += v
             serve[f"int{bits}" if bits else "f32"] = res["metrics"]
         gap = abs(serve["int8"]["accuracy"] - serve["f32"]["accuracy"])
         if not gap < QUANT_GAP:
-            raise AssertionError(f"cli_sharded_qr serving: {serve}")
-        serve["int8_vs_f32"] = score_gate("cli_sharded_qr int8 serving", 8,
+            raise AssertionError(f"{name} serving: {serve}")
+        serve["int8_vs_f32"] = score_gate(f"{name} int8 serving", 8,
                                           scores[0], scores[8])
         out["serve"] = serve
         out["launches"] = total
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the rest of the mesh: --shard_exchange auto, the two-level mesh,
+# the wire audit (world size 1 on the card)
+
+def auto_configs(Config, cfg128):
+    """{name: config} of sharded_auto: the headline (index_add_ apply),
+    its dense apply (K3) and the sibling (K2), each under auto."""
+    auto = dict(mesh_shape=1, shard_embeddings=True, shard_exchange="auto")
+    return {"headline": headline_cfg(Config, **auto),
+            "headline_dense": headline_cfg(Config, sparse_apply_impl="dense",
+                                           **auto),
+            "sibling": dataclasses.replace(cfg128, **auto)}
+
+
+def gate_auto_single(build_all, from_reference, to_numpy, bce, cfg, data,
+                     batches, mesh):
+    """SHARDED_GATE_STEPS steps of `cfg` under auto on `mesh` and on one
+    card without a mesh, each step from one state (the one-card
+    trajectory's): every integer leaf (the sketch's val / cnt's bits
+    aside, dic, free, free_top; the tick), the promotions and the routed
+    rows exactly equal; the sketch's counts and every other float leaf of
+    the embedding state bit-equal, except each scatter-added table, which
+    must stay within twice the f32 reordering bound of its step's
+    scatter-add (both sides sum duplicate rows in float atomics); dense
+    params and the loss within DENSE_TOL."""
+    one = dataclasses.replace(cfg, mesh_shape=None, shard_embeddings=False,
+                              shard_exchange="explicit")
+    o_model, o_embed, o_state, o_step, _ = build_all(one, data,
+                                                     device="cuda",
+                                                     capture=False)
+    _, a_embed, _, a_step, _ = build_all(cfg, data, mesh=mesh,
+                                         capture=False)
+    lr = cfg.learning_rate
+    rec = {"steps": SHARDED_GATE_STEPS, "max_abs_diff": {},
+           "max_share_of_bound": {}, "promotions": []}
+
+    def worse(d, key, v):
+        d[key] = max(d.get(key, 0.0), v)
+
+    for i in range(SHARDED_GATE_STEPS):
+        b = batches[i]
+        a_state = from_reference(to_numpy(o_state), mesh.device)
+        grads, aux = lane_grads(o_model, o_embed, o_state, *b, bce)
+        bounds = {}
+        for j, part in enumerate(o_embed.parts):
+            key = f"part{j}"
+            for leaf, rows, upd in sparse_updates(
+                    part, o_state.embed[key], b[1][:, o_embed._cols[j]],
+                    grads[key], aux[key], lr):
+                table = o_state.embed[key][leaf]
+                keep = (rows >= 0) & (rows < table.shape[0])
+                bounds[f"/{key}/{leaf}"] = 2 * reorder_bound(
+                    table, rows[keep], upd)
+        o_state, om = o_step(o_state, *b)
+        a_state, am = a_step(a_state, *b)
+        if int(om["cafe_promotions"]) != int(am["cafe_promotions"]):
+            raise AssertionError(f"auto step {i}: promotions "
+                                 f"{int(am['cafe_promotions'])} against "
+                                 f"one card's {int(om['cafe_promotions'])}")
+        rec["promotions"].append(int(am["cafe_promotions"]))
+        worse(rec["max_abs_diff"], "loss",
+              abs(float(om["loss"]) - float(am["loss"])))
+        got, ref = to_numpy(a_state), to_numpy(o_state)
+        for path, a in _np_leaves(got["embed"]):
+            r = dict(_np_leaves(ref["embed"]))[path]
+            if path in bounds:
+                diff = float(np.abs(a - r).max())
+                worse(rec["max_abs_diff"], path, diff)
+                worse(rec["max_share_of_bound"], path,
+                      diff / bounds[path] if bounds[path] else 0.0)
+                if not diff <= bounds[path]:
+                    raise AssertionError(f"auto step {i}: {path} differs "
+                                         f"by {diff} > {bounds[path]}")
+            elif not np.array_equal(a, r):
+                raise AssertionError(f"auto step {i}: {path} differs from "
+                                     f"one card's")
+        gaps = _held(f"auto step {i}", got["params"], ref["params"],
+                     DENSE_TOL)
+        worse(rec["max_abs_diff"], "params", max(gaps.values()))
+        _held(f"auto step {i} routing", _int_aux(a_embed, a_state, b[1]),
+              _int_aux(o_embed, o_state, b[1]), 0)
+    if sum(rec["promotions"]) == 0:
+        raise AssertionError("auto gate: no id promoted")
+    rec.update(integer_state_equal=True, routing_equal=True,
+               dense_tolerance=DENSE_TOL)
+    return rec
+
+
+def layout_bytes(embed, state):
+    """The auto layout's bytes by part at world size 1: the sharded
+    tables (their global bytes) and what every rank holds whole (the
+    sketch, small tables, the tick)."""
+    from cafe_tpu_torch.utils.timing import tensors_of
+    out = {}
+    for i, p in enumerate(embed.parts):
+        st = state.embed[f"part{i}"]
+        sharded = sum(t.numel() * t.element_size() for k, t in st.items()
+                      if k in p.auto_keys)
+        whole = sum(t.numel() * t.element_size()
+                    for t in tensors_of(st)) - sharded
+        out[f"part{i}:{type(p).__name__}"] = {
+            "sharded_bytes": sharded, "whole_bytes": whole,
+            "whole_over_sharded": whole / sharded if sharded else None}
+    return out
+
+
+def phase_sharded_auto(build_all, from_reference, to_numpy, bce, Config,
+                       cfg128, data, batches, batches_cpu, mesh_gpu,
+                       mesh_cpu, fence, kernels):
+    """--shard_exchange auto at world size 1 (NCCL) for auto_configs: the
+    gate against one card's single-device step (gate_auto_single, with
+    frequency scores and threshold 2 so ids promote), the headline's
+    card_vs_cpu (phase 23's gate on the two meshes of one rank), then
+    eager ms/step (SHARDED_WINDOWS windows of SHARDED_STEPS) with the
+    exchange's device time, the launches a step (K1 once; K3 once in
+    dense; K2 once at the sibling) and the layout's bytes."""
+    out = {}
+    for name, cfg in auto_configs(Config, cfg128).items():
+        t0 = time.perf_counter()
+        gate = dataclasses.replace(cfg, cafe_use_freq=True,
+                                   cafe_sketch_threshold=2.0)
+        rec = {"vs_one_card": gate_auto_single(
+            build_all, from_reference, to_numpy, bce, gate, data, batches,
+            mesh_gpu)}
+        torch.cuda.empty_cache()
+        if name == "headline":
+            rec["card_vs_cpu"] = gate_card_cpu(
+                build_all, from_reference, to_numpy, bce, gate, data,
+                batches, batches_cpu, meshes=(mesh_gpu, mesh_cpu))
+        _, embed, state, step, _ = build_all(cfg, data, mesh=mesh_gpu,
+                                             capture=False)
+        rec["layout"] = embed.auto_layout()
+        rec["bytes"] = layout_bytes(embed, state)
+        for k in kernels.values():
+            k.launches = 0
+        state, m = step(state, *batches[0])
+        fence(state, m)
+        state, win, ex_ms, ex_win = timed_steps(
+            step, state, batches, fence, SHARDED_WINDOWS, SHARDED_STEPS, 1)
+        steps = 1 + (SHARDED_WINDOWS + 1) * SHARDED_STEPS
+        launches = {n: k.launches for n, k in kernels.items()}
+        want = {n: v * steps for n, v in predicted_launches(
+            embed, state, cfg.mini_batch_size).items()}
+        want["a2a"] = 0
+        if mesh_gpu.device.type == "cuda" and any(
+                launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"sharded_auto {name}: launches "
+                                 f"{launches}, predicted {want}")
+        ms = float(np.median(win))
+        rec.update(ms_per_step=ms, window_ms=win, steps=steps,
+                   examples_per_s=cfg.mini_batch_size * 1e3 / ms,
+                   exchange_ms_per_step=ex_ms, exchange_window_ms=ex_win,
+                   exchange_share=ex_ms / ex_win, launches=launches,
+                   loss=float(m["loss"]), wall_s=time.perf_counter() - t0)
+        if not np.isfinite(rec["loss"]):
+            raise AssertionError(f"sharded_auto {name}: loss {rec['loss']}")
+        del state, embed, step
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def phase_sharded_two_level(build_all, from_reference, to_numpy, Config,
+                            data, batches, mesh_flat, mesh_two, fence,
+                            kernels):
+    """The (1, 1) two-level mesh (--mesh_inner 1; its hierarchical legs
+    run on groups of one): CAFE v1 at the headline flags (frequency
+    scores, threshold 2) on it and on the flat mesh, SHARDED_GATE_STEPS
+    steps, each from the flat run's state (sharded_method_run):
+    promotions, the sketch and every integer leaf exactly equal, tables
+    and params within DENSE_TOL; eager
+    ms/step and the exchange's device share; K1 once a step. Then hash
+    with --shard_unique_frac 0.5 (compact) and 0.1 (full-size) against
+    the full-size run on it (phase_unique_compact's gates)."""
+    cfg = headline_cfg(Config, mesh_shape=1, shard_embeddings=True,
+                       mesh_inner=1, cafe_use_freq=True,
+                       cafe_sketch_threshold=2.0)
+    _, _, start, _, _ = build_all(cfg, data, mesh=mesh_flat, capture=False)
+    start = to_numpy(start)
+    flat = sharded_method_run(build_all, from_reference, to_numpy, cfg, data,
+                              batches, mesh_flat, start, fence, kernels)
+    ref_states, ref_metrics, ref_routing, flat_rec = flat
+    states, metrics, routing, rec = sharded_method_run(
+        build_all, from_reference, to_numpy, cfg, data, batches, mesh_two,
+        [start] + ref_states[:-1], fence, kernels)
+    gaps = {}
+    for i, (a, b) in enumerate(zip(metrics, ref_metrics)):
+        if a["cafe_promotions"] != b["cafe_promotions"] or \
+                not abs(a["loss"] - b["loss"]) <= DENSE_TOL:
+            raise AssertionError(f"two_level step {i}: {a} against the "
+                                 f"flat mesh's {b}")
+        _held(f"two_level routing step {i}", routing[i], ref_routing[i], 0)
+        for path, gap in _held(f"two_level step {i}", states[i],
+                               ref_states[i], DENSE_TOL).items():
+            gaps[path] = max(gaps.get(path, 0.0), gap)
+    if sum(m["cafe_promotions"] for m in metrics) == 0:
+        raise AssertionError("two_level: no id promoted")
+    if mesh_two.device.type == "cuda" and \
+            rec["launches"]["land_max"] != rec["steps"]:
+        raise AssertionError(f"two_level: K1 launched "
+                             f"{rec['launches']['land_max']} times in "
+                             f"{rec['steps']} steps")
+    rec.update(flat_ms_per_step=flat_rec["ms_per_step"],
+               flat_exchange_share=flat_rec["exchange_share"],
+               promotions=[int(m["cafe_promotions"]) for m in metrics],
+               max_abs_diff={k: v for k, v in gaps.items() if v},
+               integer_state_equal=True, routing_equal=True,
+               mesh_shape=list(mesh_two.shape))
+    return {"cafe": rec, "hash_unique_compact": phase_unique_compact(
+        build_all, from_reference, to_numpy, Config, data, batches,
+        mesh_two, fence, methods=("hash",))["hash"]}
+
+
+def phase_wire_audit(wire_audit, make_criteo_arrays, device="cuda"):
+    """cafe_tpu_torch.tools.wire_audit in this process at world size 1 on
+    the CLI_ROWS memmap with the headline's CLI flags: the explicit
+    exchange, the (1, 1) two-level mesh and auto. Each must pass its
+    O(batch) bound; its table goes to OUT_DIR/tools_wire_audit.txt. A
+    mesh of one prices the payloads: nothing crosses a wire."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_audit_",
+                            dir=os.path.join(here, "build"))
+    out = {}
+    try:
+        write_criteo_memmap(make_criteo_arrays, root, CLI_ROWS)
+        plat = ["--force_platform", "cpu"] if device == "cpu" else []
+        base = CLI_FLAGS + plat + ["--data_path", root,
+                                   "--tensor_board_filename", ""]
+        with tool_log("wire_audit"):
+            for name, extra in (("explicit", []),
+                                ("two_level", ["--mesh_inner", "1"]),
+                                ("auto", ["--shard_exchange", "auto"])):
+                print(f"==== {name}", flush=True)
+                res = wire_audit.run_audit(base + extra, 1)
+                code = wire_audit.report(res)
+                if code:
+                    raise AssertionError(f"wire_audit {name}: a collective "
+                                         f"exceeds the O(batch) bound")
+                big = max(res["collectives"], key=lambda c: c[2])
+                out[name] = {"verdict": "PASS", "total_bytes": res["total"],
+                             "bound": res["bound"],
+                             "table_bytes": res["table_bytes"],
+                             "by_axis": res["by_axis"],
+                             "collectives": len(res["collectives"]),
+                             "largest": big}
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3420,7 +3731,7 @@ def main() -> int:
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from cafe_tpu_torch.ops.quantized import (dequantize_rows,
                                               quantize_rowwise)
-    from cafe_tpu_torch.tools import roofline
+    from cafe_tpu_torch.tools import roofline, wire_audit
     from cafe_tpu_torch.tools.export_model import export_eval_step
     from cafe_tpu_torch.train import (build_all, build_multi_step,
                                       build_quantized_eval_step, run)
@@ -3664,10 +3975,41 @@ def main() -> int:
         build_all, from_reference, to_numpy, Config, data, batches, mesh_gpu,
         fence), "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    clq = phase_cli_sharded_qr(main_torch.main, make_criteo_arrays, KERNELS)
+    clq = phase_cli_mesh(main_torch.main, make_criteo_arrays, KERNELS,
+                         "sharded_methods_cli_qr")
     by_path["sharded_methods_cli_qr"] = clq["launches"]
     emit({"phase": "sharded_methods_cli_qr",
           "wall_s": time.perf_counter() - t0, **clq})
+
+    # ---- the rest of the mesh: auto, the two-level mesh, the wire audit
+    t0 = time.perf_counter()
+    sha = phase_sharded_auto(build_all, from_reference, to_numpy, _bce,
+                             Config, cfg128, data, batches, batches_cpu,
+                             mesh_gpu, mesh_cpu, fence, KERNELS)
+    by_path["sharded_auto"] = {name: sum(r["launches"][name]
+                                         for r in sha.values())
+                               for name in KERNELS}
+    emit({"phase": "sharded_auto", "wall_s": time.perf_counter() - t0,
+          **sha})
+    t0 = time.perf_counter()
+    mesh_two = make_mesh(1, inner=1, device="cuda")
+    shl = phase_sharded_two_level(build_all, from_reference, to_numpy,
+                                  Config, data, batches, mesh_gpu, mesh_two,
+                                  fence, KERNELS)
+    mesh_two.close()
+    by_path["sharded_two_level"] = shl["cafe"]["launches"]
+    emit({"phase": "sharded_two_level", "wall_s": time.perf_counter() - t0,
+          **shl})
+    t0 = time.perf_counter()
+    cla = {}
+    for name in ("cli_auto", "cli_two_level"):
+        cla[name] = phase_cli_mesh(main_torch.main, make_criteo_arrays,
+                                   KERNELS, name)
+        by_path[name] = cla[name]["launches"]
+    emit({"phase": "cli_auto", "wall_s": time.perf_counter() - t0, **cla})
+    t0 = time.perf_counter()
+    emit({"phase": "wire_audit", **phase_wire_audit(
+        wire_audit, make_criteo_arrays), "wall_s": time.perf_counter() - t0})
     mesh_gpu.close()
     mesh_cpu.close()
     dist.destroy_process_group()

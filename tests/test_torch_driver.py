@@ -346,16 +346,19 @@ def test_inference_throughput_cycles_small_test_set():
     assert len(set(seen)) == 3
 
 
-@pytest.mark.parametrize("flag", [
-    ["--mesh_shape", "2", "--mesh_inner", "2"],
-    ["--shard_embeddings", "true", "--shard_exchange", "auto"]])
-def test_missing_configurations_raise(flag):
+@pytest.mark.parametrize("flag,match", [
+    (["--mesh_shape", "2", "--mesh_inner", "3"], "does not divide"),
+    (["--shard_embeddings", "true", "--shard_exchange", "ring"],
+     "unknown --shard_exchange")])
+def test_missing_configurations_raise(flag, match):
+    """Every mesh flag runs now (the two-level mesh, the auto exchange);
+    a mesh no run can take raises before any step, naming the flag."""
     import main_torch
     base = ["--force_platform", "cpu", "--dataset", "synthetic",
             "--synthetic_rows", "256", "--synthetic_fields", "2",
             "--synthetic_vocab", "3000", "--compress_method", "cafe",
             "--compress_rate", "0.01", "--tensor_board_filename", ""]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+    with pytest.raises(ValueError, match=match):
         main_torch.main(base + flag)
 
 

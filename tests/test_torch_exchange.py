@@ -289,10 +289,10 @@ def test_applies_match(exchange_runs, case):
 
 
 def test_mesh_refusals(tmp_path):
-    """make_mesh refuses the two-level mesh (not ported) and a size other
-    than the world's, as the JAX package refuses more devices than it
-    has."""
+    """make_mesh refuses a mesh_inner that does not divide the mesh, as
+    the JAX package does, and a size other than the world's, as the JAX
+    package refuses more devices than it has."""
     for res in w.run_ranks(w.mesh_errors, 2, tmp_path):
-        assert res["inner"].startswith("NotImplementedError") \
-            and "item 6.1" in res["inner"]
+        assert res["inner"].startswith("ValueError") \
+            and "does not divide" in res["inner"]
         assert res["size"].startswith("ValueError")

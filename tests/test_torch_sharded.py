@@ -50,13 +50,13 @@ SHARD = dict(dataset="synthetic", synthetic_rows=1024, synthetic_fields=4,
 STEPS = 3
 
 
-def _jax_run(kw, n, mode, steps):
-    """The JAX package's sharded step at mesh n: (bridged init state,
-    per-step metrics, final state, first batch's routing, aux tensors and
-    scores, the batches)."""
+def _jax_run(kw, n, mode, steps, inner=0):
+    """The JAX package's sharded step at mesh n (`inner` > 0: its
+    two-level mesh): (bridged init state, per-step metrics, final state,
+    first batch's routing, aux tensors and scores, the batches)."""
     cfg = JConfig(**dict(kw, shard_exchange=mode))
     train = jdata(cfg, "train")
-    mesh = jmake_mesh(n)
+    mesh = jmake_mesh(n, inner)
     _, embed, state, step, eval_step = jbuild_all(cfg, train, mesh=mesh)
     sharded, st = shard_train_step(step, mesh, state,
                                    shard_embeddings=cfg.shard_embeddings)
@@ -275,10 +275,10 @@ def test_cafe_plus_steps_match(tmp_path_factory, n, pairs):
 
 @pytest.mark.parametrize("flags", [
     dict(mesh_inner=2), dict(shard_exchange="auto")])
-def test_unported_mesh_flags_raise(flags):
-    cfg = TConfig(**dict(SHARD, mesh_shape=2, **flags))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        check_supported(cfg)
+def test_mesh_flags_are_accepted(flags):
+    """The two-level mesh and the auto exchange run (tests/test_torch_mesh2.py,
+    tests/test_torch_auto.py drive them)."""
+    check_supported(TConfig(**dict(SHARD, mesh_shape=2, **flags)))
 
 
 @pytest.mark.parametrize("flags", [

@@ -1,6 +1,8 @@
 """The sharded slice across cards: K5 (kernels/a2a.cu) between processes
 on different cards, and 5 sharded train steps on NCCL at world size
-min(4, cards) against the same steps on gloo ranks on the CPU.
+min(4, cards) against the same steps on gloo ranks on the CPU; with 4
+cards, the (2, 2) two-level mesh against the flat one and
+--shard_exchange auto against one card's single-device step.
 
 Needs at least 2 CUDA cards and skips, saying so, with fewer (one card
 cannot host an NCCL group of two ranks; K5's one-card check across
@@ -95,3 +97,66 @@ def test_sharded_steps_cards_match_cpu(world, tmp_path):
         np.testing.assert_allclose(g["scores"], c["scores"], rtol=1e-4,
                                    atol=1e-4)
         assert sum(m["cafe_promotions"] for m in g["metrics"]) > 0
+
+
+@pytest.fixture
+def four(world):
+    if world < 4:
+        pytest.skip("needs 4 CUDA cards for a (2, 2) mesh")
+    return world
+
+
+@pytest.mark.cuda
+def test_two_level_cards_match_the_flat_mesh(four, tmp_path):
+    """The (2, 2) two-level mesh on 4 cards (NCCL row and column groups)
+    against the flat 4-card mesh: promotions and the sketch exact, the
+    loss within 1e-6 relative, tables within 1e-4."""
+    kw = dict(SHARD, mesh_shape=4, mesh_inner=2)
+    batches = list(batch_iterator(get_dataset(Config(**kw), "train"), 128,
+                                  drop_last=True))[:5]
+    run = [(kw, None, batches, ("explicit",))]
+    two = w.run_ranks(w.train_runs, 4, tmp_path / "two", run,
+                      device="cuda", inner=2)[0][0]["explicit"]
+    flat = w.run_ranks(w.train_runs, 4, tmp_path / "flat", run,
+                       device="cuda")[0][0]["explicit"]
+    for a, b in zip(two["metrics"], flat["metrics"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-6)
+        assert a["cafe_promotions"] == b["cafe_promotions"]
+    assert sum(m["cafe_promotions"] for m in two["metrics"]) > 0
+    for key, part in flat["state"]["embed"].items():
+        for f in SKETCH if "sketch" in part else ():
+            np.testing.assert_array_equal(
+                two["state"]["embed"][key]["sketch"][f], part["sketch"][f],
+                err_msg=f"{key} {f}")
+        np.testing.assert_allclose(two["state"]["embed"][key]["table"],
+                                   part["table"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_auto_cards_match_one_card(four, tmp_path):
+    """--shard_exchange auto on 4 cards against one card's single-device
+    step from build_all's own state: promotions and the sketch (dic
+    included) exact, tables and loss within 1e-4."""
+    from cafe_tpu_torch.bridge import to_numpy
+    from cafe_tpu_torch.train import build_all
+    kw = dict(SHARD, mesh_shape=4, shard_exchange="auto")
+    cfg = Config(**kw)
+    data = get_dataset(cfg, "train")
+    batches = list(batch_iterator(data, 128, drop_last=True))[:5]
+    got = w.run_ranks(w.train_runs, 4, tmp_path, [
+        (kw, None, batches, ("auto",))], device="cuda")[0][0]["auto"]
+    _, _, state, step, _ = build_all(cfg, data, device="cuda",
+                                     capture=False)
+    for (dense, sparse, label, valid), gm in zip(batches, got["metrics"]):
+        state, m = step(state, *(torch.from_numpy(x).cuda()
+                                 for x in (dense, sparse, label)), valid)
+        np.testing.assert_allclose(gm["loss"], float(m["loss"]), rtol=1e-4)
+        assert gm["cafe_promotions"] == int(m["cafe_promotions"])
+    one = to_numpy(state)
+    for key, part in one["embed"].items():
+        for f in SKETCH if "sketch" in part else ():
+            np.testing.assert_array_equal(got["state"]["embed"][key]
+                                          ["sketch"][f], part["sketch"][f],
+                                          err_msg=f"{key} {f}")
+        np.testing.assert_allclose(got["state"]["embed"][key]["table"],
+                                   part["table"], rtol=1e-4, atol=1e-4)

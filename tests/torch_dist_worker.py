@@ -4,9 +4,10 @@ that the spawned ranks never import it).
 `run_ranks(fn, world, tmp_path, *args)` starts `world` processes with the
 spawn method; each joins a process group through a `file://` store under
 `tmp_path` (no port to clash between test workers), pins torch to one
-thread, makes the mesh and returns fn(mesh, *args) to the parent through
-a pickle file. Backend gloo on the CPU; `device="cuda"` gives each rank
-its own card and NCCL (tests/test_torch_sharded_cuda.py);
+thread, makes the mesh (`inner` > 0: the two-level one) and returns
+fn(mesh, *args) to the parent through a pickle file. Backend gloo on the
+CPU; `device="cuda"` gives each rank its own card and NCCL
+(tests/test_torch_sharded_cuda.py);
 `device="cuda:0"` puts every rank on card 0 with a gloo group (NCCL
 refuses two ranks on one card), for K5's CUDA-IPC check on one card.
 """
@@ -26,7 +27,7 @@ import torch.distributed as dist
 
 
 def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu",
-              timeout: float = 300.0) -> list:
+              timeout: float = 300.0, inner: int = 0) -> list:
     """fn(mesh, *args) on each of `world` ranks; their results in rank
     order. Raises with the failing rank's traceback."""
     tag = uuid.uuid4().hex[:8]
@@ -34,7 +35,8 @@ def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu",
     out.mkdir(parents=True)
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_entry,
-                         args=(r, world, str(out), device, fn, args))
+                         args=(r, world, str(out), device, fn, args,
+                               inner))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -57,7 +59,7 @@ def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu",
     return results
 
 
-def _entry(rank, world, out, device, fn, args):
+def _entry(rank, world, out, device, fn, args, inner):
     torch.set_num_threads(1)
     from cafe_tpu_torch.parallel import Mesh, make_mesh
     backend = "nccl" if device == "cuda" else "gloo"
@@ -72,7 +74,7 @@ def _entry(rank, world, out, device, fn, args):
                         group=dist.new_group(list(range(world)),
                                              backend="gloo"))
         else:
-            mesh = make_mesh(world, device=device)
+            mesh = make_mesh(world, inner, device=device)
         res = fn(mesh, *args)
         mesh.close()
         dist.barrier()
@@ -168,10 +170,13 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
         state = own if ref_state is None else \
             from_reference_sharded(ref_state, mesh, embed)
         mesh.unique_branches.clear()
-        metrics = []
+        metrics, records = [], []
         for dense, sparse, label, valid in batches:
-            state, m = step(state, *_on(mesh, dense, sparse, label), valid)
+            with ex.record_collectives() as rec:
+                state, m = step(state, *_on(mesh, dense, sparse, label),
+                                valid)
             metrics.append({k: float(v) for k, v in m.items()})
+            records.append([tuple(r) for r in rec])
         branches = dict(mesh.unique_branches)
         d, s, _ = _on(mesh, *batches[0][:3])
         _, aux = embed.gather(state.embed, s)
@@ -192,9 +197,22 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
                          v if isinstance(v, tuple) else (v,))]
                          for k, v in aux.items()},
                      "scores": scores, "branches": branches,
+                     "records": records,
+                     "auto_keys": [sorted(p.auto_keys)
+                                   for p in embed.parts],
+                     "local_shapes": {k: {n: tuple(v.shape) for n, v in
+                                          part.items()
+                                          if isinstance(v, torch.Tensor)}
+                                      for k, part in state.embed.items()},
                      "parts": [(type(p).__name__, p.mesh is not None)
                                for p in embed.parts]}
     return out
+
+
+def calls(mesh, todo):
+    """Each (name of a function of this module, args) of `todo` called
+    with the mesh, in one set of ranks; their results in order."""
+    return [globals()[name](mesh, *args) for name, args in todo]
 
 
 def train_runs(mesh, runs):
@@ -267,14 +285,27 @@ def mesh_errors(mesh):
     """make_mesh's refusals, as the strings of what they raised."""
     from cafe_tpu_torch.parallel import make_mesh
     got = {}
-    for name, kw in (("inner", dict(n_devices=mesh.size, inner=2,
-                                    device="cpu")),
+    for name, kw in (("inner", dict(n_devices=mesh.size,
+                                    inner=mesh.size + 1, device="cpu")),
                      ("size", dict(n_devices=mesh.size + 1, device="cpu"))):
         try:
             make_mesh(**kw)
             got[name] = None
         except (NotImplementedError, ValueError) as e:
             got[name] = f"{type(e).__name__}: {e}"
+    return got
+
+
+def mesh_layout(mesh):
+    """The mesh's axes, shape and this rank's row (ici) and column (dcn)
+    members, each read back through an all-gather of the ranks over that
+    group; and what a mesh_inner that does not divide the world raises."""
+    from cafe_tpu_torch.parallel import exchange as ex
+    me = torch.tensor([mesh.rank])
+    got = {"axis_names": mesh.axis_names, "shape": mesh.shape,
+           "ici": ex.all_gather(me, mesh, "ici").tolist(),
+           "dcn": ex.all_gather(me, mesh, "dcn").tolist()}
+    got["bad_inner"] = mesh_errors(mesh)["inner"]
     return got
 
 
@@ -398,6 +429,11 @@ def _run_cli(argv):
     with contextlib.redirect_stdout(buf):
         res = run(parse_args(argv))
     return buf.getvalue(), res
+
+
+def cli_text(mesh, argv):
+    """What main_torch.py prints for `argv` on this mesh (rank 0)."""
+    return _run_cli(argv)[0]
 
 
 def save_resume_runs(mesh, argv, root, ks):
@@ -567,3 +603,51 @@ def load_error(mesh, argv, path):
     except ValueError as e:
         return str(e)
     return None
+
+
+# ------------------------------------------------ multi-node pieces (6.7)
+
+def node_runs(mesh, argvs, per_node):
+    """main_torch.py's run for each argv of `argvs`, this rank posing as
+    local rank rank % per_node of node rank // per_node (LOCAL_RANK, as
+    a multi-node torchrun sets it); rank 0's prints."""
+    os.environ["LOCAL_RANK"] = str(mesh.rank % per_node)
+    os.environ["LOCAL_WORLD_SIZE"] = str(per_node)
+    try:
+        return [_run_cli(argv)[0] for argv in argvs]
+    finally:
+        del os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"]
+
+
+def multihost_pieces(mesh, table, ids, upd, lr, batch):
+    """parallel/embedding_parallel's three functions on this rank's shard
+    of `table` and slice of `ids` / `upd`, all-gathered back; and
+    parallel/multihost's global_batches (the slice it cuts from a global
+    batch, the error of one that does not divide) and gather_to_host."""
+    from cafe_tpu_torch.parallel import embedding_parallel as ep
+    from cafe_tpu_torch.parallel import exchange as ex
+    from cafe_tpu_torch.parallel import gather_to_host, global_batches
+    sl = rank_slice(mesh, table.shape[0])
+    il = torch.from_numpy(ids[rank_slice(mesh, ids.shape[0])])
+    ul = torch.from_numpy(upd[rank_slice(mesh, upd.shape[0])])
+    t = torch.from_numpy(table[sl].copy())
+    out = {"gather": ex.all_gather(ep.sharded_gather(mesh, t, il),
+                                   mesh).numpy(),
+           "scatter_add": ex.all_gather(ep.sharded_scatter_add(
+               mesh, t.clone(), il, ul), mesh).numpy()}
+    rows, new = ep.sharded_embedding_lookup_and_update(
+        mesh, t.clone(), il, lambda r: 2.0 * r, lr)
+    out["lookup_rows"] = ex.all_gather(rows, mesh).numpy()
+    out["lookup_table"] = ex.all_gather(new, mesh).numpy()
+    got = next(iter(global_batches(mesh, [batch])))
+    out["slice"] = [None if x is None else x.numpy() for x in got[:3]]
+    out["valid"] = got[3]
+    odd = tuple(None if x is None else x[:-1] for x in batch[:3]) \
+        + (batch[3],)
+    try:
+        next(iter(global_batches(mesh, [odd])))
+        out["odd"] = None
+    except ValueError as e:
+        out["odd"] = str(e)
+    out["gathered"] = gather_to_host(got[2], mesh)
+    return out
