@@ -50,6 +50,7 @@ def audit(cfg, mesh) -> Dict:
     from ..train import build_all, get_dataset
     from ..train.step import _leaves
     from ..utils.timing import fence
+    from .hlo_traffic import collective_stats
     train = get_dataset(cfg, "train")
     _, embed, state, step, _ = build_all(cfg, train, mesh=mesh,
                                          capture=False)
@@ -67,12 +68,11 @@ def audit(cfg, mesh) -> Dict:
     lanes = cfg.mini_batch_size * train.num_sparse
     dense_bytes = 4 * sum(t.numel() for t in _leaves(state.params))
     bound = max(8 * lanes * (cfg.embedding_dim + 4) * 4, 2 * dense_bytes)
-    by_axis: Dict[str, int] = {}
-    for c in rec:
-        by_axis[c.axis] = by_axis.get(c.axis, 0) + c.bytes
+    stats = collective_stats(rec)
     return {"collectives": [list(c) for c in rec],
-            "total": sum(c.bytes for c in rec), "table_bytes": table_bytes,
-            "bound": bound, "by_axis": by_axis,
+            "total": stats["total"], "table_bytes": table_bytes,
+            "bound": bound, "by_axis": stats["by_axis"],
+            "dense_bytes": dense_bytes, "lanes": lanes,
             "over": sum(c.bytes > bound for c in rec),
             "loss": float(m["loss"]), "world": mesh.size,
             "mesh_shape": list(mesh.shape)}

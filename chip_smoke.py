@@ -278,6 +278,39 @@ The rest of the mesh (world size 1, after phase 43; eager steps):
    CLI memmap (explicit, --mesh_inner 1, auto): every collective under
    the O(batch) bound; its tables in OUT_DIR/tools_wire_audit.txt.
 
+The data and experiment tools (after phase 34; eager and graphed as
+their entry points build them; each line carries its wall time):
+
+48. preprocess_cli: a 262,144-row Kaggle-format TSV (label, 13 dense, 26
+   hex categoricals, missing cells) through cafe_tpu_torch.data.preprocess
+   and native.NativeEncoder, one after the other and each timed alone:
+   counts, labels and dense floats byte-equal,
+   the native sparse ids the Python ids relabelled in first-seen order
+   (native/encoder.cpp numbers tokens as it meets them); then
+   main_torch.main one epoch on the preprocessed memmap (CAFE, cr 1e-3,
+   dense apply) with its evaluation: K1 and K3 once an iteration, a
+   finite AUC;
+49. job_scheduler: a task file on that data with a hash section and a
+   CAFE section pairing two compress rates with two thresholds, 3 tasks
+   through cafe_tpu_torch.tools.job_scheduler.schedule (main_torch.py
+   processes on the card, 3 workers): every return code 0, each run's
+   config.json, stdouterr.log and scalars.jsonl, and visualization's
+   collect_method_runs / run_summary read an AUC back for each run;
+50. criteo_grid: cafe_tpu_torch.tools.criteo_grid.main on 262,144 rows of
+   the Criteo-scale stream, one epoch, full, hash and CAFE at cr 1e-3,
+   then CAFE at cr 0.1, into OUT_DIR/criteo_grid_torch.jsonl: 4 records
+   of 109 steps, 0.5 < AUC <= 1, slots_used <= slot_capacity, K1 109
+   times a CAFE config, and the first call again skipping each record;
+   each config's train_s, ex_per_s, AUC and peak memory; card against
+   CPU for hash and CAFE (frequency scores) at cr 1e-3 over
+   GRID_GATE_STEPS steps (phase 23's gate); K1 on the inputs an eager
+   CAFE step at cr 0.1 gives it (its largest bucket count), timed;
+51. graphrec_interactions: an events CSV (2,000 users x 1,000 items,
+   60,000 events) split by cafe_tpu_torch.tools.process_interactions (the
+   last event of each user held out), then LightGCN with CAFE one epoch
+   through main_graphrec_torch.main --data_path: one test item a user, K1
+   once a step, a finite recall@20.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
 and, last, the device line. Every JSON line carries `elapsed_s`, the
@@ -290,6 +323,7 @@ import contextlib
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import multiprocessing
 import os
@@ -2657,13 +2691,20 @@ def _sketch_equal(name, card, cpu):
 
 
 def graphrec_cli(main_fn, argv, log_name, kernels):
-    """main_graphrec_torch.main(argv): (its result, prints, wall s, K1
-    launches)."""
+    """main_graphrec_torch.main(argv): (its result, prints, wall s, every
+    kernel's launches in the run, read as it returns)."""
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
     res, lines = run_cli(main_fn, argv, log_name)
-    return res, lines, time.perf_counter() - t0, kernels["land_max"].launches
+    wall = time.perf_counter() - t0
+    return res, lines, wall, {n: k.launches for n, k in kernels.items()}
+
+
+def sum_launches(runs):
+    """{kernel: launches} summed over the runs' `launches` dicts."""
+    return {n: sum(r["launches"][n] for r in runs)
+            for n in runs[0]["launches"]}
 
 
 def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
@@ -2688,9 +2729,10 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
                            "--sketch_threshold", threshold]),
                 ("run_b", ["--epochs", "2", "--save_dir", root,
                            "--sketch_threshold", threshold])):
-            res, lines, wall, k1 = graphrec_cli(
+            res, lines, wall, launches = graphrec_cli(
                 gr.main, flags + plat + extra, f"graphrec_lightgcn_{name}.txt",
                 kernels)
+            k1 = launches["land_max"]
             ep = res["epochs"][-1]
             random_recall = 20 / int(flags[flags.index(
                 "--synthetic_items") + 1])
@@ -2700,13 +2742,15 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
             if device == "cuda" and k1 != ep["steps"]:
                 raise AssertionError(f"lightgcn {name}: K1 launched {k1} "
                                      f"times in {ep['steps']} steps")
-            out[name] = {**ep, "wall_s": wall, "land_max_launches": k1,
+            out[name] = {**ep, "wall_s": wall, "launches": launches,
                          "lines": [ln for ln in lines
                                    if ln.startswith(("epoch", "resumed"))]}
         if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
                    for ln in out["run_b"]["lines"]) \
                 or out["run_b"]["epoch"] != 1 or out["run_a"]["hot_ids"] <= 0:
             raise AssertionError(f"lightgcn resume: {out['run_b']}")
+        out["launches"] = sum_launches(
+            [out[n] for n in ("default_threshold", "run_a", "run_b")])
 
         args = gr.parse_args(flags + ["--sketch_threshold", threshold])
         train, _, n_items = gr.make_synthetic_interactions(
@@ -2765,11 +2809,12 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
     try:
         out = {}
         for name, epochs in (("run_a", "1"), ("run_b", "2")):
-            res, lines, wall, k1 = graphrec_cli(
+            res, lines, wall, launches = graphrec_cli(
                 gr.main, flags + plat + ["--epochs", epochs, "--save_dir",
                                          root, "--steps_per_epoch",
                                          PINSAGE_STEPS],
                 f"graphrec_pinsage_{name}.txt", kernels)
+            k1 = launches["land_max"]
             ep = res["epochs"][-1]
             if len(res["epochs"]) != 1 or not (
                     np.isfinite(ep["loss"]) and 0 < ep["hit"] <= 1
@@ -2778,13 +2823,14 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
             if device == "cuda" and k1 != ep["steps"]:
                 raise AssertionError(f"pinsage {name}: K1 launched {k1} "
                                      f"times in {ep['steps']} steps")
-            out[name] = {**ep, "wall_s": wall, "land_max_launches": k1,
+            out[name] = {**ep, "wall_s": wall, "launches": launches,
                          "lines": [ln for ln in lines
                                    if ln.startswith(("epoch", "resumed"))]}
         if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
                    for ln in out["run_b"]["lines"]) \
                 or out["run_b"]["epoch"] != 1:
             raise AssertionError(f"pinsage resume: {out['run_b']}")
+        out["launches"] = sum_launches([out["run_a"], out["run_b"]])
 
         args = gr.parse_args(flags)
         train, _, n_items = gr.make_synthetic_interactions(
@@ -3142,8 +3188,8 @@ def _pairs(card, cpu):
 
 def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
                   batches, batches_cpu, pretrain=None, pre_steps=0,
-                  meshes=(None, None)):
-    """GATE_STEPS steps of `cfg` on the card (build_all's default step)
+                  meshes=(None, None), steps=GATE_STEPS):
+    """`steps` steps of `cfg` on the card (build_all's default step)
     and on the CPU, each step from one state (the card's, copied to the
     CPU before it); AE pretraining first when `pretrain`, `pre_steps`
     card steps first (a CAFE+ sketch near its reset's trip). For a CAFE+
@@ -3170,7 +3216,7 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
                                                capture=False,
                                                mesh=meshes[1])
     lr = cfg.learning_rate
-    rec = {"steps": GATE_STEPS, "graphed": bool(g_step.graphed),
+    rec = {"steps": steps, "graphed": bool(g_step.graphed),
            "max_abs_diff": {}, "max_share_of_bound": {}}
     fires = {"reset": 0, "decay": 0}
     for i in range(pre_steps):
@@ -3189,7 +3235,7 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
             if not diff <= AE_TOL:
                 raise AssertionError(f"pretraining: {path} differs by "
                                      f"{diff} > {AE_TOL}")
-    for i in range(GATE_STEPS):
+    for i in range(steps):
         for j, part in enumerate(g_embed.parts):
             count_fires(fires, part, g_state.embed[f"part{j}"].get("sketch"))
         c_state = from_reference(to_numpy(g_state), "cpu")
@@ -3714,6 +3760,325 @@ def phase_export(build_all, export_eval_step, cfg, data, batches,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- the data and experiment tools
+
+PREPROCESS_ROWS = 262144      # 224,694 train rows (110 its), 37,450 test
+GRID_ROWS = 262144            # criteo_grid: 224,694 train rows, 109 steps
+GRID_GATE_STEPS = 16          # card against CPU, each step from one state
+INTERACTIONS = dict(users=2000, items=1000, events=60000, leave_n=1)
+
+
+def write_kaggle_tsv(path, rows, seed=0):
+    """A Kaggle-format raw TSV: label, 13 integer dense cells (10 %
+    missing), 26 categoricals of 8 hex digits (5 % missing) drawn with
+    make_criteo_arrays' skew over the 26 Kaggle vocabularies, so CAFE at
+    cr 1e-3 keeps a sketch (tests/test_preprocess_parity.py's fixture has
+    the same format at vocabularies of at most 1,000)."""
+    from cafe_tpu_torch.data import CRITEO_COUNTS
+    rng = np.random.default_rng(seed)
+    ints = np.array([""] + [str(v) for v in range(-2, 1000)])
+    label = rng.integers(0, 2, rows)
+    dense = np.where(rng.random((rows, 13)) < 0.1, 0,
+                     rng.integers(1, 1003, (rows, 13)))
+    cols = [ints[label + 3][:, None], ints[dense]]
+    for n in CRITEO_COUNTS:
+        ids = ((rng.random(rows) ** 4.0 * n).astype(np.int64)
+               * 1000000007) % n
+        uniq, inv = np.unique(ids, return_inverse=True)
+        text = np.array([""] + [f"{v:08x}" for v in uniq.tolist()])
+        cols.append(np.where(rng.random(rows) < 0.05, "",
+                             text[inv + 1])[:, None])
+    table = np.concatenate(cols, axis=1)
+    with open(path, "w") as f:
+        f.write("\n".join(map("\t".join, table.tolist())) + "\n")
+
+
+def first_seen_relabel(native_ids, sorted_ids):
+    """True when each field's native ids are 0, 1, 2, ... in order of
+    first appearance and map one to one onto the sorted encoder's ids
+    (native/encoder.cpp numbers tokens as it meets them; the Python
+    encoder sorts them, as sklearn's LabelEncoder does)."""
+    for j in range(sorted_ids.shape[1]):
+        nat, ref = native_ids[:, j], sorted_ids[:, j]
+        first = np.unique(nat, return_index=True)[1]
+        if not (np.array_equal(np.sort(first), first)
+                and np.array_equal(ref, ref[first][nat])
+                and len(np.unique(ref)) == len(first)):
+            return False
+    return True
+
+
+def phase_preprocess_cli(main_fn, preprocess, native, kernels, root,
+                         device="cuda"):
+    """A 262,144-row Kaggle-format TSV through the port's preprocess (the
+    Python encoder) and native.NativeEncoder into `root`/py and
+    `root`/native: counts, labels and dense floats byte-equal, sparse ids
+    equal up to each field's first-seen relabelling. Then main_torch.main
+    trains one epoch on the preprocessed memmap (CAFE, cr 1e-3, the dense
+    apply) and evaluates: K1 and K3 once an iteration, a finite AUC."""
+    raw = os.path.join(root, "train.txt")
+    t0 = time.perf_counter()
+    write_kaggle_tsv(raw, PREPROCESS_ROWS)
+    rec = {"rows": PREPROCESS_ROWS, "raw_bytes": os.path.getsize(raw),
+           "write_s": time.perf_counter() - t0}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
+    def native_encode():
+        enc = native.NativeEncoder(num_dense=13, num_sparse=26, sep="\t")
+        enc.collect(raw)
+        enc.encode(raw, os.path.join(root, "native"))
+
+    # one after the other, so that each time is that encoder's own
+    rec["python_encoder_s"] = timed(preprocess.process_criteo, raw,
+                                    os.path.join(root, "py"))
+    rec["native_encoder_s"] = timed(native_encode)
+    files = {}
+    for name in ("count", "label", "dense", "sparse_sep"):
+        files[name] = [open(os.path.join(root, d, f"processed_{name}.bin"),
+                            "rb").read() for d in ("py", "native")]
+    for name in ("count", "label", "dense"):
+        if files[name][0] != files[name][1]:
+            raise AssertionError(f"preprocess: processed_{name}.bin differs "
+                                 f"between the Python and native encoders")
+    py_ids, nat_ids = (np.frombuffer(b, np.int32).reshape(-1, 26)
+                       for b in files["sparse_sep"])
+    if not first_seen_relabel(nat_ids, py_ids):
+        raise AssertionError("preprocess: native sparse ids are not the "
+                             "Python ids relabelled in first-seen order")
+    rec["counts"] = np.frombuffer(files["count"][0], np.int32).tolist()
+    rec["bytes_equal"] = ["count", "label", "dense"]
+    rec["sparse_first_seen_relabel"] = True
+    os.remove(raw)
+
+    plat = ["--force_platform", "cpu"] if device == "cpu" else []
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, lines = run_cli(main_fn, CLI_FLAGS + plat + [
+        "--data_path", os.path.join(root, "py"), "--nepochs", "1",
+        "--print_freq", "16", "--test_freq", "100000",
+        "--tensor_board_filename", os.path.join(root, "tb")],
+        "preprocess_cli_run.txt")
+    rec["train_wall_s"] = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    trained = [ln.split() for ln in lines
+               if ln.startswith("Finished training it ")]
+    its = int(trained[-1][3].split("/")[1])
+    auc = res["metrics"]["roc_auc"]
+    if int(trained[-1][3].split("/")[0]) != its or not np.isfinite(auc):
+        raise AssertionError(f"preprocess_cli: {trained[-1]}, {res}")
+    if device == "cuda" and (launches["land_max"] != its
+                             or launches["rowsum"] != its):
+        raise AssertionError(f"preprocess_cli: launches {launches} in "
+                             f"{its} its")
+    rec.update(its=its, metrics=res["metrics"], launches=launches,
+               ms_per_it_median=float(np.median([float(w[7])
+                                                 for w in trained])))
+    return rec
+
+
+def phase_job_scheduler(job_scheduler, visualization, data_path, root,
+                        cpu=False):
+    """A task file whose `base` points at the preprocessed data, with a
+    hash section (cr 1e-3) and a CAFE section pairing two compress rates
+    with two thresholds: 3 tasks through job_scheduler.schedule (3
+    workers; main_torch.py processes on the card). Every return code 0,
+    each run directory holds config.json, stdouterr.log and
+    scalars.jsonl, and visualization reads an AUC back for each run."""
+    board = os.path.join(root, "board")
+    base = {CLI_FLAGS[i][2:]: CLI_FLAGS[i + 1]
+            for i in range(0, len(CLI_FLAGS), 2)}
+    base.update(data_path=data_path, nepochs=1, print_freq=32,
+                test_freq=100000)
+    spec = {"base": base,
+            "hash": {"compress_method": "hash", "compress_rate": [0.001],
+                     "tensor_board_filename": os.path.join(board, "hash")},
+            "cafe": {"compress_method": "cafe",
+                     "compress_rate": [0.01, 0.001],
+                     "cafe_sketch_threshold": [100, 500],
+                     "tensor_board_filename": os.path.join(board, "cafe")}}
+    path = os.path.join(root, "tasks.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    with tool_log("job_scheduler"):
+        codes = job_scheduler.schedule([path], workers=3, cpu=cpu)
+    rec = {"tasks": len(codes), "return_codes": codes,
+           "wall_s": time.perf_counter() - t0, "runs": {}}
+    if codes != [0, 0, 0]:
+        raise AssertionError(f"job_scheduler: return codes {codes}")
+    for method, crs in (("hash", [0.001]), ("cafe", [0.01, 0.001])):
+        runs = visualization.collect_method_runs(board, method)
+        if sorted(runs) != sorted(crs):
+            raise AssertionError(f"job_scheduler: {method} runs {runs}")
+        for cr in crs:
+            run = os.path.join(board, f"{method}{cr}")
+            for name in ("config.json", "stdouterr.log", "scalars.jsonl"):
+                if not os.path.exists(os.path.join(run, name)):
+                    raise AssertionError(f"job_scheduler: {run} has no "
+                                         f"{name}")
+            if not np.isfinite(runs[cr].get("auc", np.nan)):
+                raise AssertionError(f"job_scheduler: {run}: {runs[cr]}")
+            rec["runs"][f"{method}{cr}"] = runs[cr]
+    return rec
+
+
+def grid_batches(train, n, device):
+    """The first `n` grid batches (drop_last) on `device`."""
+    from cafe_tpu_torch.data import batch_iterator
+    out = []
+    for dense, sparse, label, valid in itertools.islice(
+            batch_iterator(train, 2048, drop_last=True), n):
+        out.append((*(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                      for x in (dense, sparse, label)), valid))
+    return out
+
+
+def phase_criteo_grid(criteo_grid, build_all, from_reference, to_numpy, bce,
+                      land, kernels, out_path, device="cuda"):
+    """cafe_tpu_torch.tools.criteo_grid.main on 262,144 rows of the
+    Criteo-scale stream (the 26 Kaggle vocabularies), one epoch: full,
+    hash and CAFE at cr 1e-3, then CAFE at cr 0.1 (K1's largest bucket
+    count), into a fresh `out_path`. Gates: 4 records of 109 steps each,
+    0.5 < AUC <= 1, slots_used <= slot_capacity (CAFE at cr 1e-3 must
+    report them), K1 109 times a CAFE config; the first call again writes
+    nothing and skips each record. Then card against CPU for hash and CAFE
+    (frequency scores) at cr 1e-3 over GRID_GATE_STEPS steps, each from
+    one state (gate_card_cpu), and K1 on the inputs the 17th eager step of
+    CAFE at cr 0.1 gives it, timed (land_real_case)."""
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    plat = ["--platform", "cpu"] if device == "cpu" else []
+    base = ["--rows", str(GRID_ROWS), "--epochs", "1", "--out", out_path]
+    first = base + plat + ["--methods", "full", "hash", "cafe", "--crs",
+                           "0.001"]
+    calls = {}
+    for name, argv in (("a", first), ("b", base + plat + [
+            "--methods", "cafe", "--crs", "0.1"]), ("again", first)):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            _, lines = run_cli(criteo_grid.main, argv,
+                               f"tools_criteo_grid_{name}.txt")
+        except SystemExit as e:
+            raise AssertionError(f"criteo_grid {name}: exit {e.code}")
+        calls[name] = {"wall_s": time.perf_counter() - t0, "lines": lines,
+                       "launches": {n: k.launches
+                                    for n, k in kernels.items()}}
+    with open(out_path) as f:
+        recs = [json.loads(ln) for ln in f]
+    keys = [(r["method"], r["cr"]) for r in recs]
+    if keys != [("full", 1.0), ("hash", 0.001), ("cafe", 0.001),
+                ("cafe", 0.1)]:
+        raise AssertionError(f"criteo_grid: records {keys}")
+    steps = GRID_ROWS * 6 // 7 // 2048
+    for r in recs:
+        if r["steps"] != steps or not 0.5 < r["auc"] <= 1.0:
+            raise AssertionError(f"criteo_grid: {r}")
+        if r.get("slots_used", 0) > r.get("slot_capacity", 0):
+            raise AssertionError(f"criteo_grid: slots {r}")
+    if "slots_used" not in recs[2]:
+        raise AssertionError(f"criteo_grid: CAFE at cr 1e-3 reports no "
+                             f"slots: {recs[2]}")
+    skips = [ln for ln in calls["again"]["lines"] if ln.startswith("skip")]
+    if len(skips) != 3 or any("--- " in ln
+                              for ln in calls["again"]["lines"]):
+        raise AssertionError(f"criteo_grid again: {calls['again']['lines']}")
+    if device == "cuda" and (calls["a"]["launches"]["land_max"] != steps
+                             or calls["b"]["launches"]["land_max"]
+                             != steps):
+        raise AssertionError(f"criteo_grid: K1 launches "
+                             f"{calls['a']['launches']}, "
+                             f"{calls['b']['launches']}, not {steps} a "
+                             f"CAFE config")
+    rec = {"records": recs, "skipped_again": skips,
+           "wall_s": {n: c["wall_s"] for n, c in calls.items()},
+           "launches": {n: calls["a"]["launches"][n]
+                        + calls["b"]["launches"][n] for n in kernels}}
+
+    data = criteo_grid.gen_data(GRID_ROWS, 1.1, 7)
+    cut = GRID_ROWS * 6 // 7
+    train = type(data)(data.sparse[:cut], data.dense[:cut],
+                       data.label[:cut], data.counts)
+    gb = grid_batches(train, GRID_GATE_STEPS + 1, device)
+    gb_cpu = [(d.cpu(), s.cpu(), l.cpu(), v) for d, s, l, v in gb]
+    rec["card_vs_cpu"] = {}
+    for method in ("hash", "cafe"):
+        cfg = criteo_grid.grid_config(method, 0.001, 500.0, 0.2, GRID_ROWS,
+                                      2048, cafe_use_freq=True)
+        rec["card_vs_cpu"][method] = gate_card_cpu(
+            build_all, from_reference, to_numpy, bce, cfg, train, gb,
+            gb_cpu, steps=GRID_GATE_STEPS)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    cfg = criteo_grid.grid_config("cafe", 0.1, 20.0, 0.5, GRID_ROWS, 2048)
+    _, _, state, step, _ = build_all(cfg, train, device=device,
+                                     capture=False)
+    for b in gb[:GRID_GATE_STEPS]:
+        state, _ = step(state, *b)
+    k1 = land_captured(land, lambda: step(state, *gb[GRID_GATE_STEPS]))
+    rec["land_max_case_cr0.1"] = land_real_case(land, *k1[0])
+    del state, step
+    return rec
+
+
+def write_events(path, users, items, events, seed=0):
+    """A (user, item, timestamp) CSV: Zipf-skewed items, each user's
+    events spread over a year of zero-padded epoch seconds."""
+    rng = np.random.default_rng(seed)
+    user = rng.integers(0, users, events)
+    item = np.minimum((rng.random(events) ** 2 * items).astype(np.int64),
+                      items - 1)
+    ts = rng.integers(1_600_000_000, 1_631_536_000, events)
+    with open(path, "w") as f:
+        f.write("user_id,item_id,created_at\n")
+        f.writelines(f"u{u},t{i},{t:012d}\n"
+                     for u, i, t in zip(user.tolist(), item.tolist(),
+                                        ts.tolist()))
+
+
+def phase_graphrec_interactions(gr, process_interactions, kernels, root,
+                                device="cuda"):
+    """An events CSV (2,000 users x 1,000 items, 60,000 events) split by
+    process_interactions (the last event of each user held out), then
+    LightGCN with CAFE for one epoch through main_graphrec_torch.main
+    --data_path on the split: leave_n test items a user, K1 once a step,
+    a finite recall@20."""
+    csv_path = os.path.join(root, "events.csv")
+    split = os.path.join(root, "split")
+    write_events(csv_path, INTERACTIONS["users"], INTERACTIONS["items"],
+                 INTERACTIONS["events"])
+    stats = process_interactions.process(
+        csv_path, split, "user_id", "item_id", "created_at",
+        INTERACTIONS["leave_n"])
+    with open(os.path.join(split, "test.txt")) as f:
+        held = [len(ln.split()) - 1 for ln in f]
+    if stats["users"] != INTERACTIONS["users"] or \
+            set(held) != {INTERACTIONS["leave_n"]}:
+        raise AssertionError(f"process_interactions: {stats}, held-out "
+                             f"counts {sorted(set(held))}")
+    plat = ["--force_platform", "cpu"] if device == "cpu" else []
+    flags = LIGHTGCN_FLAGS[:LIGHTGCN_FLAGS.index("--synthetic_users")]
+    res, lines, wall, launches = graphrec_cli(
+        gr.main, flags + plat + ["--data_path", split, "--epochs", "1",
+                                 "--sketch_threshold", LIGHTGCN_THRESHOLD],
+        "graphrec_interactions.txt", kernels)
+    k1 = launches["land_max"]
+    ep = res["epochs"][-1]
+    if not (np.isfinite(ep["loss"]) and np.isfinite(ep["recall"])):
+        raise AssertionError(f"graphrec_interactions: {res}")
+    if device == "cuda" and k1 != ep["steps"]:
+        raise AssertionError(f"graphrec_interactions: K1 launched {k1} "
+                             f"times in {ep['steps']} steps")
+    return {"split": stats, **ep, "wall_s": wall, "launches": launches,
+            "lines": [ln for ln in lines if ln.startswith("epoch")]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3731,7 +4096,11 @@ def main() -> int:
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     from cafe_tpu_torch.ops.quantized import (dequantize_rows,
                                               quantize_rowwise)
-    from cafe_tpu_torch.tools import roofline, wire_audit
+    from cafe_tpu_torch import native
+    from cafe_tpu_torch.data import preprocess
+    from cafe_tpu_torch.tools import (criteo_grid, job_scheduler,
+                                      process_interactions, roofline,
+                                      visualization, wire_audit)
     from cafe_tpu_torch.tools.export_model import export_eval_step
     from cafe_tpu_torch.train import (build_all, build_multi_step,
                                       build_quantized_eval_step, run)
@@ -4022,10 +4391,7 @@ def main() -> int:
         t0 = time.perf_counter()
         rec = phase(main_graphrec_torch, land, load_tree, to_numpy, KERNELS)
         land_shapes[name] = rec["land_max_cases"]
-        by_path[name] = {n: 0 for n in KERNELS}
-        by_path[name]["land_max"] = sum(
-            r["land_max_launches"] for r in rec.values()
-            if isinstance(r, dict) and "land_max_launches" in r)
+        by_path[name] = rec["launches"]
         emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
         torch.cuda.empty_cache()
 
@@ -4097,6 +4463,43 @@ def main() -> int:
     skb = phase_sketch_bench(load_tool("sketch_bench_torch"), KERNELS)
     by_path["sketch_bench"] = skb["launches"]
     emit({"phase": "sketch_bench", **skb})
+
+    # ---- the data and experiment tools: preprocessing, the task
+    # launcher, the Criteo-scale grid, the interactions splitter
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(scratch, exist_ok=True)
+    tools_root = tempfile.mkdtemp(prefix="chip_smoke_tools_", dir=scratch)
+    try:
+        t0 = time.perf_counter()
+        pre = phase_preprocess_cli(main_torch.main, preprocess, native,
+                                   KERNELS, tools_root)
+        by_path["preprocess_cli"] = pre["launches"]
+        emit({"phase": "preprocess_cli", "wall_s": time.perf_counter() - t0,
+              **pre})
+        t0 = time.perf_counter()
+        emit({"phase": "job_scheduler", **phase_job_scheduler(
+            job_scheduler, visualization, os.path.join(tools_root, "py"),
+            tools_root), "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        grid = phase_criteo_grid(
+            criteo_grid, build_all, from_reference, to_numpy, _bce, land,
+            KERNELS, os.path.join(os.path.abspath(OUT_DIR),
+                                  "criteo_grid_torch.jsonl"))
+        by_path["criteo_grid"] = grid["launches"]
+        land_shapes["criteo_grid_cr0.1"] = [grid["land_max_case_cr0.1"]]
+        emit({"phase": "criteo_grid", "wall_s": time.perf_counter() - t0,
+              **grid})
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gri = phase_graphrec_interactions(main_graphrec_torch,
+                                          process_interactions, KERNELS,
+                                          tools_root)
+        by_path["graphrec_interactions"] = gri["launches"]
+        emit({"phase": "graphrec_interactions",
+              "wall_s": time.perf_counter() - t0, **gri})
+    finally:
+        shutil.rmtree(tools_root, ignore_errors=True)
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",

@@ -67,11 +67,20 @@ def test_no_import_names_jax_or_cafe_tpu(path):
             assert root not in FORBIDDEN, f"{path}:{node.lineno} {name}"
 
 
-def test_tools_import_with_jax_blocked():
+# the data and experiment tools: each parses its flags (--help)
+FLAG_TOOLS = ["cafe_tpu_torch.data.preprocess",
+              "cafe_tpu_torch.tools.criteo_grid",
+              "cafe_tpu_torch.tools.job_scheduler",
+              "cafe_tpu_torch.tools.process_interactions",
+              "cafe_tpu_torch.tools.visualization"]
+
+
+def test_tools_import_with_jax_blocked(tmp_path):
     """cafe_tpu_torch.tools and the port's root tool scripts import (and
     parse their flags) with jax and cafe_tpu blocked."""
     assert "cafe_tpu_torch.tools.roofline" in _all_modules()
-    code = ("import sys, importlib.util\n"
+    assert set(FLAG_TOOLS) <= set(_all_modules())
+    code = ("import sys, importlib, importlib.util, contextlib, io\n"
             "for name in ('jax', 'jaxlib', 'cafe_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import cafe_tpu_torch.tools.roofline\n"
@@ -80,6 +89,19 @@ def test_tools_import_with_jax_blocked():
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'tools/{name}.py')\n"
             "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            f"for name in {FLAG_TOOLS!r}:\n"
+            "    mod = importlib.import_module(name)\n"
+            "    try:\n"
+            "        with contextlib.redirect_stdout(io.StringIO()) as out:\n"
+            "            mod.main(['--help'])\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code == 0 and 'usage' in out.getvalue(), name\n"
+            "    else:\n"
+            "        raise AssertionError(name)\n"
+            "from cafe_tpu_torch.tools import gen_tasks, hlo_traffic\n"
+            "with contextlib.redirect_stdout(io.StringIO()):\n"
+            f"    gen_tasks.main({str(tmp_path)!r})\n"
+            "assert hlo_traffic.model_result_bytes(512, 16, 4, 100)['total']\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -183,7 +205,9 @@ def test_batch_iterator_matches_jax_package():
 
 
 COPIES = ["train/metrics.py", "utils/logging.py", "data/datasets.py",
-          "sketch/oracle.py", "models/graphrec/sampling.py"]
+          "sketch/oracle.py", "models/graphrec/sampling.py",
+          "data/preprocess.py", "tools/gen_tasks.py",
+          "tools/visualization.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

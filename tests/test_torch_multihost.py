@@ -13,7 +13,7 @@ on gloo ranks (tests/torch_dist_worker.py):
   plain indexing;
 * the wire audit's exit codes: 0 for the sharded CAFE step, 1 for a
   configuration that broadcasts an O(vocab) table every step (weighted
-  pooling's replicated `w`).
+  pooling's replicated `w`), as the JAX package's audit gives 1 there.
 
 Tolerances: the flat two-node run prints the one-node run's losses
 exactly; the two-level run within 2e-6 (the printed 6 decimals; its
@@ -21,7 +21,11 @@ apply coalesces over the host's lanes). embedding_parallel within 1e-6
 (duplicate rows sum in another order).
 """
 
+import os
 import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +37,7 @@ from test_torch_mesh_checkpoint import KW, _argv, _losses
 
 torch.set_num_threads(1)
 
+REPO = Path(__file__).resolve().parents[1]
 N = 4
 ARGV = _argv(KW)
 TWO_LEVEL = ARGV + ["--mesh_inner", "2"]
@@ -117,17 +122,36 @@ def test_embedding_parallel_matches_plain_indexing(nodes):
                                    rtol=1e-6, atol=1e-6)
 
 
+WEIGHTED = ["--compress_method", "hash", "--compress_rate", "0.2",
+            "--weighted_pooling", "learned", "--synthetic_vocab", "200000"]
+# first item of a case whose audit is the JAX package's, run as its own
+# process (it sets up 4 virtual XLA devices before jax starts)
+JAX_AUDIT = "cafe_tpu.tools.wire_audit"
+
+
 @pytest.mark.parametrize("flags,code", [
     (["--compress_method", "cafe", "--compress_rate", "0.05",
       "--mesh_inner", "2", "--shard_unique_frac", "0.5"], 0),
-    (["--compress_method", "hash", "--compress_rate", "0.2",
-      "--weighted_pooling", "learned", "--synthetic_vocab", "200000"], 1)])
+    (WEIGHTED, 1),
+    # the JAX package fails weighted pooling too: its compiled step
+    # all-reduces `w`'s dense gradient (4,369,712 B over a 2,337,352 B
+    # bound), as the port broadcasts `w` (an O(vocab) collective in both)
+    ([JAX_AUDIT] + WEIGHTED, 1)])
 def test_wire_audit_exit_codes(flags, code, capsys):
     base = ["--force_platform", "cpu", "--devices", "4",
             "--synthetic_rows", "1024", "--synthetic_fields", "4",
             "--synthetic_dense", "4", "--embedding_dim", "8",
             "--mini_batch_size", "128", "--synthetic_vocab", "20000",
             "--tensor_board_filename", ""]
+    if flags[0] == JAX_AUDIT:
+        env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+        out = subprocess.run([sys.executable, "-m", JAX_AUDIT, *base,
+                              *flags[1:]], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == code, out.stdout + out.stderr
+        assert "FAIL" in out.stdout and "all-reduce: 4,369,712 B" \
+            in out.stdout, out.stdout
+        return
     assert wire_audit.main(base + flags) == code
     out = capsys.readouterr().out
     assert ("PASS" if code == 0 else "FAIL") in out

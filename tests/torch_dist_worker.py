@@ -651,3 +651,18 @@ def multihost_pieces(mesh, table, ids, upd, lr, batch):
         out["odd"] = str(e)
     out["gathered"] = gather_to_host(got[2], mesh)
     return out
+
+
+def collective_totals(mesh, argvs):
+    """For each argv (main_torch.py's flags), one sharded train step's
+    recorded collectives (tools/wire_audit.audit): this rank's total
+    result bytes, by op, the towers' bytes and the batch lanes."""
+    from cafe_tpu_torch.config import parse_args
+    from cafe_tpu_torch.tools.wire_audit import audit
+    out = []
+    for argv in argvs:
+        res = audit(parse_args(list(argv) + ["--mesh_shape",
+                                             str(mesh.size)]), mesh)
+        out.append({k: res[k] for k in ("total", "dense_bytes", "lanes",
+                                         "collectives")})
+    return out
