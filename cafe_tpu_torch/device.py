@@ -18,3 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
             "cafe_tpu_torch: CUDA was requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def device_name(device) -> str:
+    """The name a measurement names its device by: the card's
+    (torch.cuda.get_device_name) or "cpu"."""
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

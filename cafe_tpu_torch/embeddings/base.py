@@ -701,6 +701,25 @@ class EmbeddingLayer:
         self._cols = [torch.as_tensor(p.field_idx, device=self.device)
                       for p in parts]
 
+    def memory_rows(self) -> int:
+        """Total embedding-table rows across all parts (the JAX package's
+        compress-rate audit; MDE / AE rows have reduced dims)."""
+        rows = 0
+        for p in self.parts:
+            if isinstance(p, HashedTablePart):
+                rows += p.rows
+            elif isinstance(p, QRPart):
+                rows += sum(p.q_rows) + sum(p.r_rows)
+            elif isinstance(p, OffPart):
+                rows += p.hot_rows + p.cold_rows
+            elif hasattr(p, "total_rows"):      # CafePart unified table
+                rows += p.total_rows
+            elif hasattr(p, "hotn"):            # AdaPart global pool
+                rows += p.hotn + 1
+            elif hasattr(p, "counts"):          # MDE / AE reduced-dim tables
+                rows += sum(p.counts)
+        return rows
+
     def set_mesh(self, mesh, unique_frac: float = 0.0,
                  exchange_mode: str = "explicit") -> List[str]:
         """Turn on the explicit exchange on every part that supports it

@@ -311,8 +311,54 @@ their entry points build them; each line carries its wall time):
    through main_graphrec_torch.main --data_path: one test item a user, K1
    once a step, a finite recall@20.
 
+The repo's root measurement tools and a dataset launcher (after phase
+51; each tools/*_torch.py in this process at its JAX twin's shapes, cut
+to TOOL_WINDOWS windows of TOOL_STEPS steps; their prints go to
+OUT_DIR/tools_*.txt; every reading must be finite and positive):
+
+52. latency_grid: the reference's latency protocol (hash, QR, MDE,
+   AdaEmbed, CAFE at the CriteoTB towers, dim 128, cr 0.1, train batch
+   2048, test batch 16,384): the JAX record's keys, AdaEmbed eager and
+   the rest graphed, each method's K1 / K2 launches as its apply routes
+   predict (predicted_launches) times the steps taken, its own peak
+   memory, every latency.json read back through
+   visualization.plot_latency (a recording stand-in for matplotlib
+   where the machine has none), and K2 held against its plain version
+   on each method's first eager inputs that land a lane;
+53. step_breakdown: both grids (criteo: cafe, cafe_iv8, hash, full at
+   dim 16; criteotb: cafe, hash at dim 128), each arm and its forward
+   arm eager and graphed (cafe_iv8 stays eager); K1 once a CAFE train
+   step (every 8th at cafe_iv8), K2 once a train step at dim 128;
+54. profile_step: 5 graphed K = 8 dispatches under torch.profiler, the
+   replays traced (no fall-back to the eager step); 40 of K1's land_max
+   kernels among the device ops;
+55. profile_train: 4 eager steps, device time by source line; the lines
+   hold at least the tool's MIN_ATTRIBUTED of the device-busy time;
+56. variance_cafe_vs_hash: three seeds at full size, graphed; finite AUCs,
+   K1 once a CAFE step, and K1 held on its first eager inputs;
+57. sweep_cafe_vs_hash: the sweep's first two grid points (two seeds
+   each), as phase 56;
+58. ab_apply128: K2 within its numerics bound, then index_add_ fresh, in
+   place and K2 at the CriteoTB and dim-16 shapes, each arm's window
+   one replayed CUDA graph of its chain; K2 once a call, and held
+   against its plain version on each level's first inputs;
+59. ab_interact: the four interaction arms, each chain one CUDA graph,
+   within the bf16 bound of their exact products, their kernels named;
+60. ab_scatter_vs_sorted (--sparse_apply_impl dense): the full-table pass
+   against the scatter at the CAFE table, the big-table scatter; K3
+   once an SGD scatter call;
+61. reset_cost: CAFE+'s insert without and with the speculative reset at
+   lim 1,000,000, graphed; the fires of a 100-step Zipf stream;
+62. probes: kernel_overhead_probe (eager and graphed), micro_ops (one
+   graph, split by marker kernels), clock_probe (at most 1.05 of the
+   bf16 peak);
+63. launcher_criteo_kaggle: bench/criteo_kaggle_torch.sh on phase 48's
+   preprocessed data, $1 capping it at 220 iterations of 1024 rows
+   (CAFE, cr 1e-3, dense apply): exit 0 and a finite AUC.
+
 Then the kernels line (every kernel's launches on the main path, those
-made by graph replays, error, times, bound and, for K1 and K5, graph_ms)
+made by graph replays, error, times, bound and, for K1 and K5, graph_ms;
+K1's and K2's cases at the other paths' shapes under "other_paths")
 and, last, the device line. Every JSON line carries `elapsed_s`, the
 seconds since the script started.
 Exits non-zero without a CUDA card or without the cafe_tpu_torch package
@@ -533,7 +579,8 @@ def scatter_add_case(scatter_add, table, ids, upd):
     b = ids.shape[0]
     keep = (ids >= 0) & (ids < n)
     _, group_sizes = torch.unique(ids[keep], return_counts=True)
-    g_max, uniq = int(group_sizes.max()), int(group_sizes.numel())
+    g_max = int(group_sizes.max()) if group_sizes.numel() else 0
+    uniq = int(group_sizes.numel())
     before = scatter_add.KERNEL.launches
     got = scatter_add.scatter_add_(table.clone(), ids, upd)
     if scatter_add.KERNEL.launches != before + 1:
@@ -4079,6 +4126,490 @@ def phase_graphrec_interactions(gr, process_interactions, kernels, root,
             "lines": [ln for ln in lines if ln.startswith("epoch")]}
 
 
+# ---------------------------------------------------------------------------
+# The repo's root measurement tools (tools/*_torch.py) and the dataset
+# launcher, each in this process at the shapes its JAX twin uses (module
+# docstring, phases 52-63); their own prints go to OUT_DIR/tools_*.txt.
+
+TOOL_WINDOWS, TOOL_STEPS = 2, 20
+BREAKDOWN_WARMUP = 5          # a graphed arm captures on its third call
+LATENCY_KEYS = {"method", "dim", "cr", "train_ms_per_it", "test_ms_per_it",
+                "train_batch", "test_batch", "examples_per_s", "windows",
+                "build_s", "table_rows"}     # tools/latency_grid.py:99-108
+RESET_KEYS = {"lim", "batch", "candidate_cells", "steady_us",
+              "steady_minmax", "forced_reset_us", "forced_minmax",
+              "per_fire_us", "worst_case_min_steps_between_fires",
+              "worst_case_amortized_overhead", "zipf_stream_steps",
+              "zipf_stream_fires"}            # tools/reset_cost.py:112-126
+OVERHEAD_KEYS = {"shape", "us_k16", "us_k128", "us_per_kernel",
+                 "bandwidth_us_expected"}   # kernel_overhead_probe.py:56-61
+SWEEP_POINTS = 2
+LAUNCHER_FLAGS = ["--compress_method", "cafe", "--compress_rate", "0.001",
+                  "--cafe_sketch_threshold", "500", "--cafe_hash_rate", "0.5",
+                  "--sparse_apply_impl", "dense", "--bf16", "true",
+                  "--mini_batch_size", "1024", "--test_freq", "1000000"]
+
+
+def _zero(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _counts(kernels):
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def positive(name, readings):
+    """Fail on a reading that is not finite and above 0."""
+    bad = {k: v for k, v in readings.items()
+           if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{name}: non-finite or non-positive readings "
+                             f"{bad}")
+
+
+def lands(table, ids, upd) -> bool:
+    """Whether a K2 call adds any lane (AdaEmbed's first steps send every
+    lane to the dropped row n_rows)."""
+    return bool(((ids >= 0) & (ids < table.shape[0])).any())
+
+
+@contextlib.contextmanager
+def first_inputs(module, attr, keep=1, wanted=None, by_ref=0):
+    """Record the arguments of `module.attr`'s first calls made outside a
+    CUDA graph capture (and, given `wanted`, for which wanted(*args)
+    holds), one per shape of its arguments, at most `keep`: cloned before
+    the call, except the first `by_ref` (K2's table, which the call
+    updates in place and scatter_add_case clones itself: a copy here
+    would count in the path's peak memory). Yields {shapes: args}; a
+    caller may empty it to record the next calls."""
+    seen, wrapper = {}, getattr(module, attr)
+
+    def recording(*args):
+        key = tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        capturing = (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
+        if len(seen) < keep and key not in seen and not capturing and (
+                wanted is None or wanted(*args)):
+            seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                              and i >= by_ref else a
+                              for i, a in enumerate(args))
+        return wrapper(*args)
+
+    setattr(module, attr, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, attr, wrapper)
+
+
+class _Axes:
+    def __init__(self, bars):
+        self.bars = bars
+
+    def bar(self, x, heights, *args, **kwargs):
+        self.bars.append([float(h) for h in heights])
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def plotted_latency(visualization, boards):
+    """visualization.plot_latency over `boards`: the bars it drew (train
+    ms, test ms, K ex/s), read from matplotlib's calls. Where the card's
+    machine has no matplotlib, a recording stand-in takes its place for
+    this call, so the loading and the values are checked all the same."""
+    import importlib.util
+    import types
+    bars = []
+    axes = (_Axes(bars), _Axes(bars))
+    out = os.path.join(boards, "latency.png")
+    if importlib.util.find_spec("matplotlib") is None:
+        plt = types.SimpleNamespace(
+            subplots=lambda *a, **k: (types.SimpleNamespace(
+                tight_layout=lambda: None, savefig=lambda *a, **k: None),
+                axes))
+        mpl = types.SimpleNamespace(use=lambda *a: None, pyplot=plt)
+        saved = {k: sys.modules.get(k) for k in ("matplotlib",
+                                                 "matplotlib.pyplot")}
+        sys.modules["matplotlib"], sys.modules["matplotlib.pyplot"] = mpl, plt
+        try:
+            visualization.plot_latency(boards, out)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    sys.modules.pop(k, None)
+                else:
+                    sys.modules[k] = v
+        return {"matplotlib": False, "bars": bars}
+    import matplotlib.pyplot as plt
+    real = plt.subplots
+
+    def recording(*a, **k):
+        fig, (a1, a2) = real(*a, **k)
+        for ax in (a1, a2):
+            orig = ax.bar
+
+            def bar(x, h, *args, _orig=orig, **kw):
+                bars.append([float(v) for v in h])
+                return _orig(x, h, *args, **kw)
+            ax.bar = bar
+        return fig, (a1, a2)
+    plt.subplots = recording
+    try:
+        visualization.plot_latency(boards, out)
+    finally:
+        plt.subplots = real
+    if not os.path.getsize(out):
+        raise AssertionError("latency_grid: plot_latency wrote no figure")
+    return {"matplotlib": True, "bars": bars, "png_bytes":
+            os.path.getsize(out)}
+
+
+def phase_latency_grid(tool, visualization, scatter_add, kernels, root,
+                       device="cuda"):
+    """tools/latency_grid_torch.py, all five methods, TOOL_WINDOWS x
+    TOOL_STEPS: the JAX record's keys, finite positive times, each
+    method's launches as its apply routes predict (K1 once a CAFE step, K2
+    once a step per table of >= 2^20 rows at dim 128), AdaEmbed eager and
+    the rest graphed, and each latency.json read back by plot_latency.
+    K2 is held against its plain version on the inputs each method's
+    first eager step that lands a lane gave it (scatter_add_case)."""
+    boards = os.path.join(root, "latency_boards")
+    want, k2_cases = {}, {}
+
+    _zero(kernels)
+    with tool_log("latency_grid"), first_inputs(
+            scatter_add, "scatter_add_", wanted=lands, by_ref=1) as k2:
+        def on_method(rec, embed, state):
+            per = predicted_launches(embed, state, rec["train_batch"])
+            want[rec["method"]] = {k: v * rec["train_steps"]
+                                   for k, v in per.items()}
+            for args in k2.values():
+                k2_cases[rec["method"]] = scatter_add_case(scatter_add,
+                                                           *args)
+            k2.clear()
+
+        recs = tool.main(["--steps", str(TOOL_STEPS), "--windows",
+                          str(TOOL_WINDOWS), "--boards", boards,
+                          "--device", device], on_method=on_method)
+    if [r["method"] for r in recs] != tool.METHODS:
+        raise AssertionError(f"latency_grid: methods {recs}")
+    for r in recs:
+        m = r["method"]
+        if LATENCY_KEYS - set(r):
+            raise AssertionError(f"latency_grid {m}: missing "
+                                 f"{LATENCY_KEYS - set(r)}")
+        positive(f"latency_grid {m}", {
+            k: r[k] for k in ("train_ms_per_it", "test_ms_per_it",
+                              "examples_per_s", "table_rows", "loss")})
+        bad = {k: (r["launches"][k], v) for k, v in want[m].items()
+               if r["launches"][k] != v}
+        if bad:
+            raise AssertionError(f"latency_grid {m}: launches (got, want) "
+                                 f"{bad}")
+        if r["graphed"] != (m != "ada" and device == "cuda"):
+            raise AssertionError(f"latency_grid {m}: graphed {r['graphed']}"
+                                 f" {r['capture_blockers']}")
+    # CAFE's 3.2 M-row table takes K2 on the card
+    if not want["cafe"]["land_max"] or (device == "cuda"
+                                        and not want["cafe"]["scatter_add"]):
+        raise AssertionError(f"latency_grid: CAFE launched no K1 or K2: "
+                             f"{want['cafe']}")
+    k2_methods = sorted(m for m, w in want.items() if w["scatter_add"])
+    if sorted(k2_cases) != k2_methods:
+        raise AssertionError(f"latency_grid: K2 held at {sorted(k2_cases)}"
+                             f", launched by {k2_methods}")
+    plot = plotted_latency(visualization, boards)
+    by_name = sorted(recs, key=lambda r: r["method"])
+    if plot["bars"][:2] != [[r["train_ms_per_it"] for r in by_name],
+                            [r["test_ms_per_it"] for r in by_name]]:
+        raise AssertionError(f"latency_grid: plot_latency read "
+                             f"{plot['bars'][:2]}")
+    launches = {name: sum(r["launches"][name] for r in recs)
+                for name in kernels}
+    return {"records": recs, "plot_latency": plot, "launches": launches,
+            "launches_predicted": want, "scatter_add_cases": k2_cases}
+
+
+def phase_step_breakdown(tool, kernels, device="cuda"):
+    """tools/step_breakdown_torch.py, both grids, every arm eager and
+    graphed where it graphs (cafe_iv8 stays eager): finite positive us a
+    step; K1 once a CAFE train step (every 8th at cafe_iv8), never on a
+    forward-only arm, and on the dim-128 grid K2 once a train step."""
+    out, launches = {}, {name: 0 for name in kernels}
+    n = BREAKDOWN_WARMUP + TOOL_STEPS
+    for shapes in ("criteo", "criteotb"):
+        with tool_log(f"step_breakdown_{shapes}"):
+            res = tool.main(["--shapes", shapes, "--steps", str(TOOL_STEPS),
+                             "--warmup", str(BREAKDOWN_WARMUP), "--device",
+                             device])
+        torch.cuda.empty_cache()
+        modes = [m for m in ("eager", "graphed") if m in res]
+        for mode in modes:
+            positive(f"step_breakdown {shapes} {mode}", res[mode])
+        graphed = set(res["graphed"]) if "graphed" in res else set()
+        for name, got in res["launches"].items():
+            n_modes = 1 + (name in graphed)
+            k1 = (-(-n // 8) if name.endswith("iv8") else n * n_modes) \
+                if name.startswith("cafe") else 0
+            if got["land_max"] != k1:
+                raise AssertionError(f"step_breakdown {shapes} {name}: K1 "
+                                     f"{got['land_max']}, not {k1}")
+            # at dim 128 each arm's one table of >= 2^20 rows takes K2
+            k2 = n * n_modes if shapes == "criteotb" and device == "cuda" \
+                else 0
+            if got["scatter_add"] != k2:
+                raise AssertionError(f"step_breakdown {shapes} {name}: K2 "
+                                     f"{got['scatter_add']}, not {k2}")
+            for k, v in got.items():
+                launches[k] += v
+        if device == "cuda" and res["not_graphed"].keys() != (
+                {"cafe_iv8"} if shapes == "criteo" else set()):
+            raise AssertionError(f"step_breakdown {shapes}: not graphed "
+                                 f"{res['not_graphed']}")
+        out[shapes] = res
+    return {**out, "launches": launches}
+
+
+def phase_profile_step(tool, root, kernels, device="cuda"):
+    """tools/profile_step_torch.py: 5 fused K = 8 dispatches graphed under
+    torch.profiler; the replays traced (no fall-back to the eager step),
+    K1's kernel among their device ops, one a step."""
+    _zero(kernels)
+    with tool_log("profile_step"):
+        rec = tool.main(["--steps", "5", "--out",
+                         os.path.join(root, "profile_step"), "--device",
+                         device])
+    launches = _counts(kernels)
+    if device == "cuda":
+        if not rec["graphed"] or rec["fell_back_to_eager"]:
+            raise AssertionError(f"profile_step: graphed {rec['graphed']}, "
+                                 f"fell back {rec['fell_back_to_eager']}")
+        k1 = {k: v for k, v in rec["kernels"].items() if "land_max" in k}
+        if sum(k1.values()) != 5 * tool.DISPATCH_K:
+            raise AssertionError(f"profile_step: K1 kernels {k1} in the "
+                                 f"trace, not {5 * tool.DISPATCH_K}")
+    positive("profile_step", rec["lanes"])
+    kernels_seen = rec.pop("kernels")
+    rec.pop("trace")
+    top = sorted(kernels_seen.items(), key=lambda kv: -kv[1])[:12]
+    return {**rec, "launches": launches,
+            "device_kernels": sum(kernels_seen.values()),
+            "k1_kernels": sum(v for k, v in kernels_seen.items()
+                              if "land_max" in k),
+            "top_kernels_by_count": [[k[:100], v] for k, v in top]}
+
+
+def phase_profile_train(tool, kernels, device="cuda"):
+    """tools/profile_train_torch.py (eager, 4 steps): the lines account
+    for at least its MIN_ATTRIBUTED of the device-busy time."""
+    _zero(kernels)
+    with tool_log("profile_train"):
+        rec = tool.profile(reps=4, device=device, top=30)
+    if rec["attributed_share"] < tool.MIN_ATTRIBUTED:
+        raise AssertionError(f"profile_train: attributed "
+                             f"{rec['attributed_share']}")
+    positive("profile_train", {"total_us_per_rep":
+                               rec["total_us_per_rep"]})
+    top = sorted(rec["lines"].items(), key=lambda kv: -kv[1][0])[:15]
+    return {**{k: v for k, v in rec.items() if k not in ("lines", "trace")},
+            "top_lines": top, "launches": _counts(kernels)}
+
+
+def _auc_ok(name, aucs):
+    if not all(np.isfinite(a) and 0.0 < a <= 1.0 for a in aucs):
+        raise AssertionError(f"{name}: AUCs {aucs}")
+
+
+def phase_variance(tool, land, kernels, device="cuda", **size):
+    """tools/variance_cafe_vs_hash_torch.py at full size, graphed: three
+    seeds, finite AUCs, K1 once a CAFE step, and K1 on the inputs the
+    first eager CAFE step gave it (land_real_case)."""
+    _zero(kernels)
+    t0 = time.perf_counter()
+    with tool_log("variance_cafe_vs_hash"), first_inputs(
+            land, "land_max") as k1:
+        rec = tool.run(device=device, **size)
+    rec["wall_s"] = time.perf_counter() - t0
+    _auc_ok("variance", rec["auc"]["hash"] + rec["auc"]["cafe"])
+    launches = _counts(kernels)
+    if device == "cuda" and not rec["graphed"]:
+        raise AssertionError("variance: the steps did not graph")
+    if launches["land_max"] != len(rec["seeds"]) * rec["steps"]:
+        raise AssertionError(f"variance: K1 {launches['land_max']}, not "
+                             f"{len(rec['seeds'])} x {rec['steps']}")
+    return {**rec, "launches": launches,
+            "land_max_cases": [land_real_case(land, *a) for a in k1.values()]}
+
+
+def phase_sweep(tool, land, kernels, device="cuda", **size):
+    """tools/sweep_cafe_vs_hash_torch.py, its first SWEEP_POINTS grid
+    points (two seeds each): finite AUCs, K1 once a CAFE step, and K1 on
+    the inputs the first eager CAFE step gave it (land_real_case)."""
+    _zero(kernels)
+    t0 = time.perf_counter()
+    with tool_log("sweep_cafe_vs_hash"), first_inputs(land,
+                                                      "land_max") as k1:
+        recs = tool.run(points=SWEEP_POINTS, device=device, **size)
+    _auc_ok("sweep", [r[m] for r in recs for m in ("hash", "cafe")])
+    launches = _counts(kernels)
+    want = sum(r["steps"] for r in recs)
+    if len(recs) != 2 * SWEEP_POINTS or launches["land_max"] != want:
+        raise AssertionError(f"sweep: {len(recs)} records, K1 "
+                             f"{launches['land_max']} (want {want})")
+    return {"records": recs, "wall_s": time.perf_counter() - t0,
+            "launches": launches,
+            "land_max_cases": [land_real_case(land, *a) for a in k1.values()]}
+
+
+def phase_ab_apply128(tool, scatter_add, kernels, warmup_calls,
+                      device="cuda"):
+    """tools/ab_apply128_torch.py, TOOL_WINDOWS x TOOL_STEPS: K2 within
+    its numerics bound, every arm's median finite and positive, every arm
+    graphed on the card, K2 launched once a call of the pallas arm's
+    chains (its `warmup_calls` eager chains, the capture's replay, the
+    tool's warm replay and the windows) and of the numerics check; then
+    K2 held against its plain version on the first inputs each level
+    gave it (scatter_add_case)."""
+    _zero(kernels)
+    with tool_log("ab_apply128"), first_inputs(scatter_add, "scatter_add_",
+                                               keep=3, by_ref=1) as k2:
+        lines = tool.main(["--windows", str(TOOL_WINDOWS), "--steps",
+                           str(TOOL_STEPS), "--device", device])
+    num, levels = lines[0], lines[1:]
+    if not num["pass"]:
+        raise AssertionError(f"ab_apply128: numerics {num}")
+    for rec in levels:
+        positive(f"ab_apply128 {rec['level']}",
+                 {k: rec[k] for k in tool.ARMS})
+        if device == "cuda" and not rec["graphed"]:
+            raise AssertionError(f"ab_apply128 {rec['level']}: not graphed")
+    launches = _counts(kernels)
+    chains = TOOL_WINDOWS + 1 + (warmup_calls + 1 if device == "cuda"
+                                 else 0)
+    want = 1 + len(levels) * chains * TOOL_STEPS
+    if launches["scatter_add"] != want:
+        raise AssertionError(f"ab_apply128: K2 {launches['scatter_add']}, "
+                             f"not {want}")
+    cases = {f"{a[0].shape[0]}x{a[0].shape[1]}": scatter_add_case(
+        scatter_add, *a) for a in k2.values()}
+    want_shapes = {f"{r['rows']}x{r['dim']}" for r in levels}
+    if not want_shapes <= set(cases):
+        raise AssertionError(f"ab_apply128: K2 held at {sorted(cases)}, "
+                             f"not at every level {sorted(want_shapes)}")
+    return {"lines": lines, "launches": launches,
+            "scatter_add_cases": cases}
+
+
+def phase_ab_interact(tool, kernels, device="cuda", **size):
+    """tools/ab_interact_torch.py, TOOL_WINDOWS windows of TOOL_STEPS
+    reps, each chain one CUDA graph: every arm within the bf16 bound of
+    its exact product, its kernels named from the profiler."""
+    _zero(kernels)
+    with tool_log("ab_interact"):
+        rec = tool.run(TOOL_WINDOWS, TOOL_STEPS, device, **size)
+    positive("ab_interact", rec["median_us"])
+    if device == "cuda" and not (rec["graphed"] and all(rec["kernels"]
+                                                        .values())):
+        raise AssertionError(f"ab_interact: graphed {rec['graphed']}, "
+                             f"kernels {rec['kernels']}")
+    return {**rec, "launches": _counts(kernels)}
+
+
+def phase_ab_scatter_vs_sorted(tool, kernels, device="cuda"):
+    """tools/ab_scatter_vs_sorted_torch.py with --sparse_apply_impl dense,
+    TOOL_WINDOWS windows of TOOL_STEPS reps: finite positive medians, K3
+    once an SGD scatter call (the 27,136 x 16 table takes its route)."""
+    _zero(kernels)
+    with tool_log("ab_scatter_vs_sorted"):
+        rec = tool.main(["--reps", str(TOOL_STEPS), "--windows",
+                         str(TOOL_WINDOWS), "--sparse_apply_impl", "dense",
+                         "--device", device])
+    positive("ab_scatter_vs_sorted", rec["median_us"])
+    launches = _counts(kernels)
+    want = (1 + TOOL_WINDOWS) * TOOL_STEPS
+    if launches["rowsum"] != want:
+        raise AssertionError(f"ab_scatter_vs_sorted: K3 "
+                             f"{launches['rowsum']}, not {want}")
+    return {**rec, "launches": launches}
+
+
+def phase_reset_cost(tool, kernels, device="cuda"):
+    """tools/reset_cost_torch.py at its defaults (lim 1,000,000, 53,248
+    lanes), TOOL_WINDOWS windows, a 100-step Zipf stream: finite positive
+    times, both arms graphed, the fires counted."""
+    _zero(kernels)
+    with tool_log("reset_cost"):
+        rec = tool.main(["--windows", str(TOOL_WINDOWS), "--stream_steps",
+                         "100", "--device", device])
+    if RESET_KEYS - set(rec):
+        raise AssertionError(f"reset_cost: missing {RESET_KEYS - set(rec)}")
+    positive("reset_cost", {k: rec[k] for k in ("steady_us",
+                                                 "forced_reset_us")})
+    if device == "cuda" and not rec["graphed"]:
+        raise AssertionError("reset_cost: the arms did not graph")
+    return {**rec, "launches": _counts(kernels)}
+
+
+def phase_probes(overhead, micro, clock, device="cuda"):
+    """The three probes: kernel_overhead_probe (eager and graphed,
+    TOOL_WINDOWS windows), micro_ops (one graph), clock_probe (at most
+    1.05 of the bf16 peak)."""
+    with tool_log("kernel_overhead_probe"):
+        over = overhead.main(["--windows", str(TOOL_WINDOWS), "--device",
+                              device])
+    for r in over:
+        if OVERHEAD_KEYS - set(r):
+            raise AssertionError(f"kernel_overhead_probe: {r}")
+        positive(f"kernel_overhead_probe {r['shape']} {r['mode']}",
+                 {k: r[k] for k in ("us_k16", "us_k128", "us_per_kernel")})
+    with tool_log("micro_ops"):
+        ops = micro.main(["--device", device])
+    positive("micro_ops", ops["us_per_op"])
+    with tool_log("clock_probe"):
+        clk = clock.main(["--device", device])
+    positive("clock_probe", {k: min(v) for k, v in clk["tflops"].items()})
+    if clk["max_share_of_peak"] > 1.05:
+        raise AssertionError(f"clock_probe: {clk['max_share_of_peak']} of "
+                             f"the bf16 peak: the clock is wrong")
+    return {"kernel_overhead_probe": over, "micro_ops": ops,
+            "clock_probe": clk}
+
+
+def phase_launcher(data_path, root, cpu=False):
+    """bench/criteo_kaggle_torch.sh with DATA = the preprocessed data and
+    $1 capping it at 220 iterations of 1024 rows (CAFE, cr 1e-3, the dense
+    apply): exit 0 and a finite AUC on its last eval line (its process
+    launches its own kernels; they are not counted here)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    flags = LAUNCHER_FLAGS + ["--tensor_board_filename",
+                              os.path.join(root, "launcher_board")]
+    if cpu:
+        flags += ["--force_platform", "cpu"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        ["bash", os.path.join(here, "bench", "criteo_kaggle_torch.sh"),
+         " ".join(flags)], cwd=here, capture_output=True, text=True,
+        env={**os.environ, "DATA": data_path}, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "tools_launcher_criteo_kaggle.txt"),
+              "w") as f:
+        f.write(out.stdout + out.stderr)
+    log = os.path.join(here, "run_kaggle_torch.log")
+    if os.path.exists(log):
+        os.remove(log)
+    aucs = [float(m) for m in re.findall(r"auc ([0-9.]+) %", out.stdout)]
+    its = re.findall(r"Finished training it (\d+)/(\d+)", out.stdout)
+    if out.returncode != 0 or not aucs or not np.isfinite(aucs[-1]):
+        raise AssertionError(f"launcher_criteo_kaggle: rc {out.returncode}"
+                             f", AUC lines {aucs}: {out.stdout[-800:]}"
+                             f"{out.stderr[-800:]}")
+    return {"return_code": out.returncode, "auc_percent": aucs[-1],
+            "iterations": int(its[-1][1]) if its else None, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4498,6 +5029,51 @@ def main() -> int:
         by_path["graphrec_interactions"] = gri["launches"]
         emit({"phase": "graphrec_interactions",
               "wall_s": time.perf_counter() - t0, **gri})
+
+        # ---- the repo's root measurement tools and a dataset launcher
+        tool_phases = (
+            ("latency_grid", lambda: phase_latency_grid(
+                load_tool("latency_grid_torch"), visualization, scatter_add,
+                KERNELS, tools_root)),
+            ("step_breakdown", lambda: phase_step_breakdown(
+                load_tool("step_breakdown_torch"), KERNELS)),
+            ("profile_step", lambda: phase_profile_step(
+                load_tool("profile_step_torch"), tools_root, KERNELS)),
+            ("profile_train", lambda: phase_profile_train(
+                load_tool("profile_train_torch"), KERNELS)),
+            ("variance_cafe_vs_hash", lambda: phase_variance(
+                load_tool("variance_cafe_vs_hash_torch"), land, KERNELS)),
+            ("sweep_cafe_vs_hash", lambda: phase_sweep(
+                load_tool("sweep_cafe_vs_hash_torch"), land, KERNELS)),
+            ("ab_apply128", lambda: phase_ab_apply128(
+                load_tool("ab_apply128_torch"), scatter_add, KERNELS,
+                WARMUP_CALLS)),
+            ("ab_interact", lambda: phase_ab_interact(
+                load_tool("ab_interact_torch"), KERNELS)),
+            ("ab_scatter_vs_sorted", lambda: phase_ab_scatter_vs_sorted(
+                load_tool("ab_scatter_vs_sorted_torch"), KERNELS)),
+            ("reset_cost", lambda: phase_reset_cost(
+                load_tool("reset_cost_torch"), KERNELS)),
+            ("probes", lambda: phase_probes(
+                load_tool("kernel_overhead_probe_torch"),
+                load_tool("micro_ops_torch"), load_tool("clock_probe_torch"))),
+            ("launcher_criteo_kaggle", lambda: phase_launcher(
+                os.path.join(tools_root, "py"), tools_root)))
+        scatter_shapes = {}
+        for name, phase in tool_phases:
+            t0 = time.perf_counter()
+            before = graph_launches()
+            rec = phase()
+            count_in_graphs(name, before)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if "launches" in rec:
+                by_path[name] = rec["launches"]
+            if "land_max_cases" in rec:
+                land_shapes[name] = rec["land_max_cases"]
+            for path, case in rec.get("scatter_add_cases", {}).items():
+                scatter_shapes[f"{name}_{path}"] = [case]
+            emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
     finally:
         shutil.rmtree(tools_root, ignore_errors=True)
 
@@ -4532,8 +5108,11 @@ def main() -> int:
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"], "shape": rec["shape"]})
-    # K1 also at the shapes the graph recommenders' inserts give it
+    # K1 also at the shapes the graph recommenders', the grid's and the
+    # CAFE-vs-hash tools' inserts give it; K2 at the latency grid's and
+    # ab_apply128's
     lines[0]["other_paths"] = land_shapes
+    lines[1]["other_paths"] = scatter_shapes
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,21 @@ JAX_FREE = ["chip_smoke.py", "main_torch.py", "main_graphrec_torch.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
             "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",
             "tools/ab_decisions_torch.py", "tools/ab_insert_land_torch.py",
-            "tools/serving_bench_torch.py", "tools/sketch_bench_torch.py"]
+            "tools/serving_bench_torch.py", "tools/sketch_bench_torch.py",
+            "tools/ab_apply128_torch.py", "tools/ab_interact_torch.py",
+            "tools/ab_scatter_vs_sorted_torch.py",
+            "tools/clock_probe_torch.py", "tools/compiled_call_torch.py",
+            "tools/kernel_overhead_probe_torch.py",
+            "tools/latency_grid_torch.py", "tools/micro_ops_torch.py",
+            "tools/profile_lines_torch.py", "tools/profile_step_torch.py",
+            "tools/profile_train_torch.py", "tools/reset_cost_torch.py",
+            "tools/step_breakdown_torch.py",
+            "tools/sweep_cafe_vs_hash_torch.py",
+            "tools/variance_cafe_vs_hash_torch.py"]
+# the root tools that run on the card: each parses its flags (--help)
+# with jax blocked
+ROOT_TOOLS = [p[len("tools/"):-len(".py")] for p in JAX_FREE
+              if p.startswith("tools/")]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -84,11 +98,21 @@ def test_tools_import_with_jax_blocked(tmp_path):
             "for name in ('jax', 'jaxlib', 'cafe_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import cafe_tpu_torch.tools.roofline\n"
-            "for name in ('ab_decisions_torch', 'ab_insert_land_torch',\n"
-            "             'serving_bench_torch', 'sketch_bench_torch'):\n"
+            "sys.path.insert(0, 'tools')\n"
+            f"for name in {ROOT_TOOLS!r}:\n"
             "    spec = importlib.util.spec_from_file_location(\n"
             "        name, f'tools/{name}.py')\n"
-            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    # a2a_cards' main takes no argv; compiled_call is a helper\n"
+            "    if name not in ('a2a_cards_torch', 'compiled_call_torch'):\n"
+            "        try:\n"
+            "            with contextlib.redirect_stdout(io.StringIO()) as o:\n"
+            "                mod.main(['--help'])\n"
+            "        except SystemExit as e:\n"
+            "            assert e.code == 0 and 'usage' in o.getvalue(), name\n"
+            "        else:\n"
+            "            raise AssertionError(name)\n"
             f"for name in {FLAG_TOOLS!r}:\n"
             "    mod = importlib.import_module(name)\n"
             "    try:\n"

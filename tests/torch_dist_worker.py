@@ -666,3 +666,43 @@ def collective_totals(mesh, argvs):
         out.append({k: res[k] for k in ("total", "dense_bytes", "lanes",
                                          "collectives")})
     return out
+
+
+def cli_rank(mesh, argv):
+    """main_torch.main(argv) on this rank: the process group exists, so
+    main_torch joins it (tools/smoke_matrix_sharded_torch.sh)."""
+    import main_torch
+    main_torch.main(list(argv))
+    return True
+
+
+def main(argv=None) -> int:
+    """`python tests/torch_dist_worker.py --world N -- <main_torch.py
+    flags>`: main_torch.py on N gloo ranks of the CPU, started as the
+    tests start theirs (run_ranks: spawned processes, a file:// store in
+    a temporary directory). Exits 1 if a rank fails."""
+    import argparse
+    import sys
+    import tempfile
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--timeout", type=float, default=400.0)
+    ap.add_argument("flags", nargs=argparse.REMAINDER)
+    args = ap.parse_args(argv)
+    flags = args.flags[1:] if args.flags[:1] == ["--"] else args.flags
+    repo = str(Path(__file__).resolve().parents[1])
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import torch_dist_worker as worker        # pickled by module name
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            worker.run_ranks(worker.cli_rank, args.world, tmp, flags,
+                             timeout=args.timeout)
+        except AssertionError as e:
+            print(e, file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
