@@ -139,6 +139,47 @@ def maybe_init_distributed(cfg, device="cuda") -> bool:
     return True
 
 
+INIT_TRIES = 3
+# what gloo's full-mesh connect raises when a peer drops a socket while
+# the group forms (seen under many concurrent test processes)
+RETRIED_INIT_ERROR = "Connection closed by peer"
+
+
+def init_file_group(backend: str, directory: str, rank: int,
+                    world: int) -> None:
+    """Join the default process group through a file:// store under
+    `directory` (no port to clash). A try that fails with gloo's
+    "Connection closed by peer" is retried on a fresh store, at most
+    INIT_TRIES times; any other error raises. Every rank posts each
+    try's outcome to a control store and waits for all of them, so the
+    ranks leave a failed try together (a rank whose group did form
+    destroys it) and no rank goes on alone."""
+    control = dist.FileStore(os.path.join(directory, "init_control"), world)
+    for attempt in range(INIT_TRIES):
+        error = None
+        try:
+            dist.init_process_group(
+                backend, init_method=f"file://{directory}/store_{attempt}",
+                rank=rank, world_size=world)
+        except RuntimeError as e:
+            error = e
+        retry = error is not None and RETRIED_INIT_ERROR in str(error)
+        control.set(f"{attempt}/{rank}", "ok" if error is None
+                    else "retry" if retry else "fail")
+        states = {control.get(f"{attempt}/{r}").decode()
+                  for r in range(world)}
+        if states == {"ok"}:
+            return
+        if error is None:
+            dist.destroy_process_group()
+        elif not retry:
+            raise error
+        if "fail" in states or attempt == INIT_TRIES - 1:
+            raise RuntimeError(f"rank {rank}: the process group did not "
+                               f"form (try {attempt + 1}: {sorted(states)})"
+                               ) from error
+
+
 def _local_device(device="cuda") -> torch.device:
     """This rank's device: cuda:LOCAL_RANK on the card (LOCAL_RANK from
     torchrun, else the rank modulo the visible cards), or the CPU."""

@@ -27,6 +27,7 @@ Exit code 1 if any collective passes the bound max(8*m*(dim+4)*4,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -65,6 +66,9 @@ def audit(cfg, mesh) -> Dict:
                        for t in _leaves(like.embed)
                        if isinstance(t, torch.Tensor) and t.dim() == 2]
                       or [0])
+    part0_rows = max([t.shape[0] for t in like.embed["part0"].values()
+                      if isinstance(t, torch.Tensor) and t.dim() == 2]
+                     or [0])
     lanes = cfg.mini_batch_size * train.num_sparse
     dense_bytes = 4 * sum(t.numel() for t in _leaves(state.params))
     bound = max(8 * lanes * (cfg.embedding_dim + 4) * 4, 2 * dense_bytes)
@@ -75,7 +79,9 @@ def audit(cfg, mesh) -> Dict:
             "dense_bytes": dense_bytes, "lanes": lanes,
             "over": sum(c.bytes > bound for c in rec),
             "loss": float(m["loss"]), "world": mesh.size,
-            "mesh_shape": list(mesh.shape)}
+            "mesh_shape": list(mesh.shape), "part0_rows": part0_rows,
+            "hotn": max((getattr(p, "hotn", 0) for p in embed.parts),
+                        default=0)}
 
 
 def report(res: Dict, out=None) -> int:
@@ -111,26 +117,34 @@ def _device(cfg) -> str:
     return "cpu" if cfg.force_platform == "cpu" else "cuda"
 
 
-def _rank(rank: int, world: int, store: str, argv: List[str]) -> None:
-    """One spawned rank: join the group, audit, rank 0 writes its report."""
+def _rank(rank: int, world: int, store: str, argvs: List[List[str]]
+          ) -> None:
+    """One spawned rank: join the group (mesh.init_file_group), audit each
+    argv on a mesh of its own; rank 0 writes the reports."""
     from ..config import parse_args
     from ..parallel import make_mesh
+    from ..parallel.mesh import init_file_group
     torch.set_num_threads(1)
-    cfg = parse_args(argv)
-    device = _device(cfg)
+    cfgs = [parse_args(argv) for argv in argvs]
+    device = _device(cfgs[0])
     if device == "cuda":
         os.environ["LOCAL_RANK"] = str(rank)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method=f"file://{store}/store", rank=rank,
-                            world_size=world)
-    mesh = make_mesh(world, cfg.mesh_inner, device)
+    init_file_group("nccl" if device == "cuda" else "gloo", store, rank,
+                    world)
     try:
-        res = audit(cfg, mesh)
+        out = []
+        for cfg in cfgs:
+            mesh = make_mesh(world, cfg.mesh_inner, device)
+            try:
+                # the build's prints are not the report: stderr
+                with contextlib.redirect_stdout(sys.stderr):
+                    out.append(audit(cfg, mesh))
+            finally:
+                mesh.close()
         if rank == 0:
             with open(os.path.join(store, "report.json"), "w") as f:
-                json.dump(res, f)
+                json.dump(out, f)
     finally:
-        mesh.close()
         dist.destroy_process_group()
 
 
@@ -138,23 +152,37 @@ def run_audit(argv: List[str], devices: int) -> Dict:
     """The audit of `argv` (main_torch.py's flags) on `devices` ranks:
     spawned processes, or this process at one rank or inside an existing
     process group of that size."""
+    return run_audits([argv], devices)[0]
+
+
+def run_audits(argvs: List[List[str]], devices: int) -> List[Dict]:
+    """run_audit of each argv, in one set of ranks (every argv on the same
+    device: --force_platform cpu in all or none)."""
     from ..config import parse_args
     from ..parallel import make_mesh, maybe_init_distributed
-    argv = ["--dataset", "synthetic", "--shard_embeddings", "true"] \
-        + list(argv) + ["--mesh_shape", str(devices)]
-    cfg = parse_args(argv)
+    argvs = [["--dataset", "synthetic", "--shard_embeddings", "true"]
+             + list(argv) + ["--mesh_shape", str(devices)]
+             for argv in argvs]
+    cfgs = [parse_args(argv) for argv in argvs]
+    if len({_device(cfg) for cfg in cfgs}) != 1:
+        raise ValueError("run_audits: the argvs name different devices")
     if devices == 1 or dist.is_initialized():
-        own = maybe_init_distributed(cfg, _device(cfg))
-        mesh = make_mesh(devices, cfg.mesh_inner, _device(cfg))
+        own = maybe_init_distributed(cfgs[0], _device(cfgs[0]))
         try:
-            return audit(cfg, mesh)
+            out = []
+            for cfg in cfgs:
+                mesh = make_mesh(devices, cfg.mesh_inner, _device(cfg))
+                try:
+                    out.append(audit(cfg, mesh))
+                finally:
+                    mesh.close()
+            return out
         finally:
-            mesh.close()
             if own:
                 dist.destroy_process_group()
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as store:
-        procs = [ctx.Process(target=_rank, args=(r, devices, store, argv))
+        procs = [ctx.Process(target=_rank, args=(r, devices, store, argvs))
                  for r in range(devices)]
         for p in procs:
             p.start()

@@ -14,8 +14,10 @@ on a mesh of one process per device (parallel/; flat, or two-level with
 (parallel/multihost.global_batches), the sharded parts exchange rows over
 the mesh (--shard_exchange explicit, a2a, pallas or auto), eval scores
 are all-gathered before the metrics (gather_to_host), and only rank 0
-prints and logs. Checkpoints hold the global state (every rank
-takes part in a save; train/checkpoint.py), the latency protocol streams
+logs and, under torchrun, prints (a process started with
+--dist_num_processes prints its own lines, as main.py's do).
+Checkpoints hold the global state (every rank takes part in a save;
+train/checkpoint.py), the latency protocol streams
 each rank's slices through the collective eval step, and a dispatch of
 K steps gives rank r its slice of each of K global batches in turn.
 """
@@ -401,7 +403,12 @@ def run(cfg: Config, capture: bool = True) -> Dict:
 
 def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
     main = mesh is None or mesh.rank == 0
-    print_ = print if main else _quiet
+    # a process started on its own (--dist_num_processes) prints its
+    # lines to its own stdout, as each of main.py's processes does;
+    # torchrun's ranks share one, and only rank 0 prints there
+    own_stdout = cfg.dist_num_processes > 1 \
+        and torchrun_world_size() is None
+    print_ = print if main or own_stdout else _quiet
     train_data = get_dataset(cfg, "train")
     test_data = get_dataset(cfg, "test")
     load_path, layout = "", 0

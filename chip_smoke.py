@@ -356,6 +356,20 @@ OUT_DIR/tools_*.txt; every reading must be finite and positive):
    preprocessed data, $1 capping it at 220 iterations of 1024 rows
    (CAFE, cr 1e-3, dense apply): exit 0 and a finite AUC.
 
+The last root tools, after phase 63:
+
+64. traffic_table: tools/traffic_table_torch.py's rows at world size 1,
+   hash and CAFE, on the card (NCCL) and on the CPU (a gloo group) in
+   this process: both record the same total and the same bytes by op
+   (the configuration sets them, not the backend), each row within the
+   JAX tool's criterion wherever the model is non-zero; K1 launches once
+   (the card's CAFE step) and is held, bit-equal, against its plain
+   version on the inputs that step gave it;
+65. perf_report: tools/perf_report_torch.py over this run's OUT_DIR:
+   SUMMARY.md holds the clock, headline, stage-budget and decisions
+   sections, the clock reads VALID and the headline's ms a step is
+   headline_graph's.
+
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms;
 K1's and K2's cases at the other paths' shapes under "other_paths")
@@ -4610,6 +4624,66 @@ def phase_launcher(data_path, root, cpu=False):
             "iterations": int(its[-1][1]) if its else None, "wall_s": wall}
 
 
+TRAFFIC_METHODS = ["hash", "cafe"]
+SUMMARY_SECTIONS = ("## Clock probe", "## Headline (chip_smoke.py",
+                    "## Stage budget — dim 16", "## Stage budget — dim 128",
+                    "## Perf decisions")
+
+
+def phase_traffic_table(tool, land, kernels, device="cuda"):
+    """tools/traffic_table_torch.py's rows at world size 1 on `device`
+    and on the CPU, in this process (module docstring, phase 64), and K1
+    on the inputs the card's CAFE step gave it (land_real_case)."""
+    _zero(kernels)
+    with tool_log("traffic_table"):
+        with first_inputs(land, "land_max") as k1:
+            card = tool.rows(1, 0, TRAFFIC_METHODS, device=device)
+        launches = _counts(kernels)
+        cpu = tool.rows(1, 0, TRAFFIC_METHODS, device="cpu")
+        for r in card:
+            print(tool.format_row(r))
+    for c, h in zip(card, cpu):
+        if (c["hlo_total"], c["by_op"]) != (h["hlo_total"], h["by_op"]):
+            raise AssertionError(f"traffic_table {c['method']}: card "
+                                 f"{c['hlo_total']} {c['by_op']}, CPU "
+                                 f"{h['hlo_total']} {h['by_op']}")
+        for r in (c, h):
+            if r["model_total"] and not tool.passes(r):
+                raise AssertionError(f"traffic_table {r['method']}: ratio "
+                                     f"{tool.ratio(r)}, {r['over']} over "
+                                     f"the bound")
+    want = 1 if device == "cuda" else 0
+    if launches["land_max"] != want:
+        raise AssertionError(f"traffic_table: K1 launched "
+                             f"{launches['land_max']} times, not {want}")
+    return {"card": card, "cpu": cpu,
+            "ratio": {r["method"]: tool.ratio(r) for r in card},
+            "launches": launches,
+            "land_max_cases": [land_real_case(land, *a) for a in k1.values()]}
+
+
+def phase_perf_report(tool, headline_ms):
+    """tools/perf_report_torch.py over this run's OUT_DIR (module
+    docstring, phase 65)."""
+    with tool_log("perf_report"):
+        text = tool.main([OUT_DIR])
+    path = os.path.join(OUT_DIR, "SUMMARY.md")
+    with open(path) as f:
+        if f.read() != text:
+            raise AssertionError("perf_report: SUMMARY.md is not the digest")
+    missing = [h for h in SUMMARY_SECTIONS if h not in text]
+    if missing:
+        raise AssertionError(f"perf_report: sections {missing} missing")
+    if "clock VALID" not in text or "WARNING" in text:
+        raise AssertionError("perf_report: the clock is not VALID")
+    ms = float(re.search(r"\*\*([0-9.]+) ms a step\*\*", text).group(1))
+    if ms != headline_ms:
+        raise AssertionError(f"perf_report: headline {ms} ms a step, "
+                             f"headline_graph {headline_ms}")
+    return {"summary": path, "sections": list(SUMMARY_SECTIONS),
+            "headline_ms_per_step": ms, "chars": len(text)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -5076,6 +5150,19 @@ def main() -> int:
             emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
     finally:
         shutil.rmtree(tools_root, ignore_errors=True)
+
+    # ---- the last root tools: the collective-bytes table and the digest
+    t0 = time.perf_counter()
+    traffic = phase_traffic_table(load_tool("traffic_table_torch"), land,
+                                  KERNELS)
+    by_path["traffic_table"] = traffic["launches"]
+    land_shapes["traffic_table"] = traffic["land_max_cases"]
+    emit({"phase": "traffic_table", "wall_s": time.perf_counter() - t0,
+          **traffic})
+    t0 = time.perf_counter()
+    emit({"phase": "perf_report", **phase_perf_report(
+        load_tool("perf_report_torch"), v1_graphed["headline_graph"]),
+        "wall_s": time.perf_counter() - t0})
 
     sources = {"land_max": ("cafe_tpu_torch/kernels/land.cu",
                             "cafe_tpu/ops/pallas_land.py:167",

@@ -58,7 +58,9 @@ JAX_FREE = ["chip_smoke.py", "main_torch.py", "main_graphrec_torch.py",
             "tools/profile_train_torch.py", "tools/reset_cost_torch.py",
             "tools/step_breakdown_torch.py",
             "tools/sweep_cafe_vs_hash_torch.py",
-            "tools/variance_cafe_vs_hash_torch.py"]
+            "tools/variance_cafe_vs_hash_torch.py",
+            "tools/traffic_table_torch.py", "tools/pod_shape_check_torch.py",
+            "tools/perf_report_torch.py"]
 # the root tools that run on the card: each parses its flags (--help)
 # with jax blocked
 ROOT_TOOLS = [p[len("tools/"):-len(".py")] for p in JAX_FREE

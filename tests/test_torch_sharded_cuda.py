@@ -2,7 +2,9 @@
 on different cards, and 5 sharded train steps on NCCL at world size
 min(4, cards) against the same steps on gloo ranks on the CPU; with 4
 cards, the (2, 2) two-level mesh against the flat one and
---shard_exchange auto against one card's single-device step.
+--shard_exchange auto against one card's single-device step; the
+collective-bytes table (tools/traffic_table_torch.py) on NCCL ranks
+against its gloo ranks at 2 and 4 cards and on the (2, 2) mesh.
 
 Needs at least 2 CUDA cards and skips, saying so, with fewer (one card
 cannot host an NCCL group of two ranks; K5's one-card check across
@@ -16,6 +18,9 @@ an f32 ulp; tables, params, loss and eval scores within 1e-4 (f32
 towers; NCCL and gloo sum the ranks' gradients in other orders, the
 card's row updates use atomics).
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -160,3 +165,33 @@ def test_auto_cards_match_one_card(four, tmp_path):
                                           err_msg=f"{key} {f}")
         np.testing.assert_allclose(got["state"]["embed"][key]["table"],
                                    part["table"], rtol=1e-4, atol=1e-4)
+
+
+def _traffic_table():
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "traffic_table_torch.py"
+    spec = importlib.util.spec_from_file_location("traffic_table_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["2", "4", "2x2"])
+def test_traffic_table_cards_match_gloo(world, mesh):
+    """The table's NCCL rows (one rank a card) record the gloo rows'
+    totals, bytes by axis and by op, for hash and CAFE, each within the
+    JAX tool's criterion: the configuration sets the bytes, not the
+    backend."""
+    tool = _traffic_table()
+    n, inner = tool.parse_mesh(mesh)
+    if n > world:
+        pytest.skip(f"needs {n} CUDA cards")
+    card = tool.rows(n, inner, ["hash", "cafe"], device="cuda")
+    cpu = tool.rows(n, inner, ["hash", "cafe"], device="cpu")
+    for c, g in zip(card, cpu):
+        assert c["hlo_total"] == g["hlo_total"], (mesh, c["method"])
+        assert c["per_axis"] == g["per_axis"], (mesh, c["method"])
+        assert c["by_op"] == g["by_op"], (mesh, c["method"])
+        assert tool.passes(c), (mesh, c["method"], tool.ratio(c))

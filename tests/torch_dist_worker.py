@@ -3,9 +3,10 @@ that the spawned ranks never import it).
 
 `run_ranks(fn, world, tmp_path, *args)` starts `world` processes with the
 spawn method; each joins a process group through a `file://` store under
-`tmp_path` (no port to clash between test workers), pins torch to one
-thread, makes the mesh (`inner` > 0: the two-level one) and returns
-fn(mesh, *args) to the parent through a pickle file. Backend gloo on the
+`tmp_path` (no port to clash between test workers; a try that gloo's
+connect drops is retried on a fresh store: mesh.init_file_group), pins
+torch to one thread, makes the mesh (`inner` > 0: the two-level one) and
+returns fn(mesh, *args) to the parent through a pickle file. Backend gloo on the
 CPU; `device="cuda"` gives each rank its own card and NCCL
 (tests/test_torch_sharded_cuda.py);
 `device="cuda:0"` puts every rank on card 0 with a gloo group (NCCL
@@ -62,12 +63,12 @@ def run_ranks(fn, world: int, tmp_path, *args, device: str = "cpu",
 def _entry(rank, world, out, device, fn, args, inner):
     torch.set_num_threads(1)
     from cafe_tpu_torch.parallel import Mesh, make_mesh
+    from cafe_tpu_torch.parallel.mesh import init_file_group
     backend = "nccl" if device == "cuda" else "gloo"
     if device == "cuda":
         os.environ["LOCAL_RANK"] = str(rank)
     try:
-        dist.init_process_group(backend, init_method=f"file://{out}/store",
-                                rank=rank, world_size=world)
+        init_file_group(backend, out, rank, world)
         if device == "cuda:0":
             torch.cuda.set_device(0)
             mesh = Mesh(size=world, rank=rank, device=torch.device(device),
