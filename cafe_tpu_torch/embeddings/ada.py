@@ -19,10 +19,14 @@ seed and draws each check's sample from a torch.Generator seeded from
 (key, step), so a reloaded checkpoint draws the same sample
 (`sample_ids`; `_check` takes the indices, so a test can pin JAX's).
 
-The step reads its step count back to the host (to pick the decay and
-check steps) and the check reads its churn count: the step stays eager
-(`capture_blocker`). Ties among importances resolve as `jax.lax.top_k`
-resolves them, lower id first, through a stable descending sort.
+The decay is a device branch (utils/cond.cond), so an ordinary step
+replays in a CUDA graph. The check steps (`host_step`: step 1 and every
+CHECK_EVERY-th) draw the sample on the host, read the churn count and
+rebuild through shapes that follow the data: they run eagerly, the
+GraphedStep picking them from its host mirror of the step counter
+(train/capture.StepMirror). Ties among importances resolve as
+`jax.lax.top_k` resolves them, lower id first, through a stable
+descending sort.
 
 Under a mesh (enable_mesh) the admission policy is SHARD-LOCAL, as in
 the JAX package: the pool splits into per-rank slot ranges, ids belong
@@ -52,6 +56,7 @@ from ..parallel.exchange import (DROP_ROW, _local_idx, _owner_rows,
                                  all_gather, owner_lookup_cyclic, psum,
                                  psum_scatter)
 from ..parallel.sharding import rows_of
+from ..utils.cond import cond, host_pred
 from .base import _MIN_SHARD_ROWS, Part, _offsets, round_up
 
 CHECK_EVERY = 4096
@@ -83,11 +88,13 @@ def percentile95(seg: torch.Tensor, weights) -> torch.Tensor:
     return s[low] * w[0] + s[high] * w[1]
 
 
+def _decay_(grad_norm):
+    grad_norm.mul_(DECAY)
+
+
 class AdaPart(Part):
-    capture_blocker = ("AdaEmbed: its step reads the step count back to "
-                       "the host to pick the decay and churn-check steps, "
-                       "and the check reads its churn count "
-                       "(embeddings/ada.py apply_grads, _check)")
+    # the decay is a device branch (utils/cond.cond)
+    conds = True
 
     def __init__(self, field_idx: List[int], counts: List[int], hotn: int,
                  dim: int, optimizer: str = "sgd"):
@@ -203,17 +210,34 @@ class AdaPart(Part):
         norms = norms * b / (norms.sum(0, keepdim=True) + 1e-30)
         grad_norm = state["grad_norm"].index_add_(
             0, gid.reshape(-1).long(), norms.reshape(-1))
-        step = int(state["step"]) + 1
-        if step % DECAY_EVERY == 0:
-            grad_norm.mul_(DECAY)
-        state = {**state, "grad_norm": grad_norm,
-                 "step": state["step"] + 1}
-        if step == 1 or step % CHECK_EVERY == 0:
+        step = state["step"] + 1
+        cond(step % DECAY_EVERY == 0, _decay_, None, (grad_norm,),
+             name="ada_decay")
+        state = {**state, "grad_norm": grad_norm, "step": step}
+        if self._check_due(step):
             # the importance sums in float atomics on the card: under auto
             # every rank's check reads rank 0's
             self._agree(grad_norm)
-            state, _ = self._check(state, self.sample_ids(state, step))
+            state, _ = self._check(state, self.sample_ids(state,
+                                                          int(step)))
         return state, {"ada_admitted": (state["dic"] > 0).sum()}
+
+    @staticmethod
+    def host_step(step: int) -> bool:
+        """Steps (counted from 1) that run the sampled check: they draw
+        the sample on the host and the rebuild's shapes follow the data,
+        so they run eagerly (train/capture.GraphedStep's StepMirror)."""
+        return step == 1 or step % CHECK_EVERY == 0
+
+    @staticmethod
+    def _check_due(step: torch.Tensor) -> bool:
+        """Whether this step runs the check. A graph never holds one: a
+        GraphedStep captures only calls without a check step (its host
+        mirror of the step counter picks them), so a step being captured
+        skips it; an eager step reads the predicate once."""
+        if step.is_cuda and torch.cuda.is_current_stream_capturing():
+            return False
+        return host_pred((step == 1) | (step % CHECK_EVERY == 0))
 
     def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
         # row 0 (not admitted) is all zero and dequantizes to exactly zero

@@ -109,9 +109,13 @@ class Part:
     # (all-gather + owner-compute + reduce-scatter), 'a2a' (request-routed
     # dist.all_to_all_single) or 'pallas' (the same through kernel K5)
     exchange_mode = "explicit"
-    # why this part's step cannot replay a CUDA graph (the code that reads
-    # a value back to the host), or None (train/step.capture_blockers)
-    capture_blocker = None
+    # whether the part's step takes a device branch (utils/cond.cond),
+    # which a CUDA graph holds as a conditional node
+    # (train/step.capture_blockers)
+    conds = False
+    # steps (counted from 1) that must run eagerly, or None
+    # (embeddings/ada.py; train/capture.StepMirror)
+    host_step = None
     # --shard_exchange auto (module docstring): the mesh its big tables
     # are row-sharded over, and their keys (set by EmbeddingLayer.init
     # from the global shapes); a part that cannot take it stays whole

@@ -72,6 +72,7 @@ from ..sketch.sharded import (init_sharded_sketch, init_sharded_sketch_plus,
                               local_config, local_config_plus,
                               query_sharded, query_sharded_plus,
                               shard_global_view, shard_local_view, shard_of)
+from ..utils.cond import cond, copy_into
 from .base import Part, _offsets, round_up
 
 
@@ -104,6 +105,9 @@ class CafePart(Part):
         self.total_rows = self.hash_base + round_up(self.hash_rows)
         self.mig_lanes = int(mig_lanes)
         self.insert_interval = max(int(insert_interval), 1)
+        # the skipped insert and CAFE+'s decay and reset are device
+        # branches
+        self.conds = plus or self.insert_interval > 1
         self.plus = plus
         if plus:
             self.sketch_cfg = CafePlusConfig(
@@ -341,15 +345,31 @@ class CafePart(Part):
         b, f, d = g_raw.shape
         flat_oids = oids.reshape(-1)
         interval = self.insert_interval
-        if interval > 1 and int(state["tick"]) % interval != 0:
-            # skipped insert: an empty report of the compacted lane count
-            # (the insert reports B*F lanes under CAFE+, <= PROMO_LANES
-            # under v1)
+        if interval > 1:
+            # the insert every interval-th tick, taken on the device
+            # (cond: a conditional node in a CUDA graph). The insert
+            # writes the new sketch into the state's sketch tensors, so
+            # the skip copies nothing; the skip reports the compacted
+            # lane count empty (the insert reports B*F lanes under CAFE+,
+            # <= PROMO_LANES under v1)
             l0 = flat_oids.shape[0] if self.plus \
                 else min(flat_oids.shape[0], PROMO_LANES)
             cap_l = min(l0, self.hotn, max(self.mig_lanes * 16, 4096))
-            z = torch.zeros(cap_l, dtype=torch.int32, device=oids.device)
-            sk, p_ids, p_slots, p_mask = state["sketch"], z, z, z.bool()
+
+            def insert(sketch, oids_, g):
+                new, ids_, slots_, mask = self._insert_and_compact(
+                    sketch, oids_, g)
+                copy_into(sketch, new)
+                return ids_, slots_, mask
+
+            def skip(sketch, oids_, g):
+                z = torch.zeros(cap_l, dtype=torch.int32, device=g.device)
+                return z, torch.zeros_like(z), torch.zeros_like(z).bool()
+
+            sk = state["sketch"]
+            p_ids, p_slots, p_mask = cond(
+                state["tick"] % interval == 0, insert, skip,
+                (sk, flat_oids, g_raw), name="cafe_insert")
         else:
             sk, p_ids, p_slots, p_mask = self._insert_and_compact(
                 state["sketch"], flat_oids, g_raw)

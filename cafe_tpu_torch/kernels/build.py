@@ -25,11 +25,28 @@ import torch
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "cafe_tpu_torch"
-SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu", "gather.cu", "a2a.cu")
+SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu", "gather.cu", "a2a.cu",
+           "graph_cond.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+# the branches (utils/cond._Capture) of replayed graphs whose bodies may
+# have run since their launches were last counted (train/capture.py);
+# reading or setting a count credits them first. Held strongly: a graph
+# freed before the next read still has its bodies' runs counted.
+PENDING = set()
+
+
+def settle() -> None:
+    """Credit the launches of the branch bodies that ran (one read of
+    each pending capture's device counter). Nothing to do during a
+    capture, which runs no body."""
+    if PENDING and not (torch.cuda.is_available()
+                        and torch.cuda.is_current_stream_capturing()):
+        while PENDING:
+            PENDING.pop().credit()
 
 
 def _nvcc() -> str:
@@ -92,17 +109,44 @@ class CudaKernel:
     run can show that its path reached the kernel. A call made while the
     current stream captures a CUDA graph launches nothing: it adds to
     `captured` instead, and the graph adds what its capture added to
-    `launches`, and to `graph_launches`, at every replay
+    `launches`, and to `graph_launches`, at every replay; a launch in a
+    conditional body counts on the replays that ran the body
     (train/capture.py)."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
+        self._launches = 0
+        self._graph_launches = 0
         self.captured = 0
-        self.graph_launches = 0
         self._fn = None
+
+    @property
+    def launches(self) -> int:
+        settle()
+        return self._launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        settle()
+        self._launches = n
+
+    @property
+    def graph_launches(self) -> int:
+        settle()
+        return self._graph_launches
+
+    @graph_launches.setter
+    def graph_launches(self, n: int) -> None:
+        settle()
+        self._graph_launches = n
+
+    def add_launches(self, n: int, in_graph: bool = False) -> None:
+        """Count n launches (a graph's replay counts them in_graph)."""
+        self._launches += n
+        if in_graph:
+            self._graph_launches += n
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -118,4 +162,4 @@ class CudaKernel:
         if torch.cuda.is_current_stream_capturing():
             self.captured += 1
         else:
-            self.launches += 1
+            self._launches += 1

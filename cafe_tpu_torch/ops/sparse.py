@@ -21,8 +21,9 @@ package donates them to the jitted step) and returned.
 * Adagrad / rows-Adam coalesce duplicates first (torch semantics), then
   take the full-table pass (ops/sorted_update.apply_rows_pass) when the
   table is small against the batch, else per-row updates of the
-  coalesced rows. The per-row arm drops out-of-range lanes with a boolean
-  mask, which waits for the card once.
+  coalesced rows at a fixed shape: ids wrap and drop as JAX's
+  mode="drop" scatters do, so nothing waits for the card and a CUDA
+  graph holds the update.
 """
 
 from __future__ import annotations
@@ -126,39 +127,76 @@ def coalesce_compact(idx: torch.Tensor, grad: torch.Tensor, capacity: int,
             cgrad[:capacity], seg[-1] + 1)
 
 
-def _kept_rows(table, idx, grad):
-    """Coalesced rows in range: (rows int64 [U], grad [U, D])."""
-    uidx, ugrad = coalesce(idx, grad, table.shape[0])
-    keep = (uidx >= 0) & (uidx < table.shape[0])
-    return uidx[keep].long(), ugrad[keep]
+def _coalesce_rows(idx: torch.Tensor, grad: torch.Tensor, n_rows: int):
+    """coalesce() onto n_rows rows at a fixed shape, as JAX's `.at[uidx]`
+    with mode="drop" writes them: a negative id wraps once (numpy's
+    rule), what is still outside [0, n_rows) is dropped. Returns (uidx,
+    summed grad, rows int64, kept bool, the lanes' ids sorted), a
+    dropped lane's row 0 (callers write it nothing)."""
+    order, sidx, head, seg = _sorted_groups(idx)
+    summed = torch.zeros_like(grad).index_add_(0, seg.long(), grad[order])
+    ugrad = summed[seg.long()] * head[:, None]
+    uidx = torch.where(head, sidx, n_rows)
+    wrapped = torch.where(uidx < 0, uidx + n_rows, uidx)
+    kept = (wrapped >= 0) & (wrapped < n_rows)
+    return (uidx, ugrad, torch.where(kept, wrapped, 0).long(), kept,
+            sidx)
+
+
+def _set_rows_(x: torch.Tensor, uidx, rows, kept, sidx, vals) -> None:
+    """x[rows] = vals over the kept lanes, as JAX's `.at[uidx].set(...,
+    mode="drop")` writes a coalesced update, at a fixed shape.
+
+    Two kept lanes share a row only when a negative id wraps onto an id
+    of the batch; XLA applies a scatter in lane order, so the later lane,
+    the non-negative id, wins. Every lane that writes nothing (dropped,
+    or a wrap that loses) rewrites the first writer's row with the first
+    writer's value (with no writer, row 0 with its own), so no row takes
+    two values and the write needs no order."""
+    target = rows.to(sidx.dtype)
+    pos = torch.searchsorted(sidx, target).clamp_max(sidx.shape[0] - 1)
+    writes = kept & ~((uidx < 0) & (sidx[pos] == target))
+    # index_select, not x[t] with a 0-d tensor t (a host read)
+    first = torch.argmax(writes.to(torch.int8)).reshape(1)
+    row1 = rows.index_select(0, first)
+    fill = torch.where(writes.any(), vals.index_select(0, first),
+                       x.index_select(0, row1))
+    x[torch.where(writes, rows, row1)] = torch.where(writes[:, None], vals,
+                                                     fill)
 
 
 def sparse_adagrad(table, acc, idx, grad, lr: float, eps: float = 1e-10):
     """Adagrad with torch semantics (coalesce first; per-element acc):
-    acc += g^2, row -= lr * g / (sqrt(acc) + eps). In place."""
-    rows, g = _kept_rows(table, idx, grad)
-    acc_rows = acc[rows] + g * g
-    acc[rows] = acc_rows
-    std = torch.sqrt(acc_rows) + eps
-    table[rows] = table[rows] + (-lr * g / std).to(table.dtype)
+    acc += g^2, row -= lr * g / (sqrt(acc) + eps). In place, at a fixed
+    shape: dropped lanes add zeros to row 0, as sparse_sgd's do, and the
+    accumulator is read at clip(id), as the JAX package reads it."""
+    n = table.shape[0]
+    uidx, ugrad, rows, kept, _ = _coalesce_rows(idx, grad, n)
+    g = ugrad * kept[:, None]
+    acc.index_add_(0, rows, g * g)
+    std = torch.sqrt(acc[uidx.clamp(0, n - 1).long()]) + eps
+    table.index_add_(0, rows, (-lr * g / std).to(table.dtype))
     return table, acc
 
 
 def sparse_adam(table, m, v, t, idx, grad, lr: float, beta1: float = 0.9,
                 beta2: float = 0.999, eps: float = 1e-8):
     """Rows-Adam: moments advance only for rows touched this step; bias
-    correction uses the table-global step count t. In place; returns
-    (table, m, v, t)."""
-    rows, g = _kept_rows(table, idx, grad)
+    correction uses the table-global step count t. In place, at a fixed
+    shape (the moments are read at clip(id), as the JAX package reads
+    them; dropped lanes write nothing); returns (table, m, v, t)."""
+    n = table.shape[0]
+    uidx, ugrad, rows, kept, sidx = _coalesce_rows(idx, grad, n)
     t = t + 1
-    m_rows = beta1 * m[rows] + (1.0 - beta1) * g
-    v_rows = beta2 * v[rows] + (1.0 - beta2) * (g * g)
-    m[rows] = m_rows
-    v[rows] = v_rows
+    safe = uidx.clamp(0, n - 1).long()
+    m_rows = beta1 * m[safe] + (1.0 - beta1) * ugrad
+    v_rows = beta2 * v[safe] + (1.0 - beta2) * (ugrad * ugrad)
+    _set_rows_(m, uidx, rows, kept, sidx, m_rows)
+    _set_rows_(v, uidx, rows, kept, sidx, v_rows)
     tf = t.to(torch.float32)
     upd = lr * (m_rows / (1.0 - beta1 ** tf)) / (
         torch.sqrt(v_rows / (1.0 - beta2 ** tf)) + eps)
-    table[rows] = table[rows] - upd.to(table.dtype)
+    table.index_add_(0, rows, -(upd * kept[:, None]).to(table.dtype))
     return table, m, v, t
 
 

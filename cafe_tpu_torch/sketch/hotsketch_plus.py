@@ -27,10 +27,10 @@ integer scores, so no f32 sum order can move a decision):
   that winner explicitly (a scatter-max of lane indices), which gives the
   same answer on the card, where a plain index_put_ has no defined winner;
 * sorts are stable, argmin / argmax take the first of ties;
-* the JAX package's two `lax.cond`s (decay and reset) are computed every
-  step and selected per field with `torch.where`, so the step reads
-  nothing back to the host and replays in a CUDA graph. The reset is
-  speculative: its sort over every cell runs each step;
+* the JAX package's two `lax.cond`s (decay and reset) are the port's
+  `cond` (utils/cond.py): in a CUDA graph each branch is a conditional
+  node the card takes, so the reset's sort over every cell runs only on
+  the steps where it fires; an eager step reads each predicate once;
 * the decay multiplies by the f32 reciprocal of V, as the compiled JAX
   division does, on both devices.
 """
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.cond import cond
 from .hotsketch import (INVALID_ID, InsertResult, SketchState, _first_true,
                         _set_cells, alloc_slots, mul_u32, push_slots)
 
@@ -57,6 +58,16 @@ LRU_MOVE_MIN_CNT = 5.0  # a displaced staging victim worth keeping
 
 # the fields a reset rewrites (the rest pass through it unchanged)
 _RESET_FIELDS = ("dic1", "dic2", "free", "free_top", "threshold", "real_n")
+# the fields the decay divides by V
+_DECAY_FIELDS = ("decay_acc", "threshold", "cnt1", "cnt2")
+
+
+def _decay(*fields):
+    return tuple(x * _INV_V for x in fields)
+
+
+def _same(*fields):
+    return fields
 
 
 class CafePlusConfig(NamedTuple):
@@ -304,19 +315,22 @@ def sketch_insert_plus(cfg: CafePlusConfig, st: SketchState,
     lanes = torch.arange(b, device=dev)
     scores = torch.where(ids != int(INVALID_ID), scores, 0.0)
 
-    # ---- decay, as unconditional elementwise math selected per field
+    # ---- lazy exponential decay, on the device's branch
     decay_acc = st["decay_acc"] * float(np.float32(cfg.alpha))
-    fire = decay_acc > DECAY_V
-    st = {**st, **{k: torch.where(fire, x * _INV_V, x) for k, x in (
-        ("decay_acc", decay_acc), ("threshold", st["threshold"]),
-        ("cnt1", st["cnt1"]), ("cnt2", st["cnt2"]))}}
+    decayed = cond(decay_acc > DECAY_V, _decay, _same,
+                   (decay_acc, st["threshold"], st["cnt1"], st["cnt2"]),
+                   name="plus_decay")
+    st = {**st, **dict(zip(_DECAY_FIELDS, decayed))}
 
-    # ---- adaptive reset, computed every step and selected per field
+    # ---- adaptive threshold rebuild, on the device's branch
     if cfg.adjust_threshold:
-        fire = st["real_n"] > int(cfg.lim * 1.2)
-        rs = _reset(cfg, st)
-        st = {**st, **{k: torch.where(fire, rs[k], st[k])
-                       for k in _RESET_FIELDS}}
+        def reset(*fields):
+            rs = _reset(cfg, {**st, **dict(zip(_RESET_FIELDS, fields))})
+            return tuple(rs[k] for k in _RESET_FIELDS)
+
+        st = {**st, **dict(zip(_RESET_FIELDS, cond(
+            st["real_n"] > int(cfg.lim * 1.2), reset, _same,
+            tuple(st[k] for k in _RESET_FIELDS), name="plus_reset")))}
 
     thr = st["threshold"]
     step = st["step"] + 1

@@ -35,58 +35,54 @@ Launch counts. A kernel call made while a graph is captured launches
 nothing and adds to the kernel's `captured` count (kernels/build.py);
 the graph keeps what its capture added and adds it to each kernel's
 `launches` at every replay, so `launches` counts the kernels that ran.
+
+Branches. `cond` (utils/cond.py, re-exported here) is the port's
+`lax.cond`: inside a capture each branch becomes a conditional IF node
+of the graph, so a replay runs the branch the card picks; the warm-up
+calls also run the untaken branch on clones, so its lazy constants and
+kernels exist before the capture. A body's launches count on the
+replays that ran it (its device counter is read when a kernel's count
+is next read or set, kernels/build.settle, also when the graph is gone
+by then).
+
+Host steps. A step that must run eagerly at some steps (AdaEmbed's
+sampled check and rebuild) gives its GraphedStep a StepMirror: the
+device step counter and which steps are host steps. The GraphedStep
+keeps a host mirror of that counter, read from the device when a state
+is adopted or copied in and advanced by the steps a call takes; a call
+that holds a host step runs eagerly on the graph's own state buffers,
+every other call replays. `check_mirror` holds the mirror against the
+device counter (train/loop.py, at every fence).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
-from ..kernels import KERNELS
+from ..kernels import KERNELS, build
+from ..utils import cond as _cond
+from ..utils.cond import (branch_runs, cond, conditional_node_blocker,
+                          copy_into, host_pred)
 from ..utils.timing import tensors_of
+
+__all__ = ["GraphedStep", "StepMirror", "WARMUP_CALLS", "branch_runs",
+           "cond", "conditional_node_blocker", "copy_into", "host_pred"]
 
 # eager calls of each batch signature before its capture
 WARMUP_CALLS = 2
 
 
-def _leaves(tree, path="") -> List:
-    """(path, tensor) pairs of a state tree, dict keys in sorted order."""
-    if hasattr(tree, "_asdict"):
-        tree = tree._asdict()
-    if isinstance(tree, torch.Tensor):
-        return [(path, tree)]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k],
-                                                          f"{path}/{k}")]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, v in enumerate(tree)
-                for x in _leaves(v, f"{path}[{i}]")]
-    return []
+# ---------------------------------------------------------------- steps
 
-
-@torch.no_grad()
-def copy_into(dst_tree, src_tree) -> int:
-    """Copy every tensor of `src_tree` that is not the same object as its
-    counterpart in `dst_tree` into it (params that require grad too).
-    Returns how many were copied; raises when the trees differ in
-    structure, shape or dtype."""
-    dst, src = _leaves(dst_tree), _leaves(src_tree)
-    if [p for p, _ in dst] != [p for p, _ in src]:
-        raise ValueError("GraphedStep: the state's structure differs from "
-                         "the captured one")
-    n = 0
-    for (path, d), (_, s) in zip(dst, src):
-        if d is s:
-            continue
-        if d.shape != s.shape or d.dtype != s.dtype:
-            raise ValueError(f"GraphedStep: state leaf {path} is "
-                             f"{tuple(s.shape)} {s.dtype}, the graph's "
-                             f"{tuple(d.shape)} {d.dtype}")
-        d.copy_(s)
-        n += 1
-    return n
+class StepMirror(NamedTuple):
+    """A step with host steps: its device step counter (a 0-d int tensor
+    of the state) and which steps (the counter's value after the step)
+    must run eagerly."""
+    counter: Callable
+    host_step: Callable[[int], bool]
 
 
 def _signature(batch):
@@ -106,14 +102,17 @@ def _static(x, device):
 
 class _Graph:
     """One captured call: the graph, its static batch buffers, its
-    outputs and the kernel launches one replay makes."""
+    outputs, the kernel launches one replay makes outside branch bodies
+    and its branches (utils/cond._Capture)."""
 
-    def __init__(self, graph, batch, out, launches, capture_s):
+    def __init__(self, graph, batch, out, launches, capture_s, cap):
         self.graph = graph
         self.batch = batch
         self.out = out
         self.launches = launches
         self.capture_s = capture_s
+        self.cap = cap
+        self.bodies = cap.bodies
 
     def load(self, batch) -> None:
         for dst, x in zip(self.batch, batch):
@@ -127,23 +126,32 @@ class _Graph:
     def replay(self) -> None:
         self.graph.replay()
         for kern, n in self.launches.items():
-            kern.launches += n
-            kern.graph_launches += n
+            kern.add_launches(n, in_graph=True)
+        if self.bodies:
+            # credited at the next count read, even if this graph is
+            # gone by then
+            build.PENDING.add(self.cap)
 
 
 class GraphedStep:
     """`fn` replayed as CUDA graphs, one per batch signature (module
     docstring). `graphed` is True; `__wrapped__` is `fn`, the eager
-    in-place step."""
+    in-place step. With a `mirror`, each call takes `steps_per_call`
+    steps, and a call that holds a host step runs eagerly."""
 
     graphed = True
     capture_blockers = ()
 
-    def __init__(self, fn, carry: bool):
+    def __init__(self, fn, carry: bool, mirror: Optional[StepMirror] = None,
+                 steps_per_call: int = 1):
         self.__wrapped__ = fn
         self.carry = carry
+        self.mirror = mirror
+        self.steps_per_call = steps_per_call
         self.state = None
+        self.step_seen = None      # the host mirror of mirror.counter
         self.replays = 0
+        self.host_calls = 0
         self._graphs: Dict[tuple, _Graph] = {}
         self._warm: Dict[tuple, int] = {}
         self._streams: Dict[tuple, torch.cuda.Stream] = {}
@@ -155,20 +163,54 @@ class GraphedStep:
 
     def launches_per_replay(self, sig: Optional[tuple] = None
                             ) -> Dict[str, int]:
-        """{kernel name: launches one replay makes} of the graph of `sig`
-        (default: the only one)."""
+        """{kernel name: launches one replay makes outside branch bodies}
+        of the graph of `sig` (default: the only one)."""
+        g = self._graph_of(sig)
+        names = {k: name for name, k in KERNELS.items()}
+        return {names[k]: n for k, n in g.launches.items()}
+
+    def branch_launches(self, sig: Optional[tuple] = None
+                        ) -> List[tuple]:
+        """[(cond name, side, {kernel name: launches a run})] of the
+        branch bodies of the graph of `sig` (default: the only one)."""
+        names = {k: name for name, k in KERNELS.items()}
+        return [(b.name, b.side, {names[k]: n for k, n in b.launches.items()})
+                for b in self._graph_of(sig).bodies]
+
+    def _graph_of(self, sig):
         if sig is None:
             if len(self._graphs) != 1:
                 raise ValueError(f"{len(self._graphs)} graphs: name one")
             sig = next(iter(self._graphs))
-        names = {k: name for name, k in KERNELS.items()}
-        return {names[k]: n for k, n in self._graphs[sig].launches.items()}
+        return self._graphs[sig]
 
     def _adopt(self, state) -> None:
         if self.state is None:
             self.state = state
         elif state is not self.state:
             copy_into(self.state, state)
+        else:
+            return
+        if self.mirror is not None:
+            self.step_seen = int(self.mirror.counter(self.state))
+
+    def check_mirror(self, state=None) -> None:
+        """Raise when the host mirror of the step counter differs from
+        the device's (one read). A state other than the graph's is copied
+        in, and the mirror read from it, at the next call."""
+        if self.mirror is None or self.state is None or (
+                state is not None and state is not self.state):
+            return
+        dev = int(self.mirror.counter(self.state))
+        if dev != self.step_seen:
+            raise RuntimeError(f"GraphedStep: the host mirror of the step "
+                               f"counter reads {self.step_seen}, the card "
+                               f"{dev}")
+
+    def _host_call_due(self) -> bool:
+        return self.mirror is not None and any(
+            self.mirror.host_step(self.step_seen + i)
+            for i in range(1, self.steps_per_call + 1))
 
     def __call__(self, state, *batch):
         sig = _signature(batch)
@@ -181,13 +223,21 @@ class GraphedStep:
             n = self._warm.get(sig, 0)
             if n < WARMUP_CALLS:
                 self._warm[sig] = n + 1
-                return self._eager(stream, state, batch)
-            g = self._capture(sig, stream, state, batch, dev)
+                with _cond.warming():
+                    return self._eager(stream, state, batch)
+            self._adopt(state)
+            if self._host_call_due():
+                return self._host_call(stream, batch)
+            g = self._capture(sig, stream, batch, dev)
         else:
             self._adopt(state)
+            if self._host_call_due():
+                return self._host_call(self._streams[sig], batch)
         g.load(batch)
         g.replay()
         self.replays += 1
+        if self.step_seen is not None:
+            self.step_seen += self.steps_per_call
         return (self.state, g.out) if self.carry else g.out
 
     def _eager(self, stream, state, batch):
@@ -200,13 +250,22 @@ class GraphedStep:
         main.wait_stream(stream)
         return out
 
-    def _capture(self, sig, stream, state, batch, dev) -> _Graph:
-        self._adopt(state)
+    def _host_call(self, stream, batch):
+        """A call that holds a host step: eager, on the graph's own state
+        buffers."""
+        new_state, out = self._eager(stream, self.state, batch)
+        copy_into(self.state, new_state)
+        self.host_calls += 1
+        self.step_seen += self.steps_per_call
+        return self.state, out
+
+    def _capture(self, sig, stream, batch, dev) -> _Graph:
         static = [_static(x, dev) for x in batch]
         before = {k: k.captured for k in KERNELS.values()}
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=stream):
+        with _cond.capturing(graph, dev) as cap, \
+                torch.cuda.graph(graph, stream=stream):
             out = self.__wrapped__(self.state, *static)
             if self.carry:
                 new_state, out = out
@@ -214,6 +273,6 @@ class GraphedStep:
         capture_s = time.perf_counter() - t0
         launches = {k: k.captured - n for k, n in before.items()
                     if k.captured > n}
-        g = _Graph(graph, static, out, launches, capture_s)
+        g = _Graph(graph, static, out, launches, capture_s, cap)
         self._graphs[sig] = g
         return g

@@ -369,6 +369,16 @@ def _quiet(*args, **kwargs) -> None:
     """print() of the ranks other than 0."""
 
 
+def _check_mirror(train_step, state) -> None:
+    """A graphed step with host steps (AdaEmbed's check) holds its host
+    mirror of the step counter against the card's (train/capture.py);
+    a reloaded state is copied in, and the mirror read from it, at the
+    step's next call."""
+    check = getattr(train_step, "check_mirror", None)
+    if check is not None:
+        check(state)
+
+
 def run(cfg: Config, capture: bool = True) -> Dict:
     """Train / evaluate as main.py does. On the card the steps replay
     CUDA graphs where the configuration allows; `capture` False keeps
@@ -465,6 +475,7 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
     skip_epoch, skip_batch = 0, 0
     if load_path:
         state, extra = load_checkpoint(load_path, state, mesh, embed)
+        _check_mirror(train_step, state)
         best_acc = extra.get("test_acc", 0.0)
         skip_epoch = extra.get("epoch", 0)
         skip_batch = extra.get("iter", 0)
@@ -530,6 +541,7 @@ def _run(cfg: Config, t_build: float, device, mesh, capture: bool) -> Dict:
                 eff_it % cfg.test_freq < k_disp or eff_it == nbatches)
             if should_print or should_test:
                 fence(state.params)
+                _check_mirror(train_step, state)
                 now = time.time()
                 train_ms = (now - t_window) * 1000.0 / max(total_iter, 1)
                 t_window = now

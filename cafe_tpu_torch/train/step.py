@@ -34,7 +34,11 @@ On the card the three builders return CUDA-graph steps
 (train/capture.GraphedStep, `.graphed` True) when the configuration
 allows it: `capture_blockers` lists what keeps a train step eager,
 decided when the step is built. CPU steps and `capture=False` are eager
-(`.graphed` False).
+(`.graphed` False). The data-dependent branches (the skipped insert,
+CAFE+'s decay and reset, AdaEmbed's decay) are conditional nodes in the
+graph (utils/cond.cond); AdaEmbed's check steps run eagerly on the
+graph's state, picked by its host mirror of the step counter
+(train/capture.StepMirror).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 import torch
 
 from ..parallel.exchange import psum
-from .capture import GraphedStep
+from .capture import GraphedStep, StepMirror, conditional_node_blocker
 from .lr_schedule import lr_policy
 
 EPS = 1e-7
@@ -196,19 +200,27 @@ def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
                    "read an overflow flag back to the host "
                    "(parallel/exchange.py any_rank), and K5 at n > 1 keeps "
                    "a host epoch (kernels/a2a.py)")
-    if cfg.optimizer != "sgd":
-        out.append(f"optimizer {cfg.optimizer}: the per-row sparse apply "
-                   f"keeps rows through a boolean mask, a shape that "
-                   f"depends on the data (ops/sparse.py _kept_rows)")
-    if any(getattr(p, "insert_interval", 1) > 1 for p in embed_layer.parts):
-        out.append("cafe_insert_interval > 1: the insert reads the tick "
-                   "back to the host every step (embeddings/cafe.py "
-                   "apply_grads)")
     if not cfg.donate_state:
         out.append(_UNDONATED)
-    out += list(dict.fromkeys(p.capture_blocker for p in embed_layer.parts
-                              if p.capture_blocker))
+    if any(p.conds for p in embed_layer.parts):
+        no_nodes = conditional_node_blocker(embed_layer.device)
+        if no_nodes:
+            out.append(no_nodes)
     return out
+
+
+def _step_mirror(embed_layer):
+    """The StepMirror of a layer whose part has host steps (AdaEmbed's
+    check), else None."""
+    hosted = [(f"part{i}", p) for i, p in enumerate(embed_layer.parts)
+              if p.host_step is not None]
+    if not hosted:
+        return None
+    if len(hosted) > 1:
+        raise ValueError("train step: more than one part with host steps")
+    key, part = hosted[0]
+    return StepMirror(lambda state: state.embed[key]["step"],
+                      part.host_step)
 
 
 def _eager(fn, blockers):
@@ -271,7 +283,8 @@ def build_train_step(model, embed_layer, cfg, mesh=None, capture=True):
 
     blockers = capture_blockers(cfg, embed_layer, mesh)
     if capture and not blockers and embed_layer.device.type == "cuda":
-        return GraphedStep(train_step, carry=True)
+        return GraphedStep(train_step, carry=True,
+                           mirror=_step_mirror(embed_layer))
     return _eager(train_step if cfg.donate_state else _undonated(train_step),
                   blockers)
 
@@ -323,7 +336,8 @@ def build_multi_step(train_step, k: int, donate: bool = False,
                        for name, v in agg.items()}
 
     if donate and getattr(train_step, "graphed", False):
-        return GraphedStep(multi_step, carry=True)
+        return GraphedStep(multi_step, carry=True,
+                           mirror=train_step.mirror, steps_per_call=k)
     blockers = list(getattr(train_step, "capture_blockers", []))
     if not donate:
         blockers.append(_UNDONATED)

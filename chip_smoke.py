@@ -117,9 +117,9 @@ The compiled step (CUDA graphs, train/capture.py), run before phase 9:
    K1 and K3 once a step.
 
 The baseline methods and the other towers, at full Kaggle width (run
-after phase 16), each built through build_all and graphed unless
-train/step.capture_blockers names a reason (AdaEmbed's step stays
-eager):
+after phase 16), each built through build_all and graphed (since
+train/step.capture_blockers names nothing on one device; AdaEmbed's
+check steps run eagerly on its graph's state):
 
 23. methods: QR (add, mult, concat), MDE, Off (hot dictionaries from the
    batches' dataset), weighted pooling (hash, learned) and AE
@@ -166,7 +166,8 @@ Kaggle width, graphed; K1 never launches on a CAFE+ path):
    where the reset fires);
 30. plus_reset_cost_headline, plus_reset_cost_sibling: the insert at
    each shape, a call's share of 5 calls captured in a CUDA graph: the
-   speculative reset alone, the insert, the insert without the reset;
+   reset alone, the insert with its reset branch untaken, the insert
+   taking it, the insert without the reset;
 31. profile_cafe_plus_graph: phase 21's trace of 5 replayed CAFE+
    headline steps (no K1);
 32. cli_plus (after phase 9): phase 9's runs A, B and C with
@@ -318,8 +319,8 @@ OUT_DIR/tools_*.txt; every reading must be finite and positive):
 
 52. latency_grid: the reference's latency protocol (hash, QR, MDE,
    AdaEmbed, CAFE at the CriteoTB towers, dim 128, cr 0.1, train batch
-   2048, test batch 16,384): the JAX record's keys, AdaEmbed eager and
-   the rest graphed, each method's K1 / K2 launches as its apply routes
+   2048, test batch 16,384): the JAX record's keys, every method
+   graphed, each method's K1 / K2 launches as its apply routes
    predict (predicted_launches) times the steps taken, its own peak
    memory, every latency.json read back through
    visualization.plot_latency (a recording stand-in for matplotlib
@@ -327,8 +328,9 @@ OUT_DIR/tools_*.txt; every reading must be finite and positive):
    on each method's first eager inputs that land a lane;
 53. step_breakdown: both grids (criteo: cafe, cafe_iv8, hash, full at
    dim 16; criteotb: cafe, hash at dim 128), each arm and its forward
-   arm eager and graphed (cafe_iv8 stays eager); K1 once a CAFE train
-   step (every 8th at cafe_iv8), K2 once a train step at dim 128;
+   arm eager and graphed (cafe_iv8 too: its skipped inserts are
+   conditional nodes); K1 once a CAFE train step (once an insert that
+   ran at cafe_iv8), K2 once a train step at dim 128;
 54. profile_step: 5 graphed K = 8 dispatches under torch.profiler, the
    replays traced (no fall-back to the eager step); 40 of K1's land_max
    kernels among the device ops;
@@ -347,8 +349,9 @@ OUT_DIR/tools_*.txt; every reading must be finite and positive):
 60. ab_scatter_vs_sorted (--sparse_apply_impl dense): the full-table pass
    against the scatter at the CAFE table, the big-table scatter; K3
    once an SGD scatter call;
-61. reset_cost: CAFE+'s insert without and with the speculative reset at
-   lim 1,000,000, graphed; the fires of a 100-step Zipf stream;
+61. reset_cost: CAFE+'s insert at lim 1,000,000 with its reset branch
+   untaken, taken every call, and absent, graphed; the fires of a
+   100-step Zipf stream;
 62. probes: kernel_overhead_probe (eager and graphed), micro_ops (one
    graph, split by marker kernels), clock_probe (at most 1.05 of the
    bf16 peak);
@@ -369,6 +372,25 @@ The last root tools, after phase 63:
    SUMMARY.md holds the clock, headline, stage-budget and decisions
    sections, the clock reads VALID and the headline's ms a step is
    headline_graph's.
+
+The device branches and the benchmark's twin:
+
+66. cond_capture (after phase 30): each configuration of cond_configs
+   (CAFE v1 at the headline width at interval 8 and 2, CAFE+ at
+   cafe_plus_reset's flags, hash with Adagrad and with Adam at the
+   headline width and cr 0.1, AdaEmbed at the latency grid's width from
+   step 16,380) eager and
+   graphed from one bridged state over 16 steps: integer state
+   bit-equal, floats within DENSE_TOL, K1 launched once an insert that
+   ran, every call replayed but AdaEmbed's check step, CAFE+'s reset
+   taken inside a replay; then 16 timed steps each, ms a step;
+67. bench_torch (after phase 64): bench_torch.main at one short window
+   (its measure of the headline and the three extras): bench.py's keys
+   plus "device" and "graphed", every rate positive and graphed, MFU in
+   (0, 1]; K1's launches, all and in graphs, equal to the inserts the
+   four configurations ran (interval 8's warm-up spares included), and
+   K1 held against its plain version at each configuration's first
+   insert (cr 1e-4 and dim 128 are shapes of their own; other_paths).
 
 Then the kernels line (every kernel's launches on the main path, those
 made by graph replays, error, times, bound and, for K1 and K5, graph_ms;
@@ -469,8 +491,11 @@ def graph_ms(fn, calls=20, reps=10) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from cafe_tpu_torch.utils.cond import capturing
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # a cond in fn becomes a conditional node of this graph
+    with capturing(graph, torch.device("cuda", torch.cuda.current_device())
+                   ), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -2955,6 +2980,17 @@ def load_tool(name):
     return mod
 
 
+def load_root(name):
+    """A root script (<name>.py beside this one) as a module."""
+    import importlib.util
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @contextlib.contextmanager
 def tool_log(name):
     """A tool's own prints, kept in chiprun_out/tools_<name>.txt."""
@@ -3242,7 +3278,7 @@ def phase_method(build_all, fence, cfg, data, batches, kernels,
 
 def _pairs(card, cpu):
     """(path, card leaf, CPU leaf) of two state trees, as numpy."""
-    from cafe_tpu_torch.train.capture import _leaves
+    from cafe_tpu_torch.utils.cond import _leaves
     return [(path, a.detach().cpu().numpy(), b.detach().numpy())
             for (path, a), (_, b) in zip(_leaves(card), _leaves(cpu))]
 
@@ -3524,8 +3560,10 @@ def phase_plus_reset_cost(build_all, cfg, data, batches, steps=3):
     """The CAFE+ insert at the shape of `cfg` on the sketch state after
     `steps` eager steps, with the first batch's offset ids and scores of
     1: device ms (a call's share of 5 calls captured in one CUDA graph,
-    median of 5 replays) of the speculative reset alone, of the whole
-    insert, and of the insert without the reset (adjust_threshold off)."""
+    median of 5 replays) of the reset alone, of the insert whose reset
+    branch is not taken (real_n pinned below the trip point), of the
+    insert that takes it every call (pinned above), and of the insert
+    without the reset (adjust_threshold off: no branch)."""
     from cafe_tpu_torch.sketch.hotsketch_plus import (_reset,
                                                       sketch_insert_plus)
     _, embed, state, step, _ = build_all(cfg, data, device="cuda",
@@ -3537,6 +3575,9 @@ def phase_plus_reset_cost(build_all, cfg, data, batches, steps=3):
     oids = part._oids(batches[0][1][:, embed._cols[int(key[4:])]]).reshape(-1)
     ones = torch.ones(oids.shape[0], device=oids.device)
     no_reset = pcfg._replace(adjust_threshold=False)
+    cold = {**sk, "real_n": torch.zeros_like(sk["real_n"])}
+    hot = {**sk, "real_n": torch.full_like(sk["real_n"],
+                                           int(pcfg.lim * 1.2) + 1)}
 
     def ms(fn):
         return graph_ms(fn, calls=5, reps=5)
@@ -3545,13 +3586,189 @@ def phase_plus_reset_cost(build_all, cfg, data, batches, steps=3):
            "cells": int(sk["cnt1"].numel() + sk["cnt2"].numel()),
            "lanes": int(oids.shape[0]),
            "reset_ms": ms(lambda: _reset(pcfg, sk)),
-           "insert_ms": ms(lambda: sketch_insert_plus(pcfg, sk, oids, ones)),
+           "insert_ms": ms(lambda: sketch_insert_plus(pcfg, cold, oids,
+                                                      ones)),
+           "insert_reset_fires_ms": ms(lambda: sketch_insert_plus(
+               pcfg, hot, oids, ones)),
            "insert_without_reset_ms": ms(
-               lambda: sketch_insert_plus(no_reset, sk, oids, ones))}
-    rec["reset_share_of_insert"] = rec["reset_ms"] / rec["insert_ms"]
-    del state, sk
+               lambda: sketch_insert_plus(no_reset, cold, oids, ones))}
+    rec["reset_share_of_firing_insert"] = \
+        rec["reset_ms"] / rec["insert_reset_fires_ms"]
+    rec["untaken_branch_overhead"] = \
+        rec["insert_ms"] / rec["insert_without_reset_ms"] - 1.0
+    del state, sk, cold, hot
     torch.cuda.empty_cache()
     return rec
+
+
+COND_STEPS = 16               # two inserts at interval 8
+COND_GATE_STEPS = 8           # steps from one state, eager against graphed
+COND_TIMED = 16               # steps a timed window, each arm
+REORDER_TOL = 1e-5            # one step's f32 reordering (float atomics)
+COND_ADA_START = 16380        # 4 below a check step and a decay step
+
+
+def cond_configs(Config):
+    """{name: config} of the cond_capture phase: CAFE v1 at the headline
+    width (frequency scores, threshold 2, the dense apply: every float
+    deterministic) at interval 8 and 2; CAFE+ at cafe_plus_reset's flags
+    (its reset fires); hash with Adagrad and with Adam at the headline
+    width and cr 0.1 (its 3.4 M-row table takes the per-row optimizer
+    arm, which the headline's 34 K rows would not); AdaEmbed at the
+    latency grid's width (dim 128, cr 0.1, the CriteoTB towers)."""
+    v1 = dict(cafe_use_freq=True, cafe_sketch_threshold=2.0,
+              sparse_apply_impl="dense")
+    grid = dict(dataset="criteotb", embedding_dim=128, compress_rate=0.1,
+                learning_rate=1.0)
+    return {
+        "cafe_iv8": headline_cfg(Config, cafe_insert_interval=8, **v1),
+        "cafe_iv2": headline_cfg(Config, cafe_insert_interval=2, **v1),
+        "cafe_plus_reset": headline_cfg(Config, cafe_use_freq=True,
+                                        cafe_sketch_threshold=1.0,
+                                        cafe_plus=True),
+        "hash_adagrad": headline_cfg(Config, compress_method="hash",
+                                     optimizer="adagrad", compress_rate=0.1),
+        "hash_adam": headline_cfg(Config, compress_method="hash",
+                                  optimizer="adam", compress_rate=0.1),
+        "ada": headline_cfg(Config, compress_method="ada", **grid),
+    }
+
+
+def _leaf_gaps(a, b):
+    """{path: max |a - b| / max(1, max |b|)} of two state trees' float
+    leaves, computed on their device (an absolute gap where the leaf's
+    values stay under 1, a relative one over accumulated importances
+    and counts), and the paths of integer leaves that differ."""
+    from cafe_tpu_torch.utils.cond import _leaves
+    gaps, bad = {}, []
+    for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                bad.append(path)
+        elif x.numel():
+            gaps[path] = float((x - y).abs().max()
+                               / y.abs().max().clamp_min(1.0))
+    return gaps, bad
+
+
+def phase_cond_capture(build_all, build_train_step, clone_state,
+                       from_reference, to_numpy, fence, Config, data,
+                       batches, kernels):
+    """Each configuration of cond_configs from one bridged start state,
+    eager and graphed over COND_STEPS steps that take both sides of its
+    device branches (utils/cond.cond): every integer leaf bit-equal
+    between the two trajectories (their float leaves drift apart where a
+    sum runs in float atomics, and the drift is recorded); then
+    COND_GATE_STEPS steps each from one state (the graphed state cloned,
+    the eager step on the clone): integer leaves bit-equal and float
+    leaves within REORDER_TOL, one step's f32 reordering (relative to
+    the leaf's largest value where that passes 1). K1's counted launches
+    equal the v1 inserts that ran (eager, warm-up spares and replays,
+    from branch_runs), every call is replayed but AdaEmbed's check step
+    (a host call on the graph's state), CAFE+'s reset is taken inside a
+    replay; then COND_TIMED steps each, graphed and eager, ms a step."""
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS, branch_runs
+
+    def inserts(runs0):
+        runs = branch_runs()
+        return {k: runs[k].get("cafe_insert", [0, 0])[1]
+                - runs0[k].get("cafe_insert", [0, 0])[1] for k in runs}
+
+    out = {}
+    for name, cfg in cond_configs(Config).items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, embed, state0, g_step, _ = build_all(cfg, data,
+                                                    device="cuda")
+        if not g_step.graphed:
+            raise AssertionError(f"cond_capture {name}: not graphed: "
+                                 f"{g_step.capture_blockers}")
+        e_step = build_train_step(model, embed, cfg, capture=False)
+        start = to_numpy(state0)
+        del state0
+        if name == "ada":
+            for v in start["embed"].values():
+                if "grad_norm" in v:
+                    v["step"] = np.asarray(COND_ADA_START, np.int32)
+        for k in kernels.values():
+            k.launches = 0
+        runs0 = branch_runs()
+        states, ms = {}, {}
+        for mode, step in (("eager", e_step), ("graphed", g_step)):
+            st = from_reference(start, "cuda")
+            for i in range(COND_STEPS):
+                st, m = step(st, *batches[i % len(batches)])
+            fence(st, m)
+            states[mode] = st
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"cond_capture {name}: loss "
+                                     f"{float(m['loss'])}")
+        drift, bad = _leaf_gaps(states["eager"], states["graphed"])
+        if bad:
+            raise AssertionError(f"cond_capture {name}: integer state "
+                                 f"differs at {bad}")
+        del states["eager"]
+        g_st, step_gap = states.pop("graphed"), 0.0
+        for i in range(COND_GATE_STEPS):
+            b = batches[(COND_STEPS + i) % len(batches)]
+            ex, _ = e_step(clone_state(g_st), *b)
+            g_st, _ = g_step(g_st, *b)
+            gaps, bad = _leaf_gaps(ex, g_st)
+            if bad or max(gaps.values()) > REORDER_TOL:
+                raise AssertionError(f"cond_capture {name} gate step {i}: "
+                                     f"integers {bad}, floats {gaps}")
+            step_gap = max(step_gap, max(gaps.values()))
+            del ex
+        for mode, step in (("graphed", g_step), ("eager", e_step)):
+            t0 = time.perf_counter()
+            for i in range(COND_TIMED):
+                g_st, m = step(g_st, *batches[i % len(batches)])
+            fence(g_st, m)
+            ms[mode] = (time.perf_counter() - t0) * 1e3 / COND_TIMED
+        del g_st
+        runs = branch_runs()
+        delta = {k: {c: [a - b for a, b in zip(v, runs0[k].get(c, [0, 0]))]
+                     for c, v in runs[k].items() if any(v)} for k in runs}
+        host = 1 if name == "ada" else 0
+        calls = COND_STEPS + COND_GATE_STEPS + COND_TIMED
+        if g_step.host_calls != host or g_step.replays != \
+                calls - WARMUP_CALLS - host:
+            raise AssertionError(f"cond_capture {name}: {g_step.replays} "
+                                 f"replays, {g_step.host_calls} host calls")
+        ran = inserts(runs0)
+        k1 = kernels["land_max"].launches
+        is_v1 = name.startswith("cafe_iv")
+        if k1 != (sum(ran.values()) if is_v1 else 0):
+            raise AssertionError(f"cond_capture {name}: K1 launched {k1}, "
+                                 f"v1 inserts ran {ran}")
+        # eager inserts: ticks 0 and 8 of the eager trajectory, the
+        # graphed run's first warm-up call (tick 0), the gate's eager
+        # call at tick 16, the eager window's ticks 40 and 48; its second
+        # warm-up call (tick 1) skips and inserts a spare on a clone;
+        # replays insert at ticks 8, 16 (gate), 24 and 32 (window)
+        if name == "cafe_iv8" and ran != {"eager": 6, "graph": 4,
+                                          "spare": 1}:
+            raise AssertionError(f"cond_capture {name}: inserts {ran}")
+        if name == "cafe_plus_reset" and \
+                not delta["graph"].get("plus_reset", [0, 0])[1]:
+            raise AssertionError(f"cond_capture {name}: no reset fired in "
+                                 f"a replay: {delta}")
+        out[name] = {
+            "steps": COND_STEPS, "gate_steps": COND_GATE_STEPS,
+            "timed_steps": COND_TIMED,
+            "eager_ms_per_step": ms["eager"],
+            "graphed_ms_per_step": ms["graphed"],
+            "speedup": ms["eager"] / ms["graphed"],
+            "replays": g_step.replays, "host_calls": g_step.host_calls,
+            "capture_s": g_step.capture_s,
+            "branch_bodies": len(g_step.branch_launches()),
+            "branch_runs": delta, "v1_inserts_ran": ran if is_v1 else None,
+            "integer_state_equal": True,
+            "trajectory_float_drift": max(drift.values()),
+            "gate_max_float_gap": step_gap,
+            "launches": {c: k.launches for c, k in kernels.items()}}
+        del model, embed, g_step, e_step
+    return out
 
 
 def phase_sketch_bench(bench, kernels):
@@ -4286,8 +4503,8 @@ def phase_latency_grid(tool, visualization, scatter_add, kernels, root,
     """tools/latency_grid_torch.py, all five methods, TOOL_WINDOWS x
     TOOL_STEPS: the JAX record's keys, finite positive times, each
     method's launches as its apply routes predict (K1 once a CAFE step, K2
-    once a step per table of >= 2^20 rows at dim 128), AdaEmbed eager and
-    the rest graphed, and each latency.json read back by plot_latency.
+    once a step per table of >= 2^20 rows at dim 128), every method
+    graphed, and each latency.json read back by plot_latency.
     K2 is held against its plain version on the inputs each method's
     first eager step that lands a lane gave it (scatter_add_case)."""
     boards = os.path.join(root, "latency_boards")
@@ -4323,7 +4540,7 @@ def phase_latency_grid(tool, visualization, scatter_add, kernels, root,
         if bad:
             raise AssertionError(f"latency_grid {m}: launches (got, want) "
                                  f"{bad}")
-        if r["graphed"] != (m != "ada" and device == "cuda"):
+        if r["graphed"] != (device == "cuda"):
             raise AssertionError(f"latency_grid {m}: graphed {r['graphed']}"
                                  f" {r['capture_blockers']}")
     # CAFE's 3.2 M-row table takes K2 on the card
@@ -4349,9 +4566,11 @@ def phase_latency_grid(tool, visualization, scatter_add, kernels, root,
 
 def phase_step_breakdown(tool, kernels, device="cuda"):
     """tools/step_breakdown_torch.py, both grids, every arm eager and
-    graphed where it graphs (cafe_iv8 stays eager): finite positive us a
-    step; K1 once a CAFE train step (every 8th at cafe_iv8), never on a
-    forward-only arm, and on the dim-128 grid K2 once a train step."""
+    graphed (cafe_iv8's skipped inserts are conditional nodes): finite
+    positive us a step; K1 once a CAFE train step (at cafe_iv8 once an
+    insert that ran, warm-up spares included: the tool's `inserts`),
+    never on a forward-only arm, and on the dim-128 grid K2 once a train
+    step."""
     out, launches = {}, {name: 0 for name in kernels}
     n = BREAKDOWN_WARMUP + TOOL_STEPS
     for shapes in ("criteo", "criteotb"):
@@ -4366,8 +4585,8 @@ def phase_step_breakdown(tool, kernels, device="cuda"):
         graphed = set(res["graphed"]) if "graphed" in res else set()
         for name, got in res["launches"].items():
             n_modes = 1 + (name in graphed)
-            k1 = (-(-n // 8) if name.endswith("iv8") else n * n_modes) \
-                if name.startswith("cafe") else 0
+            k1 = (res["inserts"][name] if name.endswith("iv8")
+                  else n * n_modes) if name.startswith("cafe") else 0
             if got["land_max"] != k1:
                 raise AssertionError(f"step_breakdown {shapes} {name}: K1 "
                                      f"{got['land_max']}, not {k1}")
@@ -4379,8 +4598,7 @@ def phase_step_breakdown(tool, kernels, device="cuda"):
                                      f"{got['scatter_add']}, not {k2}")
             for k, v in got.items():
                 launches[k] += v
-        if device == "cuda" and res["not_graphed"].keys() != (
-                {"cafe_iv8"} if shapes == "criteo" else set()):
+        if device == "cuda" and res["not_graphed"]:
             raise AssertionError(f"step_breakdown {shapes}: not graphed "
                                  f"{res['not_graphed']}")
         out[shapes] = res
@@ -4553,7 +4771,8 @@ def phase_ab_scatter_vs_sorted(tool, kernels, device="cuda"):
 def phase_reset_cost(tool, kernels, device="cuda"):
     """tools/reset_cost_torch.py at its defaults (lim 1,000,000, 53,248
     lanes), TOOL_WINDOWS windows, a 100-step Zipf stream: finite positive
-    times, both arms graphed, the fires counted."""
+    times of its three arms (the reset's branch untaken, taken every
+    call, absent), all graphed, the fires counted."""
     _zero(kernels)
     with tool_log("reset_cost"):
         rec = tool.main(["--windows", str(TOOL_WINDOWS), "--stream_steps",
@@ -4561,7 +4780,8 @@ def phase_reset_cost(tool, kernels, device="cuda"):
     if RESET_KEYS - set(rec):
         raise AssertionError(f"reset_cost: missing {RESET_KEYS - set(rec)}")
     positive("reset_cost", {k: rec[k] for k in ("steady_us",
-                                                 "forced_reset_us")})
+                                                 "forced_reset_us",
+                                                 "no_reset_us")})
     if device == "cuda" and not rec["graphed"]:
         raise AssertionError("reset_cost: the arms did not graph")
     return {**rec, "launches": _counts(kernels)}
@@ -4659,6 +4879,76 @@ def phase_traffic_table(tool, land, kernels, device="cuda"):
     return {"card": card, "cpu": cpu,
             "ratio": {r["method"]: tool.ratio(r) for r in card},
             "launches": launches,
+            "land_max_cases": [land_real_case(land, *a) for a in k1.values()]}
+
+
+BENCH_STEPS, BENCH_WARMUP = 10, 4     # bench_torch's phase: one window
+# bench.py's JSON line (bench.py:260-274), and the port's two keys
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "window_min",
+              "window_max", "windows", "steps_per_dispatch", "mfu",
+              "flops_per_example", "cafe_insert_interval",
+              "interval8_examples_per_s", "cr1e4_examples_per_s",
+              "dim128_examples_per_s", "sync", "device", "graphed"}
+
+
+def bench_k1_want(bench, warmup_calls, steps=BENCH_STEPS,
+                  warmup=BENCH_WARMUP):
+    """(all, in graphs) K1 launches of phase_bench_torch's run on the
+    card: one an insert; every step inserts at interval 1 (the headline,
+    cr 1e-4, dim 128), every 8th step at interval 8, whose warm-up calls
+    also run each skipped step's insert on clones (utils/cond.cond); the
+    first `warmup_calls` calls of each configuration run eagerly."""
+    k = bench.DISPATCH_K
+    per_k = (warmup + steps) * k                # steps of a K-step config
+    dim128 = warmup + bench.extra_configs(
+        bench.headline_config())["dim128"][1]["steps"]
+    warm_steps = warmup_calls * k
+    iv8 = -(-per_k // 8) + warm_steps - -(-warm_steps // 8)
+    total = 2 * per_k + iv8 + dim128
+    return total, total - warmup_calls * (3 * k + 1)
+
+
+def phase_bench_torch(bench, land, kernels, warmup_calls, device="cuda",
+                      **size):
+    """bench_torch.main at one window of BENCH_STEPS calls after
+    BENCH_WARMUP (its measure of each of the four configurations): one
+    line with bench.py's keys, "device" and "graphed", every rate
+    positive and, on the card, graphed with 0 < MFU <= 1, exit code 0;
+    K1's launches, all and in graphs, as bench_k1_want counts them (0 on
+    the CPU); and K1 on the first inputs each configuration's insert gave
+    it (land_real_case: cr 1e-4's 10-fold fewer buckets and dim 128's
+    CriteoTB sketch are shapes no other phase gives it)."""
+    _zero(kernels)
+    in_graphs0 = kernels["land_max"].graph_launches
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), first_inputs(
+            land, "land_max", keep=4) as k1:
+        rc = bench.main(device=device, windows=1, extra_windows=1,
+                        steps=BENCH_STEPS, warmup=BENCH_WARMUP, **size)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_torch: rc {rc}, lines {lines}")
+    rec = json.loads(lines[0])
+    if set(rec) != BENCH_KEYS:
+        raise AssertionError(f"bench_torch: keys {sorted(rec)}")
+    rates = {k: rec[k] for k in ("value", "interval8_examples_per_s",
+                                 "cr1e4_examples_per_s",
+                                 "dim128_examples_per_s")}
+    positive("bench_torch", rates)
+    launches = _counts(kernels)
+    got = (launches["land_max"],
+           kernels["land_max"].graph_launches - in_graphs0)
+    want = bench_k1_want(bench, warmup_calls) if device == "cuda" \
+        else (0, 0)
+    if device == "cuda" and (not all(rec["graphed"].values())
+                             or not 0 < rec["mfu"] <= 1):
+        raise AssertionError(f"bench_torch: graphed {rec['graphed']}, "
+                             f"mfu {rec['mfu']}")
+    if got != want:
+        raise AssertionError(f"bench_torch: K1 launched {got} times (all, "
+                             f"in graphs), not {want}")
+    return {"line": rec, "launches": launches,
+            "land_max_want": list(want),
             "land_max_cases": [land_real_case(land, *a) for a in k1.values()]}
 
 
@@ -4845,6 +5135,19 @@ def main() -> int:
                                                       cafe_plus=True))):
         emit({"phase": f"plus_reset_cost_{name}", **phase_plus_reset_cost(
             build_all, cfg, data, batches)})
+    # ---- the device branches (utils/cond.cond) graphed beside eager
+    before = graph_launches()
+    t0 = time.perf_counter()
+    cc = phase_cond_capture(build_all, build_train_step, clone_state,
+                            from_reference, to_numpy, fence, Config, data,
+                            batches, KERNELS)
+    count_in_graphs("cond_capture", before)
+    by_path["cond_capture"] = {name: sum(r["launches"][name]
+                                         for r in cc.values())
+                               for name in KERNELS}
+    emit({"phase": "cond_capture", "wall_s": time.perf_counter() - t0,
+          **cc})
+    torch.cuda.empty_cache()
     emit({"phase": "profile_cafe_plus_graph", **phase_profile(
         build_all, headline_cfg(Config, cafe_plus=True), data, batches,
         "cafe_plus_graph", capture=True, landings=0)})
@@ -5033,8 +5336,7 @@ def main() -> int:
                                          pretrain if ae else None)
         count_in_graphs(name, before)
         by_path[name] = rec["launches"]
-        graphed_want = name != "ada_sibling"
-        if rec["graphed"] != graphed_want:
+        if not rec["graphed"]:
             raise AssertionError(f"{name}: graphed {rec['graphed']}, "
                                  f"{rec['capture_blockers']}")
         if name == "ada_sibling":
@@ -5159,6 +5461,15 @@ def main() -> int:
     land_shapes["traffic_table"] = traffic["land_max_cases"]
     emit({"phase": "traffic_table", "wall_s": time.perf_counter() - t0,
           **traffic})
+    t0 = time.perf_counter()
+    before = graph_launches()
+    bt = phase_bench_torch(load_root("bench_torch"), land, KERNELS,
+                           WARMUP_CALLS)
+    count_in_graphs("bench_torch", before)
+    by_path["bench_torch"] = bt["launches"]
+    land_shapes["bench_torch"] = bt["land_max_cases"]
+    emit({"phase": "bench_torch", "wall_s": time.perf_counter() - t0, **bt})
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     emit({"phase": "perf_report", **phase_perf_report(
         load_tool("perf_report_torch"), v1_graphed["headline_graph"]),

@@ -7,14 +7,19 @@
   1e-5), and the port gives the same bits for an int and a tensor valid;
 * (b) a TorchDispatchMode that raises on every value read back to the
   host (`aten._local_scalar_dense`: `.item()`, `int()`, `float()`,
-  `bool()` of a tensor) and on every op whose output shape depends on
-  the data (nonzero, masked_select, unique, boolean indexing): one step
-  of each configuration that train/step.capture_blockers lets replay a
-  graph runs under it (train, multi-step and eval), and each
-  configuration it keeps eager for a host read or such an op trips it;
+  `bool()` of a tensor) other than a branch predicate's
+  (utils/cond.host_pred, which a graph takes on the card), and on every
+  op whose output shape depends on the data (nonzero, masked_select,
+  unique, boolean indexing): one step of each configuration that
+  train/step.capture_blockers lets replay a graph runs under it (train,
+  multi-step and eval), and a step that a graph runs eagerly (AdaEmbed's
+  check step) trips it; on one device only a mesh, donate_state False
+  and a torch without conditional nodes block the capture;
 * (c) the eval loop keeps each batch's scores when the eval step returns
   one reused output tensor, as a graphed eval step does.
 """
+
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +38,7 @@ from cafe_tpu_torch.train import build_all as tbuild_all, get_dataset
 from cafe_tpu_torch.train import inference
 from cafe_tpu_torch.train.metrics import binary_metrics
 from cafe_tpu_torch.train.step import build_multi_step, capture_blockers
+from cafe_tpu_torch.utils.cond import cond, host_pred
 from test_torch_train import SKETCH_EXACT, SMALL, _close
 
 torch.set_num_threads(1)
@@ -132,10 +138,22 @@ _INDEXING = {aten.index, aten.index_put, aten.index_put_,
              aten._index_put_impl_}
 
 
+def _in_host_pred() -> bool:
+    """Whether the read comes from a branch predicate (utils/cond's
+    host_pred): an eager step's one allowed read, a conditional node in
+    a graph."""
+    frame = sys._getframe()
+    while frame is not None:
+        if frame.f_code is host_pred.__code__:
+            return True
+        frame = frame.f_back
+    return False
+
+
 class NoCaptureBreaks(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         packet = func.overloadpacket
-        if func in _HOST_READS:
+        if func in _HOST_READS and not _in_host_pred():
             raise CaptureBreak(f"host read: {func}")
         if packet in _DATA_SHAPED or (
                 packet is aten.repeat_interleave
@@ -152,12 +170,17 @@ def test_the_mode_catches_each_kind():
     for bad in (lambda: x.sum().item(), lambda: int(x[2]),
                 lambda: bool(x[1] > 0), lambda: x[x > 2],
                 lambda: torch.nonzero(x), lambda: torch.unique(x),
-                lambda: x.masked_fill(x > 2, 0)[x > 3]):
+                lambda: x.masked_fill(x > 2, 0)[x > 3],
+                lambda: cond(x[1] > 0, lambda: x.sum().item(),
+                             lambda: 0.0)):
         with pytest.raises(CaptureBreak), NoCaptureBreaks():
             bad()
     with NoCaptureBreaks():       # masks as data, not as shapes, pass
         torch.where(x > 2, x, 0.0).sum()
         x.masked_fill(x > 2, 0.0)
+        # a branch predicate, which a graph takes on the card
+        assert host_pred(x[1] > 0)
+        cond(x[1] > 0, lambda: x + 1, lambda: x - 1)
 
 
 # batch 16 over 4 fields: the CAFE table's 1,024 rows exceed 8 rows an
@@ -173,16 +196,20 @@ GRAPHED = {
     "lr_schedule": {"lr_num_warmup_steps": 4, "lr_decay_start_step": 6,
                     "lr_num_decay_steps": 8},
     "hash": {"compress_method": "hash"},
-    # CAFE+: its decay and reset are selected on the device every step
+    # CAFE+: its decay and reset are device branches
     "cafe_plus": {"cafe_plus": True, "cafe_sketch_threshold": 1.0,
                   "cafe_alpha": 12.0},
-}
-# kept eager for a host read or a data-shaped op
-EAGER = {
+    # fixed-shape coalesced rows (ops/sparse.py)
     "adagrad": {"optimizer": "adagrad"},
     "adam": {"optimizer": "adam"},
+    # the skipped insert is a device branch
     "insert_interval": {"cafe_insert_interval": 2},
     "plus_insert_interval": {"cafe_plus": True, "cafe_insert_interval": 2},
+}
+# a step that a graphed step runs eagerly: AdaEmbed's check step (step
+# 1) draws its sample on the host and rebuilds through data-shaped ops
+EAGER = {
+    "ada_check": {"compress_method": "ada", "compress_rate": 0.5},
 }
 
 
@@ -218,14 +245,32 @@ def test_graphable_steps_run_under_the_mode(name):
 @pytest.mark.parametrize("name", sorted(EAGER))
 def test_eager_steps_trip_the_mode(name):
     cfg, embed, state, step, _, batch = _cpu_build(EAGER[name])
-    assert capture_blockers(cfg, embed)
+    assert capture_blockers(cfg, embed) == []
+    (part,) = [p for p in embed.parts if p.host_step is not None]
+    assert part.host_step(1) and not part.host_step(2)
     valid = torch.tensor(BC, dtype=torch.int32)
-    for part in embed.parts:      # the per-row arm, not the table pass
-        if name in ("adagrad", "adam"):
-            assert part.total_rows > 8 * BC * len(part.field_idx)
-    state, _ = step(state, *batch, valid)
     with pytest.raises(CaptureBreak), NoCaptureBreaks():
         step(state, *batch, valid)
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "adam"])
+def test_per_row_arm_in_graphed_optimizer_cases(optimizer):
+    """The Adagrad / Adam cases of GRAPHED take the per-row arm, not the
+    table pass: the CAFE table's rows exceed 8 rows an update lane."""
+    _, embed, *_ = _cpu_build(GRAPHED[optimizer])
+    for part in embed.parts:
+        assert part.total_rows > 8 * BC * len(part.field_idx)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHED) + sorted(EAGER))
+def test_only_donate_off_blocks_on_one_device(name):
+    """On one device the optimizer, the insert interval, CAFE+ and
+    AdaEmbed block nothing; donate_state False does, with its reason."""
+    extra = dict(GRAPHED[name] if name in GRAPHED else EAGER[name],
+                 donate_state=False)
+    cfg, embed, *_ = _cpu_build(extra)
+    assert [b.split(":")[0] for b in capture_blockers(cfg, embed)] == \
+        ["donate_state False"]
 
 
 def test_sharded_a2a_step_trips_the_mode():

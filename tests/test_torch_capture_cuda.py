@@ -10,8 +10,17 @@ process: `cuda` tests that skip here and run on a card with
 * a call with another state (a reload) copies it in before the replay
   and leaves the caller's tensors alone;
 * the kernels' launch counts grow by the captured launches at every
-  replay.
+  replay;
+* device branches (utils/cond.cond) in a graph: nested conds replay the
+  branch the card picks; an interval-8 CAFE step, graphed, equals its
+  eager step bit for bit over 16 steps, with K1 counted only on the
+  replays that ran the insert, also when the step is deleted before
+  the count is read; CAFE+ with a reset firing inside a
+  replay, Adagrad and Adam, and AdaEmbed across a check step (run
+  eagerly on the graph's state) equal their eager steps too.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -21,7 +30,8 @@ from cafe_tpu_torch.bridge import from_reference, to_numpy
 from cafe_tpu_torch.config import Config
 from cafe_tpu_torch.kernels import land, rowsum
 from cafe_tpu_torch.train import build_all, build_multi_step, get_dataset
-from cafe_tpu_torch.train.capture import WARMUP_CALLS, GraphedStep
+from cafe_tpu_torch.train.capture import (WARMUP_CALLS, GraphedStep,
+                                          branch_runs, cond)
 
 torch.set_num_threads(1)
 
@@ -173,3 +183,159 @@ def test_quantize_rowwise_card_equals_cpu(bits):
         0, 0.3, (65536, 16)).astype(np.float32))
     card = quantize_rowwise(table.cuda(), bits).codes.cpu()
     assert torch.equal(card, quantize_rowwise(table, bits).codes)
+
+
+@pytest.mark.cuda
+def test_nested_conds_replay_the_branch_the_card_picks():
+    """A graphed call with an if-else holding another: each replay takes
+    the branches its inputs pick, the outputs of both sides land in one
+    buffer, and each body's runs are counted on the card."""
+    _card()
+
+    def inner(x):
+        return cond(x.sum() > 0, lambda y: y * 2.0, lambda y: y - 1.0, (x,),
+                    name="inner")
+
+    def fn(state, x, flag):
+        out = cond(flag > 0, lambda y: inner(y) + 10.0,
+                   lambda y: y * 0.5, (x,), name="outer")
+        return state, out
+
+    def want(x, flag):
+        if flag > 0:
+            return (x * 2.0 if x.sum() > 0 else x - 1.0) + 10.0
+        return x * 0.5
+
+    step = GraphedStep(fn, carry=True)
+    state = {"s": torch.zeros((), device="cuda")}
+    before = branch_runs()["graph"]
+    cases = [(1.0, 1), (-1.0, 1), (1.0, 0), (-1.0, 1), (2.0, 0), (3.0, 1)]
+    for v, flag in cases:
+        x = torch.full((4,), v, device="cuda")
+        f = torch.tensor(flag, dtype=torch.int32, device="cuda")
+        _, out = step(state, x, f)
+        assert torch.equal(out, want(x, flag)), (v, flag)
+    assert step.replays == len(cases) - WARMUP_CALLS
+    runs = branch_runs()["graph"]
+    replayed = cases[WARMUP_CALLS:]
+    outer_true = sum(flag > 0 for _, flag in replayed)
+    assert runs["outer"][1] - before.get("outer", [0, 0])[1] == outer_true
+    assert runs["outer"][0] - before.get("outer", [0, 0])[0] == \
+        len(replayed) - outer_true
+    assert sum(runs["inner"]) - sum(before.get("inner", [0, 0])) == \
+        outer_true
+
+
+def _trajectory(step, state, batches, n):
+    out = []
+    for i in range(n):
+        state, m = step(state, *batches[i % len(batches)], B)
+        out.append({name: x.clone() for name, x in m.items()})
+    torch.cuda.synchronize()
+    return state, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plus", [False, True])
+def test_interval8_graphed_equals_eager(plus):
+    """cafe_insert_interval 8 over 16 steps: the graphed step (a
+    conditional node holds the insert) equals the eager one bit for bit,
+    and K1 counts one launch a v1 insert that ran (eager, spare warm-up
+    or replayed)."""
+    _card()
+    cfg, g_step, e_step, _, _, start, batches = _setup(
+        cafe_insert_interval=8, cafe_plus=plus)
+    assert g_step.graphed and not g_step.capture_blockers
+    e_state, e_m = _trajectory(e_step, from_reference(start, "cuda"),
+                               batches, 16)
+    runs0 = branch_runs()
+    l0 = land.KERNEL.launches
+    g_state, g_m = _trajectory(g_step, from_reference(start, "cuda"),
+                               batches, 16)
+    assert g_step.replays == 16 - WARMUP_CALLS
+    _assert_equal(g_state, e_state)
+    for em, gm in zip(e_m, g_m):
+        for name in em:
+            assert torch.equal(em[name], gm[name]), name
+    runs = branch_runs()
+    ran = {k: runs[k]["cafe_insert"][1] - runs0[k].get(
+        "cafe_insert", [0, 0])[1] for k in runs}
+    assert ran["graph"] == 1 and ran["eager"] == 1     # ticks 8 and 0
+    if not plus:                 # K1 lands v1's insert (none in CAFE+)
+        assert land.KERNEL.launches - l0 == sum(ran.values())
+
+
+@pytest.mark.cuda
+def test_a_freed_graphs_inserts_still_count():
+    """K1's launches in the insert's conditional body count after the
+    graphed step that replayed them is deleted, before any count read."""
+    _card()
+    _, g_step, _, _, _, start, batches = _setup(cafe_insert_interval=8)
+    l0, g0 = land.KERNEL.launches, land.KERNEL.graph_launches
+    state = from_reference(start, "cuda")
+    for i in range(16):
+        state, _ = g_step(state, *batches[i % len(batches)], B)
+    torch.cuda.synchronize()
+    del g_step, state
+    gc.collect()
+    # tick 0's insert and the warm-up calls' spare inserts run eagerly,
+    # tick 8's in a replayed body
+    assert land.KERNEL.graph_launches - g0 == 1
+    assert land.KERNEL.launches - l0 == 1 + (WARMUP_CALLS - 1) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"cafe_plus": True, "cafe_sketch_threshold": 1.0},
+    {"optimizer": "adagrad", "sparse_apply_impl": "auto"},
+    {"optimizer": "adam", "sparse_apply_impl": "auto"},
+    {"compress_method": "ada", "compress_rate": 0.5,
+     "sparse_apply_impl": "auto"}])
+def test_branching_steps_graphed_equal_eager(extra):
+    """CAFE+ with threshold 1 (its reset fires inside replays), Adagrad
+    and Adam (fixed-shape rows) and AdaEmbed (step 1 is a check step,
+    run eagerly on the graph's state): 12 graphed steps equal 12 eager
+    ones."""
+    _card()
+    _, g_step, e_step, _, _, start, batches = _setup(**extra)
+    assert g_step.graphed
+    ada = [k for k, v in start["embed"].items() if "grad_norm" in v]
+    for key in ada:        # a check and a decay step at 16,384
+        start["embed"][key]["step"] = np.asarray(16380, np.int32)
+    e_state, e_m = _trajectory(e_step, from_reference(start, "cuda"),
+                               batches, 12)
+    runs0 = branch_runs()["graph"].get("plus_reset", [0, 0])[1]
+    decays0 = branch_runs()["graph"].get("ada_decay", [0, 0])[1]
+    g_state, g_m = _trajectory(g_step, from_reference(start, "cuda"),
+                               batches, 12)
+    e_np, g_np = to_numpy(e_state), to_numpy(g_state)
+    # index_add_ sums duplicate lanes in float atomics: floats within
+    # f32 reordering, integers exact
+    for (path, a), (_, b) in zip(_np_leaves(e_np), _np_leaves(g_np)):
+        if a.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b, err_msg=path)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                       err_msg=path)
+    if extra.get("cafe_plus"):
+        assert branch_runs()["graph"]["plus_reset"][1] > runs0
+    if ada:
+        assert g_step.host_calls == 1 and g_step.replays == 12 - \
+            WARMUP_CALLS - 1
+        # the decay step (16,384) is the check step, run eagerly: no
+        # replay ran the decay's body
+        assert branch_runs()["graph"].get("ada_decay", [0, 0])[1] \
+            == decays0
+        g_step.check_mirror(g_state)
+
+
+def _np_leaves(tree, path=""):
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k],
+                                                            f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in _np_leaves(v, f"{path}[{i}]")]
+    return [(path, np.asarray(tree))]

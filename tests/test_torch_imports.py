@@ -43,7 +43,8 @@ def test_imports_with_jax_and_cafe_tpu_blocked():
 
 
 # files the card's machine (no jax) runs besides the package
-JAX_FREE = ["chip_smoke.py", "main_torch.py", "main_graphrec_torch.py",
+JAX_FREE = ["chip_smoke.py", "bench_torch.py", "main_torch.py",
+            "main_graphrec_torch.py",
             "tests/torch_dist_worker.py",
             "tests/test_torch_kernels.py", "tests/test_torch_loader.py",
             "tests/test_torch_sharded_cuda.py", "tools/a2a_cards_torch.py",

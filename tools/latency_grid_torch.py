@@ -16,8 +16,8 @@ calls, each ended by a device synchronize; the record holds the median
 of the windows. Before them the train step is warmed with WARMUP steps
 and the eval step with WARMUP_CALLS + 1 calls, so on the card both have
 been captured before the first window. The steps replay CUDA graphs where
-train/step.capture_blockers allows (AdaEmbed's step stays eager, and its
-record says "graphed": false). Besides the JAX record's keys each record
+train/step.capture_blockers allows (every method on one card; AdaEmbed's
+check steps run eagerly on its graph's state). Besides the JAX record's keys each record
 holds "device", "graphed", the steps it trained, each kernel's launches
 in them (K1-K5, train/capture counting a replay's) and the method's own
 peak allocated bytes. `--boards DIR` also writes DIR/<method>/latency.json

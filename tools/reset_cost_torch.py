@@ -1,25 +1,28 @@
 #!/usr/bin/env python3
 """Device cost of the CAFE+ adaptive-threshold reset, for the PyTorch /
 CUDA port (cafe_tpu_torch; no jax). Port of tools/reset_cost.py: the same
-sizes (lim 1,000,000, 53,248 lanes), stream and JSON record.
+sizes (lim 1,000,000, 53,248 lanes), stream, arms and JSON record.
 
-The difference. The JAX package takes `_reset` (a global rank of every
-candidate cell) under a lax.cond, only when real_n > 1.2 lim. The port
-computes the reset on every insert and selects its result with
-torch.where (sketch/hotsketch_plus.py), so the step has no host
-read and graphs; it pays the reset every step. So the arms are:
+The reset (`_reset`, a global rank of every candidate cell) runs under
+the port's `cond` (utils/cond.py), as the JAX package runs it under
+lax.cond: in the CUDA graph each branch is a conditional node, so the
+reset runs only on the inserts where real_n > 1.2 lim. The arms, as the
+JAX tool's:
 
-  steady_us        the insert with adjust_threshold off (no reset)
-  forced_reset_us  the insert with the speculative reset (what the port
-                   pays every step, whether it fires or not)
+  steady_us        the insert with real_n pinned below the trip point
+                   (the branch not taken)
+  forced_reset_us  the insert with real_n pinned above it, re-pinned
+                   every call, so every call takes the reset
 
-per_fire_us is their difference; the amortisation the JAX tool prints
-(at least ceil(0.2 lim / batch) steps between two fires) is kept, beside
-the share the port pays every step. Each arm's insert is captured in a
-CUDA graph on the card and timed over `--windows` windows of 10 replays,
-each ended by a device synchronize. The fires are counted, as the JAX
-tool counts them, over `--stream_steps` inserts of a fresh Zipf(1.1)
-stream.
+per_fire_us is their difference, and the amortisation the JAX tool
+prints (at least ceil(0.2 lim / batch) steps between two fires) follows.
+One arm more prices what the untaken branch still costs every step:
+no_reset_us, the insert with adjust_threshold off (no node at all), and
+every_step_overhead = steady_us / no_reset_us - 1. Each arm's insert is
+captured in a CUDA graph on the card and timed over `--windows` windows
+of 10 replays, each ended by a device synchronize. The fires are
+counted, as the JAX tool counts them, over `--stream_steps` inserts of a
+fresh Zipf(1.1) stream.
 
     python3 tools/reset_cost_torch.py [--lim 1000000] [--batch 53248]
         [--vocab 33762577] [--stream_steps 200] [--out FILE] [--device cuda]
@@ -45,10 +48,10 @@ from cafe_tpu_torch.sketch.hotsketch_plus import (  # noqa: E402
 from cafe_tpu_torch.utils.timing import fence  # noqa: E402
 from tools.compiled_call_torch import compiled_call  # noqa: E402
 
-NOTE = ("the port computes the CAFE+ reset on every insert and selects it "
-        "with torch.where (no host read, so the step graphs); the JAX "
-        "package takes it under lax.cond only when it fires, so the port "
-        "pays per_fire_us on every step")
+NOTE = ("the port takes the CAFE+ reset under its cond, a conditional "
+        "node in the CUDA graph, as the JAX package takes it under "
+        "lax.cond: per_fire_us is paid only on the inserts where it fires; "
+        "every_step_overhead is what the untaken branch costs a step")
 
 
 def timed_windows(fn, windows=5, reps=10):
@@ -102,17 +105,24 @@ def run(lim=1_000_000, batch=53248, vocab=33_762_577, stream_steps=200,
     for i in range(8):
         st, _ = sketch_insert_plus(cfg, st, ids + i, scores)
     fence(st)
-    # real_n pinned below the trip point: the reset never fires
+    # real_n pinned below the trip point: the branch is never taken
     st_cold = {**st, "real_n": torch.zeros_like(st["real_n"])}
+    # pinned above it, anew every call: every call takes the reset (a
+    # real fire would rebase real_n)
+    st_hot = {**st, "real_n": torch.full_like(st["real_n"],
+                                              int(cfg.lim * 1.2) + 1)}
     cfg_off = cfg._replace(adjust_threshold=False)
     arms = {
         "steady": compiled_call(
-            lambda: sketch_insert_plus(cfg_off, st_cold, ids, scores)[0],
-            dev),
+            lambda: sketch_insert_plus(cfg, st_cold, ids, scores)[0], dev),
         "forced": compiled_call(
-            lambda: sketch_insert_plus(cfg, st_cold, ids, scores)[0], dev)}
+            lambda: sketch_insert_plus(cfg, st_hot, ids, scores)[0], dev),
+        "no_reset": compiled_call(
+            lambda: sketch_insert_plus(cfg_off, st_cold, ids, scores)[0],
+            dev)}
     steady_us, smin, smax = timed_windows(arms["steady"], windows)
     forced_us, fmin, fmax = timed_windows(arms["forced"], windows)
+    no_reset_us, _, _ = timed_windows(arms["no_reset"], windows)
     per_fire_us = forced_us - steady_us
 
     # worst-case amortization: every lane crosses every step
@@ -137,8 +147,9 @@ def run(lim=1_000_000, batch=53248, vocab=33_762_577, stream_steps=200,
         "worst_case_amortized_overhead": round(worst_overhead, 4),
         "zipf_stream_steps": stream_steps,
         "zipf_stream_fires": fires,
-        "reset_paid_every_step": True,
-        "every_step_overhead": per_fire_us / steady_us,
+        "reset_paid_every_step": False,
+        "no_reset_us": round(no_reset_us, 1),
+        "every_step_overhead": steady_us / no_reset_us - 1.0,
         "graphed": all(a.graphed for a in arms.values()),
         "device": name, "note": NOTE,
     }

@@ -14,8 +14,10 @@ Criteo-Kaggle's 26 vocabularies) to show where the step goes:
 
 Modes. Every arm runs eager (build_all(..., capture=False)); on the card
 every arm whose step train/step.capture_blockers lets graph runs again
-replaying its CUDA graph (cafe_iv8 reads the tick back to the host every
-step and stays eager). Differences are taken within one mode only, so
+replaying its CUDA graph (all of them: cafe_iv8's skipped inserts are
+conditional nodes, utils/cond.cond). `inserts` counts each arm's sketch
+inserts that ran under the insert interval's branch (eager, replayed,
+and the warm-up's spare run on a clone), which K1 launches once each. Differences are taken within one mode only, so
 "sketch+migration overhead" never compares an eager step with a graphed
 one. The port's step updates its state in place: the timed train arm
 gets a copy (the JAX tool's jax.tree.map(jnp.copy, state)), so the
@@ -44,7 +46,8 @@ from cafe_tpu_torch.device import device_name, resolve_device  # noqa
 from cafe_tpu_torch.kernels import KERNELS  # noqa: E402
 from cafe_tpu_torch.train import (build_all, build_eval_step,  # noqa: E402
                                   build_train_step)
-from cafe_tpu_torch.train.capture import WARMUP_CALLS  # noqa: E402
+from cafe_tpu_torch.train.capture import (WARMUP_CALLS,  # noqa: E402
+                                          branch_runs)
 from cafe_tpu_torch.train.step import clone_state  # noqa: E402
 from cafe_tpu_torch.utils.timing import fence  # noqa: E402
 
@@ -122,7 +125,8 @@ def run(shapes="criteo", steps=300, warmup=20, device="cuda", data=None,
         raise ValueError(f"--warmup {warmup}: a graphed arm needs more "
                          f"than {WARMUP_CALLS} calls to capture")
     out = {m: {} for m in modes}
-    out.update(not_graphed={}, launches={}, steps=steps, warmup=warmup,
+    out.update(not_graphed={}, launches={}, inserts={}, steps=steps,
+               warmup=warmup,
                shapes=shapes,
                device=device_name(dev))
     for name, method, cr in entries:
@@ -131,6 +135,7 @@ def run(shapes="criteo", steps=300, warmup=20, device="cuda", data=None,
             cfg, train_data, device=dev, capture=False)
         for k in KERNELS.values():
             k.launches = 0
+        runs0 = branch_runs()
         for mode in modes:
             if mode == "graphed":
                 train_step = build_train_step(model, embed, cfg)
@@ -148,6 +153,10 @@ def run(shapes="criteo", steps=300, warmup=20, device="cuda", data=None,
             out[mode][name + "_fwd"] = timed(fwd_only, state, batches,
                                              steps, warmup)
         out["launches"][name] = {n: k.launches for n, k in KERNELS.items()}
+        runs = branch_runs()
+        out["inserts"][name] = sum(
+            runs[k].get("cafe_insert", [0, 0])[1]
+            - runs0[k].get("cafe_insert", [0, 0])[1] for k in runs)
         del model, embed, state, train_step, eval_step
         gc.collect()
         if dev.type == "cuda":
