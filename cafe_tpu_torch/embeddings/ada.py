@@ -283,7 +283,8 @@ class AdaPart(Part):
     def _apply_sharded(self, state: Dict, gid, rows, g_raw, lr: float):
         """The pool's owners apply the coalesced, all-gathered update;
         the importance accumulates at the cyclic owners; then this rank's
-        decay, check and rebuild (no collective in them), and the
+        decay (a device branch, as on one device), check and rebuild (no
+        collective in them; host steps, as on one device), and the
         admitted count summed over the mesh."""
         mesh, n = self.mesh, self.n_shards
         b, f, d = g_raw.shape
@@ -305,19 +306,19 @@ class AdaPart(Part):
         grad_norm = state["grad_norm"]
         grad_norm.index_add_(0, torch.where(mine, all_gid // n, 0),
                              torch.where(mine, all_sc, 0.0))
-        step = int(state["step"]) + 1
-        if step % DECAY_EVERY == 0:
-            grad_norm.mul_(DECAY)
+        step = state["step"] + 1
+        cond(step % DECAY_EVERY == 0, _decay_, None, (grad_norm,),
+             name="ada_decay")
         carry = (weight, slots, state["dic"], grad_norm)
-        if step == 1 or step % CHECK_EVERY == 0:
+        if self._check_due(step):
             carry, _ = self._check_local(
-                carry, self.sample_ids_local(state, step, mesh.rank),
+                carry, self.sample_ids_local(state, int(step), mesh.rank),
                 mesh.rank)
         weight, slots, dic, grad_norm = carry
         n_adm = psum((dic != 0).sum(dtype=torch.int32), mesh)
         out = self._put_slots({**state, "weight": weight, "dic": dic,
-                               "grad_norm": grad_norm,
-                               "step": state["step"] + 1}, "weight", slots)
+                               "grad_norm": grad_norm, "step": step},
+                              "weight", slots)
         return out, {"ada_admitted": n_adm}
 
     def _check_local(self, carry, idx: torch.Tensor, me: int):

@@ -418,13 +418,17 @@ class CafePart(Part):
         }
         return state, stats
 
+    def _promo_cap(self) -> int:
+        """Promotion lanes a shard keeps a sharded insert."""
+        return min(self.mig_lanes, max(self._s_l - 1, 1))
+
     def _insert_sharded(self, sk_local, oids, scores):
         """All-gather (id, score) lanes; this shard inserts the ids it
         owns; promotions beyond the per-shard budget are reverted
         losslessly; the kept ones compact to [p_cap, 3] lanes of (id,
         global slot, mask). Returns (sketch, lanes, kept count)."""
         mesh, n, s_l = self.mesh, self.n_shards, self._s_l
-        p_cap = min(self.mig_lanes, max(s_l - 1, 1))
+        p_cap = self._promo_cap()
         # ids and score bits ride one int32 all-gather
         pairs = all_gather(torch.stack(
             [oids.reshape(-1), scores.reshape(-1).view(torch.int32)], 1),
@@ -470,30 +474,49 @@ class CafePart(Part):
         sk = shard_local_view(state["sketch"])
         table = state["table"]
         slots = self._slots_of(state, "table")
-        # the tick is replicated: every rank takes the same branch
-        if interval == 1 or int(state["tick"]) % interval == 0:
-            sk, lanes, n_keep = self._insert_sharded(sk, oids, scores)
-            glanes = all_gather(lanes, mesh)
-            gp_mask = glanes[:, 2] > 0
-            src = torch.where(gp_mask, self._hash_rows(glanes[:, 0]),
-                              DROP_ROW)
-            mig = psum(_owner_rows(table, src, mesh), mesh)
-            dst = _local_idx(table.shape[0],
-                             torch.where(gp_mask, glanes[:, 1], DROP_ROW),
-                             mesh).long()
-            # lanes this rank does not write rewrite the spare row with
-            # its own value (promoted slots are distinct and never the
-            # spare row), so the write needs no host-side mask
-            live = dst < table.shape[0]
-            dst = torch.where(live, dst, self._spare_row)
-            table[dst] = torch.where(live[:, None], mig, table[dst])
-            # promoted slots restart their optimizer state
-            for slot_t in slots.values():
-                if slot_t.dim() == 2:
-                    slot_t[dst] = torch.where(live[:, None], 0.0,
-                                              slot_t[dst])
+        if interval > 1:
+            # the insert every interval-th tick, a device branch on the
+            # replicated tick (every rank takes the same one, so the
+            # candidate all-gather inside it pairs up); the insert writes
+            # the new sketch into the state's, the skip returns empty
+            # promotion lanes, and the migration below runs on every step
+            p_cap = self._promo_cap()
+
+            def insert(sk_, oids_, scores_):
+                new, lanes_, n_keep_ = self._insert_sharded(sk_, oids_,
+                                                            scores_)
+                copy_into(sk_, new)
+                return lanes_, n_keep_
+
+            def skip(sk_, oids_, scores_):
+                lanes_ = torch.zeros((p_cap, 3), dtype=torch.int32,
+                                     device=scores_.device)
+                lanes_[:, 0] = int(INVALID_ID)
+                return lanes_, torch.zeros((), dtype=torch.int32,
+                                           device=scores_.device)
+
+            lanes, n_keep = cond(state["tick"] % interval == 0, insert,
+                                 skip, (sk, oids, scores),
+                                 name="cafe_insert")
         else:
-            n_keep = torch.zeros((), dtype=torch.int32, device=table.device)
+            sk, lanes, n_keep = self._insert_sharded(sk, oids, scores)
+        glanes = all_gather(lanes, mesh)
+        gp_mask = glanes[:, 2] > 0
+        src = torch.where(gp_mask, self._hash_rows(glanes[:, 0]), DROP_ROW)
+        mig = psum(_owner_rows(table, src, mesh), mesh)
+        dst = _local_idx(table.shape[0],
+                         torch.where(gp_mask, glanes[:, 1], DROP_ROW),
+                         mesh).long()
+        # lanes this rank does not write rewrite the spare row with its
+        # own value (promoted slots are distinct and never the spare
+        # row), so the write needs no host-side mask
+        live = dst < table.shape[0]
+        dst = torch.where(live, dst, self._spare_row)
+        table[dst] = torch.where(live[:, None], mig, table[dst])
+        # promoted slots restart their optimizer state
+        for slot_t in slots.values():
+            if slot_t.dim() == 2:
+                slot_t[dst] = torch.where(live[:, None], 0.0, slot_t[dst])
         counts = psum(torch.stack([n_keep, is_hot.sum(dtype=torch.int32)]),
                       mesh)
         table, slots = self._sharded_apply(table, slots, row, g_raw, lr)

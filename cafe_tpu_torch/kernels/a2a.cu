@@ -26,35 +26,50 @@
 //   * every rank owns a symmetric WORKSPACE (plain cudaMalloc, exported
 //     once with cudaIpcGetMemHandle and opened once by each peer): two
 //     parities of n receive slots of `stride` bytes, then two parities
-//     of n x P int32 arrival flags, one per (source, part);
+//     of n x P int32 arrival flags, one per (source, part), then two
+//     int32s that only this rank touches: its COUNTER of completed calls
+//     and a ticket;
+//   * a call's EPOCH e is the counter plus one, read on the card by
+//     every block of both kernels, and its parity is e & 1. The kernels
+//     take a peer table with both parities' slot and flag addresses,
+//     fixed for the workspace's life, so no argument of a launch changes
+//     from call to call but the input and the output: a launch captured
+//     in a CUDA graph and replayed runs the epoch of its replay, and
+//     eager calls and replays share one sequence and may interleave;
 //   * the SEND kernel's block (p, j) copies part p of in[j] into peer
 //     j's receive slot for `me` (in[me] straight into the output). After
 //     __syncthreads() its thread 0 alone fences at system scope and
-//     release-stores the call's epoch into peer j's flag (me, p). The
-//     barrier orders every thread's stores before thread 0's fence, and
-//     the fence is cumulative, so one fence a block covers the block's
+//     release-stores the epoch into peer j's flag (me, p). The barrier
+//     orders every thread's stores before thread 0's fence, and the
+//     fence is cumulative, so one fence a block covers the block's
 //     stores; no thread waits for any other block;
 //   * the RECV kernel's block (p, s) acquire-spins on its flag (s, p)
 //     until it reaches the epoch, then copies part p of slot s into the
 //     output (L2 loads: another device wrote those bytes). A receiving
 //     block waits for the one part it copies, not for the whole chunk.
+//     Every block then takes a ticket (an atomic add); the last of the
+//     P * n blocks, which runs after every other block has read the
+//     epoch, resets the ticket and stores e into the counter, so the
+//     next call (in stream order: the next SEND starts after this RECV
+//     ends) reads e + 1.
 //
-// Epochs grow by one per call and never need resetting. The two parities
-// alternate by epoch, so a peer may run one call ahead of this rank
-// without touching the slots this rank still reads. The argument: a peer
-// Q writes this rank's parity-e slots again only in call e+2. Q's SEND of
-// e+2 starts after Q's RECV of e+1 has finished (stream order on Q),
-// which waited for at least one flag that this rank stores in its SEND of
-// e+1. That SEND starts after this rank's RECV of e has finished (stream
-// order here), and that RECV is the last reader of the parity-e slots.
-// So every read of call e's slots ends before any write of call e+2's.
-// The flags of the two parities are apart, so a flag of e+1 never
-// satisfies a wait of e, and a flag only grows.
+// Epochs grow by one per call and never need resetting. Every rank makes
+// the same calls on a workspace in the same order, so its counter agrees
+// with every peer's at each call. The two parities alternate by epoch,
+// so a peer may run one call ahead of this rank without touching the
+// slots this rank still reads. The argument: a peer Q writes this rank's
+// parity-e slots again only in call e+2. Q's SEND of e+2 starts after
+// Q's RECV of e+1 has finished (stream order on Q), which waited for at
+// least one flag that this rank stores in its SEND of e+1. That SEND
+// starts after this rank's RECV of e has finished (stream order here),
+// and that RECV is the last reader of the parity-e slots. So every read
+// of call e's slots ends before any write of call e+2's. The flags of
+// the two parities are apart, so a flag of e+1 never satisfies a wait of
+// e, and a flag only grows.
 //
 // n = 1 has no workspace and no flags: the SEND launch is the local copy
 // alone (a2a_send_kernel_local: a flat index, no peer table and no part
-// arithmetic), with no host state, so a call can be captured in a CUDA
-// graph.
+// arithmetic).
 //
 // Bound on the H100: bytes. Each rank reads its input once and writes its
 // output once (plus the receive slots it fills on its peers); at n = 1
@@ -74,9 +89,12 @@ constexpr int kUnroll = 4;        // 16-byte vectors a thread keeps in flight
 constexpr int64_t kMaxParts = 8192;
 constexpr int kMaxDevices = 64;
 
+// Peer j's receive slot and P flags for this rank, by parity (fixed
+// for the workspace's life; entry `me` unused: the local chunk goes
+// straight to the output).
 struct Peers {
-  char* dst[kMaxPeers];  // where chunk j of the input goes
-  int* flag[kMaxPeers];  // peer j's P flags for this rank
+  char* slot[2][kMaxPeers];
+  int* flag[2][kMaxPeers];
 };
 
 __device__ __forceinline__ void st_release_sys(int* p, int v) {
@@ -163,39 +181,61 @@ a2a_send_kernel_local(const char* __restrict__ in, char* __restrict__ out,
   }
 }
 
-// __grid_constant__: blocks index the peer table by blockIdx.y, which
-// would otherwise copy the whole parameter struct to each thread's stack
+// __grid_constant__: blocks index the peer table by parity and
+// blockIdx.y, which would otherwise copy the whole parameter struct to
+// each thread's stack. counter[0]: this rank's completed calls.
 __global__ void __launch_bounds__(kThreads)
-a2a_send_kernel(const char* __restrict__ in,
-                const __grid_constant__ Peers peers, int me,
-                int64_t chunk_bytes, int64_t part_bytes, int epoch) {
+a2a_send_kernel(const char* __restrict__ in, char* __restrict__ out,
+                const __grid_constant__ Peers peers,
+                const int* __restrict__ counter, int me,
+                int64_t chunk_bytes, int64_t part_bytes) {
   const int j = blockIdx.y;
   const int p = blockIdx.x;
-  copy_part<false>(peers.dst[j], in + j * chunk_bytes, chunk_bytes,
-                   part_bytes, p);
+  const int epoch = counter[0] + 1;
+  const int par = epoch & 1;
+  char* dst = j == me ? out + j * chunk_bytes : peers.slot[par][j];
+  copy_part<false>(dst, in + j * chunk_bytes, chunk_bytes, part_bytes, p);
   if (j == me) return;   // the local chunk: no flag
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence_system();
-    st_release_sys(peers.flag[j] + p, epoch);
+    st_release_sys(peers.flag[par][j] + p, epoch);
   }
 }
 
+// slots / flags: this rank's parity-0 receive slots and flags (parity 1
+// follows each); counter: [completed calls, ticket], this rank's own.
 __global__ void __launch_bounds__(kThreads)
 a2a_recv_kernel(const char* __restrict__ slots, char* __restrict__ out,
-                const int* __restrict__ flags, int me, int64_t chunk_bytes,
-                int64_t part_bytes, int64_t stride, int epoch) {
+                const int* __restrict__ flags, int* counter, int me,
+                int64_t chunk_bytes, int64_t part_bytes, int64_t stride) {
+  const int n = gridDim.y;
   const int s = blockIdx.y;
   const int p = blockIdx.x;
-  if (s == me) return;  // the SEND kernel wrote the local chunk
-  if (threadIdx.x == 0) {
-    const int* f = flags + static_cast<int64_t>(s) * gridDim.x + p;
-    while (ld_acquire_sys(f) < epoch) {
+  __shared__ int epoch_s;
+  if (threadIdx.x == 0) epoch_s = counter[0] + 1;
+  __syncthreads();
+  const int epoch = epoch_s;
+  const int64_t ps = static_cast<int64_t>(epoch & 1) * n + s;
+  if (s != me) {  // the SEND kernel wrote the local chunk
+    if (threadIdx.x == 0) {
+      const int* f = flags + ps * gridDim.x + p;
+      while (ld_acquire_sys(f) < epoch) {
+      }
     }
+    __syncthreads();
+    copy_part<true>(out + s * chunk_bytes, slots + ps * stride, chunk_bytes,
+                    part_bytes, p);
   }
   __syncthreads();
-  copy_part<true>(out + s * chunk_bytes, slots + s * stride, chunk_bytes,
-                  part_bytes, p);
+  if (threadIdx.x == 0) {
+    const unsigned blocks = gridDim.x * gridDim.y;
+    if (atomicAdd(reinterpret_cast<unsigned*>(counter + 1), 1u) ==
+        blocks - 1) {
+      counter[1] = 0;
+      counter[0] = epoch;
+    }
+  }
 }
 
 int sm_count() {
@@ -284,64 +324,71 @@ extern "C" int a2a_ipc_close(void* p) {
   return static_cast<int>(cudaIpcCloseMemHandle(p));
 }
 
-// in [n * chunk_bytes]; dst[j]: where chunk j goes (for j == me, this
-// rank's output); flags[j]: peer j's `parts` flags for this rank (unused
-// at n == 1). parts <= 0 picks a2a_parts(chunk_bytes, n) on this device
-// (n == 1 only: at n > 1 every rank must pass the same count). Returns
-// cudaGetLastError().
-extern "C" int a2a_send_launch(const void* in, void* const* dst,
-                               int* const* flags, int n, int me,
-                               int64_t chunk_bytes, int parts, int epoch,
+// in [n * chunk_bytes], out [n * chunk_bytes]; slots[par * n + j] and
+// flags[par * n + j]: peer j's receive slot and `parts` flags for this
+// rank at parity par (n > 1 only); counter: this rank's [completed
+// calls, ticket] (n > 1 only). parts <= 0 picks a2a_parts(chunk_bytes,
+// n) on this device (n == 1 only: at n > 1 every rank must pass the same
+// count). Returns cudaGetLastError().
+extern "C" int a2a_send_launch(const void* in, void* out,
+                               void* const* slots, int* const* flags,
+                               int n, int me, int64_t chunk_bytes,
+                               int parts, const int* counter,
                                void* stream) {
-  if (n < 1 || n > kMaxPeers || me < 0 || me >= n || (n > 1 && parts < 1))
+  if (n < 1 || n > kMaxPeers || me < 0 || me >= n ||
+      (n > 1 && (parts < 1 || slots == nullptr || flags == nullptr ||
+                 counter == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunk_bytes <= 0) return static_cast<int>(cudaGetLastError());
   if (parts < 1) parts = a2a_parts(chunk_bytes, n);
   const int64_t part_bytes = part_bytes_of(chunk_bytes, parts);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* src = static_cast<const char*>(in);
+  auto* dst = static_cast<char*>(out);
   if (n == 1) {   // part p is block p: its threads' vectors, in order
-    const auto* src = static_cast<const char*>(in);
-    auto* out = static_cast<char*>(dst[0]);
     const int threads = threads_of(part_bytes);
     const auto blocks = static_cast<unsigned>(
         ceil_div(ceil_div(chunk_bytes, 16), threads));
-    const auto s = static_cast<cudaStream_t>(stream);
     if (((reinterpret_cast<uintptr_t>(src) |
-          reinterpret_cast<uintptr_t>(out)) & 15) == 0) {
-      a2a_send_kernel_local<true><<<blocks, threads, 0, s>>>(src, out,
+          reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+      a2a_send_kernel_local<true><<<blocks, threads, 0, s>>>(src, dst,
                                                              chunk_bytes);
     } else {
-      a2a_send_kernel_local<false><<<blocks, threads, 0, s>>>(src, out,
+      a2a_send_kernel_local<false><<<blocks, threads, 0, s>>>(src, dst,
                                                               chunk_bytes);
     }
     return static_cast<int>(cudaGetLastError());
   }
   Peers peers;
-  for (int j = 0; j < kMaxPeers; ++j) {
-    peers.dst[j] = j < n ? static_cast<char*>(dst[j]) : nullptr;
-    peers.flag[j] = (j < n && flags != nullptr) ? flags[j] : nullptr;
+  for (int par = 0; par < 2; ++par) {
+    for (int j = 0; j < kMaxPeers; ++j) {
+      peers.slot[par][j] =
+          j < n ? static_cast<char*>(slots[par * n + j]) : nullptr;
+      peers.flag[par][j] = j < n ? flags[par * n + j] : nullptr;
+    }
   }
-  a2a_send_kernel<<<dim3(parts, n), threads_of(part_bytes), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const char*>(in), peers, me, chunk_bytes, part_bytes,
-      epoch);
+  a2a_send_kernel<<<dim3(parts, n), threads_of(part_bytes), 0, s>>>(
+      src, dst, peers, counter, me, chunk_bytes, part_bytes);
   return static_cast<int>(cudaGetLastError());
 }
 
-// slots: this rank's receive slots of the call's parity (n slots of
-// `stride` bytes); flags: its n x parts flags of that parity; out [n *
-// chunk_bytes] (the local chunk already written by the SEND kernel).
+// slots: this rank's receive slots, parity 0's n slots of `stride` bytes
+// then parity 1's; flags: its [2][n][parts] flags; counter: its
+// [completed calls, ticket]; out [n * chunk_bytes] (the local chunk
+// already written by the SEND kernel).
 extern "C" int a2a_recv_launch(const void* slots, void* out, const void* flags,
-                               int n, int me, int64_t chunk_bytes,
-                               int64_t stride, int parts, int epoch,
+                               int* counter, int n, int me,
+                               int64_t chunk_bytes, int64_t stride, int parts,
                                void* stream) {
-  if (n < 2 || n > kMaxPeers || me < 0 || me >= n || parts < 1)
+  if (n < 2 || n > kMaxPeers || me < 0 || me >= n || parts < 1 ||
+      counter == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunk_bytes <= 0) return static_cast<int>(cudaGetLastError());
   const int64_t part_bytes = part_bytes_of(chunk_bytes, parts);
   a2a_recv_kernel<<<dim3(parts, n), threads_of(part_bytes), 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char*>(slots), static_cast<char*>(out),
-      static_cast<const int*>(flags), me, chunk_bytes, part_bytes, stride,
-      epoch);
+      static_cast<const int*>(flags), counter, me, chunk_bytes, part_bytes,
+      stride);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,15 @@ apart).
 Each rank keeps one workspace per chunk size on its Mesh
 (`mesh.a2a_workspaces`): made at the first call of that size (a
 collective: every rank makes it in the same call), freed by
-`Mesh.close()`. See a2a.cu for the protocol. At n = 1 a call is one copy
-kernel with no workspace and no host state, so it can be captured in a
-CUDA graph; at n > 1 the workspace's host epoch keeps it eager.
+`Mesh.close()`. See a2a.cu for the protocol. A call's epoch lives on the
+card, in a counter of the workspace that the RECV kernel advances, and
+the launches take a peer table of both parities' addresses, fixed for
+the workspace's life: a launch captured in a CUDA graph runs its
+replay's epoch, so replays and eager calls may interleave, as long as
+every rank makes the same calls on a workspace in the same order. The
+workspace of a chunk size must exist before a capture that calls K5 (a
+GraphedStep's warm-up calls make it). At n = 1 a call is one copy kernel
+with no workspace.
 """
 
 from __future__ import annotations
@@ -36,9 +42,9 @@ from .build import CudaKernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SEND = CudaKernel("a2a.cu", "a2a_send_launch",
-                  [_P, _P, _P, _I, _I, ctypes.c_int64, _I, _I, _P])
+                  [_P, _P, _P, _P, _I, _I, ctypes.c_int64, _I, _P, _P])
 RECV = CudaKernel("a2a.cu", "a2a_recv_launch",
-                  [_P, _P, _P, _I, _I, ctypes.c_int64, ctypes.c_int64, _I,
+                  [_P, _P, _P, _P, _I, _I, ctypes.c_int64, ctypes.c_int64,
                    _I, _P])
 # one SEND launch per all-to-all: the count a run reads
 KERNEL = SEND
@@ -76,9 +82,12 @@ class Workspace:
     chunks over `mesh`, and its peers' buffers mapped through CUDA IPC.
 
     Layout (every rank the same): receive slots [2 parities][n][stride],
-    then arrival flags int32 [2][n sources][parts]. `parts` is the
-    smallest part count any rank's card picks (a2a.cu `a2a_parts`), so
-    every SEND block has one RECV block that waits for it."""
+    arrival flags int32 [2][n sources][parts], then this rank's call
+    counter and ticket (int32 [2], a2a.cu). `parts` is the smallest part
+    count any rank's card picks (a2a.cu `a2a_parts`), so every SEND
+    block has one RECV block that waits for it. `peer_slots` /
+    `peer_flags` are the SEND kernel's peer table: [parity][peer] the
+    peer's slot and flags for this rank."""
 
     def __init__(self, mesh, chunk_bytes: int):
         n = mesh.size
@@ -95,7 +104,9 @@ class Workspace:
             gathered = [None] * n
             dist.all_gather_object(gathered, mine, group=mesh.group)
             self.parts = min(gathered)
-            size = self.flag_off + _round_up(2 * n * self.parts * 4)
+            self.counter_off = self.flag_off + _round_up(
+                2 * n * self.parts * 4)
+            size = self.counter_off + _ALIGN
             _ok(self.lib, self.lib.a2a_ws_alloc(size, ctypes.byref(base)),
                 "a2a workspace alloc")
             handle = ctypes.create_string_buffer(64)
@@ -112,7 +123,12 @@ class Workspace:
                 _ok(self.lib, self.lib.a2a_ipc_open(h, ctypes.byref(peer)),
                     f"a2a IPC open of rank {j}'s workspace")
                 self.base.append(peer.value)
-        self.epoch = 0
+        self.counter = self.base[self.me] + self.counter_off
+        order = [(par, j) for par in (0, 1) for j in range(n)]
+        self.peer_slots = (_P * (2 * n))(*[self.slot(j, par, self.me)
+                                           for par, j in order])
+        self.peer_flags = (_P * (2 * n))(*[self.flags(j, par, self.me)
+                                           for par, j in order])
 
     def close(self) -> None:
         for j, ptr in enumerate(self.base):
@@ -139,7 +155,6 @@ class Pending(NamedTuple):
     out: torch.Tensor
     ws: Optional[Workspace]   # None at n = 1: the SEND kernel did it all
     chunk: int
-    epoch: int
     stream: int
 
 
@@ -172,20 +187,20 @@ def send(xs: torch.Tensor, mesh) -> Pending:
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
         if n == 1:
-            SEND(xs.data_ptr(), (_P * 1)(out.data_ptr()), None, 1, 0, chunk,
-                 0, 0, stream)
-            return Pending(out, None, chunk, 0, stream)
+            SEND(xs.data_ptr(), out.data_ptr(), None, None, 1, 0, chunk, 0,
+                 None, stream)
+            return Pending(out, None, chunk, stream)
         ws = mesh.a2a_workspaces.get(chunk)
         if ws is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"all_to_all: no workspace for {chunk}-byte chunks "
+                    f"before a capture (it is made by a collective on the "
+                    f"host: call K5 at this size eagerly first)")
             ws = mesh.a2a_workspaces[chunk] = Workspace(mesh, chunk)
-        ws.epoch += 1
-        par = ws.epoch & 1
-        dst = (_P * n)(*[out.data_ptr() + me * chunk if j == me
-                         else ws.slot(j, par, me) for j in range(n)])
-        flags = (_P * n)(*[ws.flags(j, par, me) for j in range(n)])
-        SEND(xs.data_ptr(), dst, flags, n, me, chunk, ws.parts, ws.epoch,
-             stream)
-    return Pending(out, ws, chunk, ws.epoch, stream)
+        SEND(xs.data_ptr(), out.data_ptr(), ws.peer_slots, ws.peer_flags, n,
+             me, chunk, ws.parts, ws.counter, stream)
+    return Pending(out, ws, chunk, stream)
 
 
 def receive(pending: Pending) -> torch.Tensor:
@@ -194,11 +209,10 @@ def receive(pending: Pending) -> torch.Tensor:
     ws = pending.ws
     if ws is None or pending.chunk == 0:
         return pending.out
-    par = pending.epoch & 1
     with torch.cuda.device(pending.out.device):
-        RECV(ws.slot(ws.me, par, 0), pending.out.data_ptr(),
-             ws.flags(ws.me, par, 0), ws.n, ws.me, pending.chunk, ws.stride,
-             ws.parts, pending.epoch, pending.stream)
+        RECV(ws.slot(ws.me, 0, 0), pending.out.data_ptr(),
+             ws.flags(ws.me, 0, 0), ws.counter, ws.n, ws.me, pending.chunk,
+             ws.stride, ws.parts, pending.stream)
     return pending.out
 
 

@@ -38,6 +38,19 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # freed before the next read still has its bodies' runs counted.
 PENDING = set()
 
+# {stream handle of a conditional body being captured: handle of the
+# stream whose capture holds it} (utils/cond.py). A body runs in its
+# graph's order, so a launch in it may use the outer stream's per-stream
+# state (kernels/rowsum.py's workspace).
+BODY_STREAMS: Dict[int, int] = {}
+
+
+def owner_stream(handle: int) -> int:
+    """The stream handle whose per-stream state a launch on `handle`
+    uses: itself, or for a body being captured the stream that captures
+    the graph."""
+    return BODY_STREAMS.get(handle, handle)
+
 
 def settle() -> None:
     """Credit the launches of the branch bodies that ran (one read of
@@ -111,7 +124,9 @@ class CudaKernel:
     `captured` instead, and the graph adds what its capture added to
     `launches`, and to `graph_launches`, at every replay; a launch in a
     conditional body counts on the replays that ran the body
-    (train/capture.py)."""
+    (train/capture.py). `spare_launches` counts the launches, among
+    `launches`, that a GraphedStep's warm-up made in the branch it ran
+    on clones besides the one its predicate took (utils/cond.cond)."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
@@ -120,6 +135,7 @@ class CudaKernel:
         self._launches = 0
         self._graph_launches = 0
         self.captured = 0
+        self.spare_launches = 0
         self._fn = None
 
     @property

@@ -29,7 +29,7 @@ import functools
 
 import torch
 
-from .build import CudaKernel, load
+from .build import CudaKernel, load, owner_stream
 
 KERNEL = CudaKernel("rowsum.cu", "rowsum_add_launch",
                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
@@ -160,8 +160,11 @@ def _workspace(device: torch.device, stream, nbytes: int) -> torch.Tensor:
     (train/capture.py warms up on the stream it captures on), and the
     graph then reuses it at every replay. Allocating it inside the
     capture would take it from that graph's private pool and hand it to
-    the next capture on the stream as well, so this raises instead."""
-    key = (device.index, stream.cuda_stream)
+    the next capture on the stream as well, so this raises instead. A
+    conditional body being captured uses the workspace of the stream
+    that captures its graph (build.owner_stream): the body runs in the
+    graph's order."""
+    key = (device.index, owner_stream(stream.cuda_stream))
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < nbytes:
         if torch.cuda.is_current_stream_capturing():

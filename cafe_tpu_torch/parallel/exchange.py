@@ -19,8 +19,12 @@ rows or grads of those ids; `impl='pallas'` runs them through kernel K5
 With a unique fraction (--shard_unique_frac) the explicit legs ship a
 capacity-bounded buffer of the batch's DISTINCT ids (and their summed
 grads) instead of every lane; when any rank's distinct count overflows
-the capacity, every rank takes the full-size path; the mesh's
-`unique_branches` counts which branch each leg took.
+the capacity, every rank takes the full-size path. The a2a and pallas
+legs take the full explicit path the same way when a peer's request
+buffer overflows. Each such choice is a device branch (utils/cond.cond:
+a conditional node of a CUDA graph, the JAX package's lax.cond) on a
+predicate that a MAX all-reduce makes the same on every rank
+(`any_rank`); `exchange_branches` counts the branches each leg took.
 
 On a two-level ("dcn", "ici") mesh the explicit legs are HIERARCHICAL:
 ids (and grads) combine over "ici", this rank's host, before anything
@@ -49,6 +53,7 @@ import torch.distributed as dist
 from ..kernels import a2a as _a2a_kernel
 from ..ops.sparse import (apply_rows, coalesce, coalesce_compact,
                           unique_compact)
+from ..utils.cond import branch_runs, cond, copy_into
 
 # sentinel row index far above any real table; survives the owner's
 # `- lo` shift still out of range, so scatters drop these lanes
@@ -150,17 +155,42 @@ def broadcast(x: torch.Tensor, mesh) -> torch.Tensor:
     return x
 
 
-def any_rank(flag: torch.Tensor, mesh) -> bool:
-    """True on every rank when `flag` is true on any: a MAX all-reduce over
-    the flat group and ONE host read. It replaces the JAX package's
-    lax.cond on a replicated pmax. Every rank must take the same branch,
-    or the collectives of the two branches would pair up wrongly and
-    hang, so the flag is read back to the host: one sync per exchange
-    (removing it is later perf work)."""
+def any_rank(flag: torch.Tensor, mesh) -> torch.Tensor:
+    """True on every rank when `flag` is true on any: a MAX all-reduce
+    over the flat group, returned as a bool scalar on the device. It is
+    the JAX package's replicated pmax predicate of a lax.cond: every
+    rank holds the same value, so every rank takes the same branch of
+    the `cond` it feeds (utils/cond.cond: a conditional node in a CUDA
+    graph, one host read eagerly). That is what keeps the collectives
+    inside the branches paired: ranks on different branches would hang.
+    Make it outside the branches, on every rank."""
     t = flag.reshape(1).to(torch.int32)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
     _note("all-reduce", None, t)
-    return bool(t.item())
+    return t[0] > 0
+
+
+# the exchange's branches: cond name -> (the leg its false side runs,
+# its true side's), each true side the full-size explicit path
+BRANCHES = {"fetch_unique": ("fetch_compact", "fetch_full"),
+            "apply_unique": ("apply_compact", "apply_full"),
+            "fetch_a2a": ("fetch_a2a", "fetch_a2a_full"),
+            "apply_a2a": ("apply_a2a", "apply_a2a_full")}
+
+
+def exchange_branches(since: Optional[dict] = None) -> dict:
+    """{leg: runs} of the exchange's branches (BRANCHES), eager calls and
+    graph replays together (the warm-up's spare runs left out), minus
+    `since` (an earlier return); legs that did not run are left out."""
+    runs = branch_runs()
+    out = {}
+    for name, legs in BRANCHES.items():
+        for where in ("eager", "graph"):
+            for leg, n in zip(legs, runs[where].get(name, (0, 0))):
+                out[leg] = out.get(leg, 0) + n
+    since = since or {}
+    return {leg: n - since.get(leg, 0) for leg, n in out.items()
+            if n - since.get(leg, 0)}
 
 
 def owner_rows_with(fetch, rows_l: int, all_idx: torch.Tensor,
@@ -246,12 +276,17 @@ def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
     capacity = unique_cap(b * fld, unique_frac)
     if capacity:
         uids, inv, nu = unique_compact(flat, capacity, DROP_ROW)
-        if not any_rank(nu > capacity, mesh):   # pmax(nu) > C
-            mesh.unique_branches["fetch_compact"] += 1
-            urows = _fetch_full(mesh, table, uids)          # [C, D]
-            return urows[inv.clamp(0, capacity - 1).long()].reshape(
-                b, fld, -1)
-        mesh.unique_branches["fetch_full"] += 1
+
+        def compact(flat_, uids_, inv_):
+            urows = _fetch_full(mesh, table, uids_)          # [C, D]
+            return urows[inv_.clamp(0, capacity - 1).long()]
+
+        def full(flat_, uids_, inv_):
+            return _fetch_full(mesh, table, flat_)
+
+        rows = cond(any_rank(nu > capacity, mesh), full, compact,
+                    (flat, uids, inv), name="fetch_unique")
+        return rows.reshape(b, fld, -1)
     return _fetch_full(mesh, table, flat).reshape(b, fld, -1)
 
 
@@ -281,12 +316,17 @@ def _fetch_hier(mesh, table: torch.Tensor, idx: torch.Tensor,
     capacity = unique_cap(ici_ids.shape[0], unique_frac)
     if capacity:
         uids, inv, nu = unique_compact(ici_ids, capacity, DROP_ROW)
-        if not any_rank(nu > capacity, mesh):
-            mesh.unique_branches["fetch_compact"] += 1
-            urows = _host_fetch(mesh, table, uids)          # [C, D]
-            return urows[inv[me].clamp(0, capacity - 1).long()].reshape(
-                b, fld, -1)
-        mesh.unique_branches["fetch_full"] += 1
+
+        def compact(ici_, uids_, inv_):
+            urows = _host_fetch(mesh, table, uids_)          # [C, D]
+            return urows[inv_[me].clamp(0, capacity - 1).long()]
+
+        def full(ici_, uids_, inv_):
+            return _host_fetch(mesh, table, ici_)[me]
+
+        rows = cond(any_rank(nu > capacity, mesh), full, compact,
+                    (ici_ids, uids, inv), name="fetch_unique")
+        return rows.reshape(b, fld, -1)
     return _host_fetch(mesh, table, ici_ids)[me].reshape(b, fld, -1)
 
 
@@ -362,16 +402,24 @@ def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
     rows_l = table.shape[0]
     cap = a2a_cap(m, n, slack)
     reqs, owner, slot, overflow = route_to_owners(flat, rows_l, n, cap)
-    if any_rank(overflow, mesh):
-        return _fetch_full(mesh, table, flat).reshape(b, fld, -1)
-    got = _a2a(reqs, mesh, impl)                     # [n, cap] ids I own
-    loc = _local_idx(rows_l, got.reshape(-1), mesh).long()
-    rows = table[loc.clamp(0, rows_l - 1)]
-    rows = torch.where((loc < rows_l)[:, None], rows, torch.zeros_like(rows))
-    back = _a2a(rows.reshape(n, cap, -1), mesh, impl)
-    mine = back.reshape(n * cap, -1)[
-        (owner.clamp(0, n - 1) * cap + slot).long()]
-    out = torch.where((owner < n)[:, None], mine, torch.zeros_like(mine))
+
+    def routed(flat_, reqs_, owner_, slot_):
+        got = _a2a(reqs_, mesh, impl)                 # [n, cap] ids I own
+        loc = _local_idx(rows_l, got.reshape(-1), mesh).long()
+        rows = table[loc.clamp(0, rows_l - 1)]
+        rows = torch.where((loc < rows_l)[:, None], rows,
+                           torch.zeros_like(rows))
+        back = _a2a(rows.reshape(n, cap, -1), mesh, impl)
+        mine = back.reshape(n * cap, -1)[
+            (owner_.clamp(0, n - 1) * cap + slot_).long()]
+        return torch.where((owner_ < n)[:, None], mine,
+                           torch.zeros_like(mine))
+
+    def full(flat_, reqs_, owner_, slot_):
+        return _fetch_full(mesh, table, flat_)
+
+    out = cond(any_rank(overflow, mesh), full, routed,
+               (flat, reqs, owner, slot), name="fetch_a2a")
     return out.reshape(b, fld, -1)
 
 
@@ -403,20 +451,30 @@ def sharded_apply_a2a(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     cap = a2a_cap(m, n, slack)
     fi, fg = coalesce(idx.reshape(m), g, drop_sentinel=DROP_ROW)
     reqs, owner, slot, overflow = route_to_owners(fi, rows_l, n, cap)
-    if any_rank(overflow, mesh):
-        return _apply_full(mesh, table, slots, fi, fg, lr, optimizer,
-                           apply_impl)
-    # grads ride the same (owner, slot) routing as the ids
-    pos = torch.where(owner < n, owner.clamp(0, n - 1) * cap + slot,
-                      n * cap).long()
-    gbuf = torch.zeros((n * cap + 1, g.shape[1]), dtype=g.dtype,
-                       device=g.device)
-    gbuf[pos] = fg          # in-range positions are distinct
-    ids_in = _a2a(reqs, mesh, impl).reshape(-1)
-    g_in = _a2a(gbuf[: n * cap].reshape(n, cap, -1), mesh,
-                impl).reshape(n * cap, -1)
-    return apply_rows(table, slots, _local_idx(rows_l, ids_in, mesh), g_in,
-                      lr, optimizer, apply_impl)
+
+    def routed(table_, slots_, fi_, fg_, reqs_, owner_, slot_):
+        # grads ride the same (owner, slot) routing as the ids
+        pos = torch.where(owner_ < n, owner_.clamp(0, n - 1) * cap + slot_,
+                          n * cap).long()
+        gbuf = torch.zeros((n * cap + 1, fg_.shape[1]), dtype=fg_.dtype,
+                           device=fg_.device)
+        gbuf[pos] = fg_          # in-range positions are distinct
+        ids_in = _a2a(reqs_, mesh, impl).reshape(-1)
+        g_in = _a2a(gbuf[: n * cap].reshape(n, cap, -1), mesh,
+                    impl).reshape(n * cap, -1)
+        # a branch writes its result into its operands: the apply works
+        # in place, and copy_into copies what it returned anew (Adam's t)
+        copy_into((table_, slots_), apply_rows(
+            table_, slots_, _local_idx(rows_l, ids_in, mesh), g_in, lr,
+            optimizer, apply_impl))
+
+    def full(table_, slots_, fi_, fg_, *_):
+        copy_into((table_, slots_), _apply_full(
+            mesh, table_, slots_, fi_, fg_, lr, optimizer, apply_impl))
+
+    cond(any_rank(overflow, mesh), full, routed,
+         (table, slots, fi, fg, reqs, owner, slot), name="apply_a2a")
+    return table, slots
 
 
 def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
@@ -440,11 +498,21 @@ def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     capacity = unique_cap(flat.shape[0], unique_frac)
     if capacity:
         cidx, cgrad, nu = coalesce_compact(flat, g, capacity, DROP_ROW)
-        if not any_rank(nu > capacity, mesh):   # pmax(nu) > C
-            mesh.unique_branches["apply_compact"] += 1
-            return _apply_full(mesh, table, slots, cidx, cgrad, lr,
-                               optimizer, apply_impl, axis)
-        mesh.unique_branches["apply_full"] += 1
+
+        def compact(table_, slots_, flat_, g_, cidx_, cgrad_):
+            copy_into((table_, slots_), _apply_full(
+                mesh, table_, slots_, cidx_, cgrad_, lr, optimizer,
+                apply_impl, axis))
+
+        def full(table_, slots_, flat_, g_, cidx_, cgrad_):
+            fi, fg = coalesce(flat_, g_, drop_sentinel=DROP_ROW)
+            copy_into((table_, slots_), _apply_full(
+                mesh, table_, slots_, fi, fg, lr, optimizer, apply_impl,
+                axis))
+
+        cond(any_rank(nu > capacity, mesh), full, compact,
+             (table, slots, flat, g, cidx, cgrad), name="apply_unique")
+        return table, slots
     fi, fg = coalesce(flat, g, drop_sentinel=DROP_ROW)
     return _apply_full(mesh, table, slots, fi, fg, lr, optimizer,
                        apply_impl, axis)

@@ -24,7 +24,6 @@ them on its own.
 from __future__ import annotations
 
 import os
-from collections import Counter
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -48,9 +47,7 @@ class Mesh:
     `ici_group` (this rank's row) and `dcn_group` (its column).
     `a2a_workspaces` holds the peer-write all-to-all's shared buffers
     (kernels/a2a.py), one per chunk size, owned here so that they live
-    and die with the mesh. `unique_branches` counts the legs of the
-    unique-compact exchange by the branch they took ("fetch_compact",
-    "fetch_full", "apply_compact", "apply_full"; parallel/exchange.py)."""
+    and die with the mesh."""
 
     size: int
     rank: int
@@ -62,7 +59,6 @@ class Mesh:
     # the groups this rank made but is not in (released by close())
     other_groups: list = field(default_factory=list, repr=False)
     a2a_workspaces: dict = field(default_factory=dict, repr=False)
-    unique_branches: Counter = field(default_factory=Counter, repr=False)
 
     @property
     def axis_names(self) -> tuple:

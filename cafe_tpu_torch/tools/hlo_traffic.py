@@ -5,7 +5,10 @@ looking for that module finds this one).
 Nothing here parses HLO: torch compiles no program to read. The port's
 record of a step's collectives is `parallel/exchange.record_collectives`,
 which notes (op, axis, result bytes) of every call; `collective_stats`
-sums one step's records. `model_result_bytes` is the JAX module's
+sums one step's records, which come from an eager step
+(tools/wire_audit.audit builds it with capture=False: the record is
+made on the host at each call, and a replayed CUDA graph makes no
+call). `model_result_bytes` is the JAX module's
 analytic prediction of the same result bytes, class by class, so a test
 can hold the recorded total to the model across mesh sizes
 (tests/test_torch_traffic_model.py), as the JAX package holds its

@@ -9,7 +9,10 @@ wrappers of parallel/exchange.py, which note (op, axis, result bytes)
 while `record_collectives` is open; the table is rank 0's. The axis is
 "data" for the mesh's flat group and "ici" / "dcn" for the two levels of
 a --mesh_inner mesh. Only the branch a step takes is recorded (the JAX
-audit sees both branches of a lax.cond).
+audit sees both branches of a lax.cond). The step is built eager
+(capture=False): the wrappers note a collective on the host when it is
+called, and a replayed CUDA graph calls none of them, so a graphed step
+would record only its capture.
 
 Usage (gloo ranks on the CPU, one process each; no port is opened):
   python -m cafe_tpu_torch.tools.wire_audit --devices 4 \\
@@ -41,7 +44,8 @@ TOP = 20
 
 
 def audit(cfg, mesh) -> Dict:
-    """One train step of `cfg` (eager) on this rank's share of `mesh`,
+    """One train step of `cfg` (eager: a replay records nothing) on this
+    rank's share of `mesh`,
     from build_all's own state and the first global batch, with every
     collective recorded. Returns this rank's report."""
     from ..data import batch_iterator

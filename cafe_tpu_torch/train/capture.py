@@ -45,6 +45,22 @@ replays that ran it (its device counter is read when a kernel's count
 is next read or set, kernels/build.settle, also when the graph is gone
 by then).
 
+Meshes. A mesh step (train/step.py with a mesh) captures as one device's
+does, on every rank: its NCCL collectives and K5 launches land in the
+graph. At world size 1 a branch body may hold collectives too (the
+exchange's full-size legs, the sharded insert's candidate all-gather),
+as the JAX package's lax.conds under shard_map do; on more than one
+rank the card refuses NCCL's work inside a conditional body, so
+train/step.capture_blockers keeps such a step eager there (K5 is
+captured in a body at any world size). Every rank calls the step with
+the same
+batch signatures in the same order, so the ranks warm up, run their
+spare branches, capture and replay in the same order and the captured
+collectives pair up; each branch predicate is the same on every rank
+(parallel/exchange.any_rank). The warm-up calls create every NCCL
+communicator and K5 workspace the step uses (the spare runs those of
+the untaken branches), so a capture creates none.
+
 Host steps. A step that must run eagerly at some steps (AdaEmbed's
 sampled check and rebuild) gives its GraphedStep a StepMirror: the
 device step counter and which steps are host steps. The GraphedStep
@@ -73,6 +89,11 @@ __all__ = ["GraphedStep", "StepMirror", "WARMUP_CALLS", "branch_runs",
 
 # eager calls of each batch signature before its capture
 WARMUP_CALLS = 2
+# the capture's cudaStreamCaptureMode: "thread_local" lets threads other
+# than the capturing one (the NCCL process group's watchdog, which
+# queries the events of earlier collectives) call the CUDA runtime
+# during a capture
+CAPTURE_MODE = "thread_local"
 
 
 # ---------------------------------------------------------------- steps
@@ -265,7 +286,8 @@ class GraphedStep:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with _cond.capturing(graph, dev) as cap, \
-                torch.cuda.graph(graph, stream=stream):
+                torch.cuda.graph(graph, stream=stream,
+                                 capture_error_mode=CAPTURE_MODE):
             out = self.__wrapped__(self.state, *static)
             if self.carry:
                 new_state, out = out

@@ -32,13 +32,16 @@ no value is read back to the host and one CUDA graph serves every
 
 On the card the three builders return CUDA-graph steps
 (train/capture.GraphedStep, `.graphed` True) when the configuration
-allows it: `capture_blockers` lists what keeps a train step eager,
-decided when the step is built. CPU steps and `capture=False` are eager
+allows it, on one device or on a mesh (each rank captures its share of
+the step, collectives included, as the JAX package jits its shard_map
+step; on more than one rank a device branch may not hold a collective):
+`capture_blockers` lists what keeps a train step eager, decided when
+the step is built. CPU steps and `capture=False` are eager
 (`.graphed` False). The data-dependent branches (the skipped insert,
-CAFE+'s decay and reset, AdaEmbed's decay) are conditional nodes in the
-graph (utils/cond.cond); AdaEmbed's check steps run eagerly on the
-graph's state, picked by its host mirror of the step counter
-(train/capture.StepMirror).
+CAFE+'s decay and reset, AdaEmbed's decay, the exchange's overflow
+legs) are conditional nodes in the graph (utils/cond.cond); AdaEmbed's
+check steps run eagerly on the graph's state, picked by its host mirror
+of the step counter (train/capture.StepMirror).
 """
 
 from __future__ import annotations
@@ -188,25 +191,65 @@ _UNDONATED = ("donate_state False: each replay would have to clone the "
               "whole state")
 
 
+def has_branches(embed_layer) -> bool:
+    """Whether the layer's step takes a device branch (utils/cond.cond):
+    a part's own (the skipped insert, CAFE+'s decay and reset, AdaEmbed's
+    decay) or, on a mesh, the exchange's (the unique-compact and a2a
+    overflow legs, parallel/exchange.py)."""
+    return any(p.conds or (p.mesh is not None and (
+        p.unique_frac > 0 or p.exchange_mode != "explicit"))
+        for p in embed_layer.parts)
+
+
+def nccl_branches(embed_layer, train: bool = True) -> List[str]:
+    """The device branches of the layer's step (`train`) or eval whose
+    bodies hold NCCL collectives: the a2a / pallas legs (their overflow
+    branch is the full explicit exchange), the unique-compact legs and
+    the sharded insert every interval-th tick (its candidate
+    all-gather)."""
+    out = []
+    for i, p in enumerate(embed_layer.parts):
+        if p.mesh is None:
+            continue
+        if p.exchange_mode != "explicit":
+            if not p.mesh.inner:       # a two-level mesh takes no a2a leg
+                out.append(f"part{i}: the {p.exchange_mode} legs")
+        elif p.unique_frac > 0:
+            out.append(f"part{i}: the unique-compact legs")
+        if train and getattr(p, "insert_interval", 1) > 1:
+            out.append(f"part{i}: the insert every {p.insert_interval} "
+                       f"ticks")
+    return out
+
+
+def _mesh_blockers(embed_layer, mesh, train: bool) -> List[str]:
+    held = [] if mesh is None or mesh.size == 1 else nccl_branches(
+        embed_layer, train)
+    if not held:
+        return []
+    return [f"a mesh of {mesh.size} ranks with NCCL collectives inside "
+            f"device branches ({'; '.join(held)}): the card refuses to "
+            f"capture NCCL's work on more than one rank into a CUDA graph "
+            f"conditional body ('CUDA error: invalid argument', "
+            f"tools/cond_nccl_probe_torch.py --world 4); at world size 1 "
+            f"it graphs"]
+
+
 def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
     """What keeps the train step of `cfg` from replaying a CUDA graph,
     each with the code that keeps it eager; empty when nothing does.
     Decided from the configuration when the step is built, never from a
-    failed capture."""
+    failed capture. A mesh's collectives are captured on every rank
+    (train/capture.py), except inside a device branch on more than one
+    rank."""
     out = []
-    if mesh is not None:
-        out.append("a mesh: the step's collectives run on a process group "
-                   "this port does not capture, its a2a and pallas legs "
-                   "read an overflow flag back to the host "
-                   "(parallel/exchange.py any_rank), and K5 at n > 1 keeps "
-                   "a host epoch (kernels/a2a.py)")
     if not cfg.donate_state:
         out.append(_UNDONATED)
-    if any(p.conds for p in embed_layer.parts):
+    if has_branches(embed_layer):
         no_nodes = conditional_node_blocker(embed_layer.device)
         if no_nodes:
             out.append(no_nodes)
-    return out
+    return out + _mesh_blockers(embed_layer, mesh, train=True)
 
 
 def _step_mirror(embed_layer):
@@ -345,9 +388,12 @@ def build_multi_step(train_step, k: int, donate: bool = False,
 
 
 def build_eval_step(model, embed_layer, capture=True, gather=None):
-    """Scores [B] of a batch. On the card, with `capture` and no mesh, a
-    GraphedStep whose output tensor the next call overwrites. `gather`
-    (state.embed, ids) -> raws replaces the layer's float lookup."""
+    """Scores [B] of a batch. On the card, with `capture` and nothing
+    that keeps it eager (a mesh's collectives do not, but for a device
+    branch that holds them on more than one rank), a GraphedStep whose
+    output tensor the next call overwrites. `gather` (state.embed, ids)
+    -> raws replaces the layer's float lookup (the quantized one)."""
+    quantized = gather is not None
     gather = gather or (lambda embed, ids: embed_layer.gather(embed, ids)[0])
 
     @torch.no_grad()
@@ -356,8 +402,15 @@ def build_eval_step(model, embed_layer, capture=True, gather=None):
                                       gather(state.embed, ids))
         return model.apply(state.params, dense_x, feats)
 
-    blockers = [] if embed_layer.mesh is None else [
-        "a mesh: the exchange's collectives are not captured"]
+    blockers = []
+    if has_branches(embed_layer):
+        no_nodes = conditional_node_blocker(embed_layer.device)
+        if no_nodes:
+            blockers.append(no_nodes)
+    if not quantized:
+        # the quantized lookups take no exchange branch
+        blockers += _mesh_blockers(embed_layer, embed_layer.mesh,
+                                   train=False)
     if capture and not blockers and embed_layer.device.type == "cuda":
         return GraphedStep(eval_step, carry=False)
     return _eager(eval_step, blockers)
@@ -370,8 +423,8 @@ def build_quantized_eval_step(model, embed_layer, state: TrainState,
     here, from `state`; its lookups gather codes and dequantize them.
     Routing state (sketches, hot dicts, Ada's dic) stays full precision
     and is read from the state passed at each call; MDE / AE projections
-    apply in f32. On the card with no mesh a GraphedStep, as
-    build_eval_step; on a mesh eager."""
+    apply in f32. On the card a GraphedStep, as build_eval_step, on a
+    mesh too."""
     with torch.no_grad():
         qtables = embed_layer.quantize_for_serving(state.embed, bits)
     step = build_eval_step(

@@ -19,7 +19,9 @@ on the card, the CPU) it reads `pred` once on the host, through
 `host_pred`, and runs one branch. During a GraphedStep's warm-up calls
 it also runs the branch not taken, on clones of its operands, so both
 bodies have made their lazy constants and loaded their kernels before
-the capture. Each body adds one to its own slot of the capture's device
+the capture; the kernels those spare runs launch count in each kernel's
+`launches` and also in its `spare_launches`. Each body adds one to its
+own slot of the capture's device
 counter when it runs; the graph reads the counter when a kernel count is
 next read (kernels/build.settle) and credits each body's kernel launches
 and runs (`branch_runs`) by the replays that ran it.
@@ -259,9 +261,15 @@ def cond(pred: torch.Tensor, true_fn, false_fn, operands=(),
         spare = _map(lambda t: t.detach().clone(), operands)
     out = None if fn is None else fn(*operands)
     if spare is not None:
+        outer = not _SPARE
+        before = {k: k._launches for k in KERNELS.values()} if outer \
+            else None
         with _spare():
             count("spare", name, int(not take))
             other(*spare)
+        if outer:
+            for k, n in before.items():
+                k.spare_launches += k._launches - n
     return out
 
 
@@ -294,7 +302,9 @@ def _if_body(cap, pred: torch.Tensor, negate: bool):
     """Everything enqueued inside lands in an IF node's body: the card
     runs it on the replays where `pred` (negated for an else body) holds
     (kernels/graph_cond.cu). The body's allocations come from a memory
-    pool of its own, which the graph keeps (_Capture.pools)."""
+    pool of its own, which the graph keeps (_Capture.pools); its kernel
+    launches use the capturing stream's per-stream state
+    (kernels/build.BODY_STREAMS)."""
     begin, end, _ = _body_api()
     dev = pred.device
     main = torch.cuda.current_stream(dev)
@@ -304,6 +314,7 @@ def _if_body(cap, pred: torch.Tensor, negate: bool):
                      ctypes.byref(body)), "opening a branch body")
     pool = torch.cuda.graph_pool_handle()
     cap.pools.append((dev.index, pool))
+    build.BODY_STREAMS[body.value] = build.owner_stream(main.cuda_stream)
     torch._C._cuda_beginAllocateCurrentThreadToPool(dev.index, pool)
     try:
         with torch.cuda.stream(torch.cuda.ExternalStream(body.value,
@@ -311,6 +322,7 @@ def _if_body(cap, pred: torch.Tensor, negate: bool):
             yield
     finally:
         torch._C._cuda_endAllocateToPool(dev.index, pool)
+        del build.BODY_STREAMS[body.value]
         _check(end(body.value), "closing a branch body")
 
 

@@ -1586,7 +1586,8 @@ def phase_cli(main_fn, make_criteo_arrays, kernels, device="cuda", extra=(),
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-A2A_IPC = dict(n=4, chunk=13312, dim=16, epochs=3, seed=5)
+A2A_IPC = dict(n=4, chunk=13312, dim=16, epochs=3, seed=5,
+               graph_replays=3)
 
 
 def a2a_inputs(n, chunk, dim, seed, rank):
@@ -1622,15 +1623,43 @@ def a2a_ipc_rank(rank, store, out_dir):
             equal.append(bool(torch.equal(got, want)))
     torch.cuda.synchronize()
     launches = a2a.KERNEL.launches
+    # the rows leg captured in a CUDA graph on the same workspace: each
+    # replay (fresh inputs in the static buffer) is followed by an eager
+    # call, and both must deliver their own call's chunks (the call
+    # counter lives on the card: a frozen epoch would copy stale slots)
+    x = ins[rank][1].cuda()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = a2a.all_to_all(x, mesh)
+    graph_equal = []
+    for e in range(cfg["graph_replays"]):
+        for seed, replay in ((cfg["seed"] + 100 + e, True),
+                             (cfg["seed"] + 200 + e, False)):
+            ins = [a2a_inputs(n, cfg["chunk"], cfg["dim"], seed, s)
+                   for s in range(n)]
+            if replay:
+                x.copy_(ins[rank][1].cuda())
+                graph.replay()
+                got = out.cpu()
+            else:
+                got = a2a.all_to_all(ins[rank][1].cuda(), mesh).cpu()
+            want = torch.stack([ins[s][1][rank] for s in range(n)])
+            graph_equal.append(bool(torch.equal(got, want)))
+    torch.cuda.synchronize()
+    del graph
     mesh.close()
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump({"rank": rank, "equal": equal, "launches": launches}, f)
+        json.dump({"rank": rank, "equal": equal, "launches": launches,
+                   "graph_equal": graph_equal}, f)
 
 
 def phase_a2a(a2a, mesh):
     """K5 at n = 1 (headline exchange shapes) and across 4 processes on
-    the one card."""
+    the one card: eagerly, then captured in a CUDA graph whose replays
+    interleave with eager calls."""
     gen = torch.Generator().manual_seed(4)
     m = 53248
     legs = {"ids": torch.randint(0, 2**31 - 1, (1, m), dtype=torch.int32,
@@ -1688,11 +1717,13 @@ def phase_a2a(a2a, mesh):
     shutil.rmtree(root, ignore_errors=True)
     want_launches = 2 * A2A_IPC["epochs"]
     if not all(all(v["equal"]) and v["launches"] == want_launches
-               for v in verdicts):
+               and len(v["graph_equal"]) == 2 * A2A_IPC["graph_replays"]
+               and all(v["graph_equal"]) for v in verdicts):
         raise AssertionError(f"K5 across 4 processes on one card: "
                              f"{verdicts}")
     rec["ipc_one_card"] = {
         **A2A_IPC, "bit_equal_every_rank_every_call": True,
+        "graph_replays_interleaved_with_eager_bit_equal": True,
         "launches_per_rank": want_launches,
         "wall_s": time.perf_counter() - t0,
         "timed": False,
@@ -1810,8 +1841,11 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
     --quantize_emb_bits 8 and 4 (score_gate against the f32 scores,
     accuracy within QUANT_GAP) and on one device without a mesh (the
     1-shard layout, CafePart.enable_sharded_layout) at f32, whose scores
-    must equal the mesh's within 1e-6. K1 and K3 launch once a train
-    step, K5 4 times a train step and twice an eval batch."""
+    must equal the mesh's within 1e-6. The steps replay CUDA graphs. K1
+    and K3 launch once a train step, K5 4 times a train step and twice
+    an eval batch, besides what the warm-up calls launch in their spare
+    branches (each kernel's spare_launches: K3 in the full-size apply
+    run on clones)."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_clis_",
@@ -1826,29 +1860,33 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
 
         def launched(name, lines, steps, eval_calls):
             got = {k: kern.launches for k, kern in kernels.items()}
+            spare = {k: kern.spare_launches for k, kern in kernels.items()}
             if eval_calls is None:      # 8 test batches an evaluation
                 eval_calls = 8 * sum(ln.startswith(" accuracy")
                                      for ln in lines)
             want = {"land_max": steps, "rowsum": steps,
                     "a2a": 4 * steps + 2 * eval_calls}
-            if device == "cuda" and any(got[k] != v for k, v in
-                                        want.items()):
-                raise AssertionError(f"cli_sharded {name}: launches {got}, "
-                                     f"expected {want}")
-            return got
+            if device == "cuda" and any(got[k] - spare[k] != v
+                                        for k, v in want.items()):
+                raise AssertionError(f"cli_sharded {name}: launches {got} "
+                                     f"({spare} in warm-up spare "
+                                     f"branches), expected {want}")
+            return got, spare
 
         def cli(name, argv, steps, eval_calls=None):
             for kern in kernels.values():
                 kern.launches = 0
+                kern.spare_launches = 0
             t0 = time.perf_counter()
             with timed_checkpoints() as ck_ms:
                 res, lines = run_cli(main_fn, argv,
                                      f"cli_sharded_{name}.txt")
+            got, spare = launched(name, lines, steps, eval_calls)
             return res, lines, {"wall_s": time.perf_counter() - t0,
                                 "checkpoint_ms": {k: v for k, v in
                                                   ck_ms.items() if v},
-                                "launches": launched(name, lines, steps,
-                                                     eval_calls)}
+                                "launches": got,
+                                "spare_launches": spare}
 
         for k, freq in ((1, 20), (8, 16)):
             model = os.path.join(root, f"k{k}", "m")
@@ -1908,23 +1946,27 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
         for bits in (0,) + QUANT_BITS:
             for kern in kernels.values():
                 kern.launches = 0
+                kern.spare_launches = 0
             t0 = time.perf_counter()
             with timed_checkpoints() as ck_ms:
                 res_q, p = serve_cli(main_fn, mesh + serve + [
                     "--quantize_emb_bits", str(bits)],
                     f"cli_sharded_serve_int{bits}.txt")
             name = f"int{bits}" if bits else "f32"
+            k5 = kernels["a2a"].launches - kernels["a2a"].spare_launches
             quant[name] = {**res_q["metrics"],
                            "wall_s": time.perf_counter() - t0,
                            "load_ms": ck_ms["load_checkpoint"],
-                           "a2a_launches": kernels["a2a"].launches}
+                           "a2a_launches": kernels["a2a"].launches,
+                           "a2a_spare_launches":
+                               kernels["a2a"].spare_launches}
             # f32 fetches rows through the pallas exchange (ids and rows
             # an eval batch); the quantized lookup's owners dequantize
             # behind an all-gather and a reduce-scatter (no K5)
             want = 0 if bits else 2 * 8
-            if device == "cuda" and kernels["a2a"].launches != want:
+            if device == "cuda" and k5 != want:
                 raise AssertionError(f"cli_sharded serve {name}: K5 "
-                                     f"launched {kernels['a2a'].launches}, "
+                                     f"launched {k5} (besides spares), "
                                      f"not {want}")
             scores[bits] = p
         t0 = time.perf_counter()
@@ -1956,6 +1998,210 @@ def phase_cli_sharded(main_fn, make_criteo_arrays, kernels, device="cuda"):
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- the mesh's steps in CUDA graphs (world size 1, NCCL)
+MESH_GRAPH_STEPS, MESH_GRAPH_WINDOWS = 8, 2
+MESH_GRAPH_GATE = 3           # replays, each against an eager step
+MESH_EVAL_CALLS = 8
+
+
+def mesh_graph_configs(Config, cfg128):
+    """{name: (config, steps a call, K5 launches a step)} of mesh_graph:
+    the sharded headline and sibling at world size 1 in each exchange,
+    with the unique-compact legs, at insert interval 8, with the dense
+    apply (K3), at K = 8, and AdaEmbed at the latency grid's width
+    (tools/latency_grid_torch.grid_config). Frequency scores, so that a
+    graphed and an eager step from one state keep equal sketches."""
+    sh = dict(mesh_shape=1, shard_embeddings=True, cafe_use_freq=True)
+    head = headline_cfg(Config, **sh)
+    sib = dataclasses.replace(cfg128, **sh)
+    r = dataclasses.replace
+    return {
+        "headline_explicit": (head, 1, 0),
+        "headline_pallas": (r(head, shard_exchange="pallas"), 1, 4),
+        "headline_a2a": (r(head, shard_exchange="a2a"), 1, 0),
+        "headline_unique": (r(head, shard_unique_frac=0.5), 1, 0),
+        "headline_interval8": (r(head, cafe_insert_interval=8), 1, 0),
+        "headline_dense": (r(head, sparse_apply_impl="dense"), 1, 0),
+        "headline_k8": (head, 8, 0),
+        "sibling_explicit": (sib, 1, 0),
+        "sibling_pallas": (r(sib, shard_exchange="pallas"), 1, 4),
+        "ada_grid": (r(sib, compress_method="ada"), 1, 0),
+    }
+
+
+def _runs_delta(runs0, runs):
+    return {c: [a - b for a, b in zip(v, runs0.get(c, [0, 0]))]
+            for c, v in runs.items() if v != runs0.get(c, [0, 0])}
+
+
+def mesh_graph_case(fns, cfg, k, want_a2a, data, batches, mesh, kernels):
+    """One configuration of mesh_graph (phase_mesh_graph's docstring).
+    Returns (record, model, embed, graphed state)."""
+    (build_all, build_train_step, build_multi_step, clone_state, fence,
+     branch_runs, warmup_calls) = fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, embed, state, e_step, _ = build_all(cfg, data, mesh=mesh,
+                                               capture=False)
+    g_step = build_train_step(model, embed, cfg, mesh)
+    if not g_step.graphed:
+        raise AssertionError(f"mesh_graph: not graphed: "
+                             f"{g_step.capture_blockers}")
+    if k > 1:
+        g_step = build_multi_step(g_step, k, donate=True, mesh_size=1)
+        e_step = build_multi_step(e_step, k, donate=True, mesh_size=1)
+        batches = [tuple(torch.cat([b[j] for b in batches[:k]])
+                         for j in range(3)) + (k * batches[0][3],)]
+    for kern in kernels.values():
+        kern.launches = 0
+        kern.spare_launches = 0
+    n = 0
+
+    def run(step, st, count):
+        nonlocal n
+        for _ in range(count):
+            st, m = step(st, *batches[n % len(batches)])
+            n += 1
+        fence(st, m)
+        return st, m
+
+    state, _ = run(g_step, state, warmup_calls + 1)   # warm-ups, capture
+    gap = 0.0
+    for _ in range(MESH_GRAPH_GATE):
+        b = batches[n % len(batches)]
+        ex, _ = e_step(clone_state(state), *b)
+        state, _ = run(g_step, state, 1)
+        gaps, bad = _leaf_gaps(ex, state)
+        if bad or max(gaps.values()) > REORDER_TOL:
+            raise AssertionError(f"mesh_graph gate: integers {bad}, "
+                                 f"floats {gaps}")
+        gap = max(gap, max(gaps.values()))
+        del ex
+    times = {"eager": [], "graphed": []}
+    peak = {"eager": 0, "graphed": 0}
+    per = {"eager": {}, "graphed": {}}
+    runs = {"eager": {}, "graphed": {}}
+    for mode in _order(MESH_GRAPH_WINDOWS):
+        before = {c: kk.launches for c, kk in kernels.items()}
+        runs0 = branch_runs()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = run(e_step if mode == "eager" else g_step, state,
+                       MESH_GRAPH_STEPS)
+        times[mode].append((time.perf_counter() - t0) * 1e3
+                           / MESH_GRAPH_STEPS / k)
+        peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
+        for c, kk in kernels.items():
+            per[mode][c] = per[mode].get(c, 0) + kk.launches - before[c]
+        where = "eager" if mode == "eager" else "graph"
+        for c, v in _runs_delta(runs0[where], branch_runs()[where]).items():
+            got = runs[mode].setdefault(c, [0, 0])
+            runs[mode][c] = [a + b for a, b in zip(got, v)]
+    steps = MESH_GRAPH_WINDOWS * MESH_GRAPH_STEPS * k
+    per = {mode: {c: v / steps for c, v in d.items() if v}
+           for mode, d in per.items()}
+    # the true sides' runs: a cond with no else branch (AdaEmbed's
+    # decay) has no body to count its untaken runs in a replay
+    taken = {mode: {c: v[1] for c, v in r.items() if v[1]}
+             for mode, r in runs.items()}
+    if per["graphed"] != per["eager"] or taken["graphed"] != \
+            taken["eager"] or per["graphed"].get("a2a", 0) != want_a2a:
+        raise AssertionError(f"mesh_graph: launches a step {per}, branch "
+                             f"runs {runs}, K5 wanted {want_a2a}")
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError(f"mesh_graph: loss {float(m['loss'])}")
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    rec = {"k": k, "graphed": True,
+           "eager_ms_per_step": med["eager"],
+           "graphed_ms_per_step": med["graphed"],
+           "speedup": med["eager"] / med["graphed"],
+           "eager_window_ms": times["eager"],
+           "graphed_window_ms": times["graphed"],
+           "launches_per_step": per, "branch_runs": runs,
+           "launches_per_replay": g_step.launches_per_replay(),
+           "branch_bodies": [(c, side, la) for c, side, la in
+                             g_step.branch_launches()],
+           "peak_allocated_gb": {c: v / 2**30 for c, v in peak.items()},
+           "capture_s": g_step.capture_s, "replays": g_step.replays,
+           "host_calls": g_step.host_calls,
+           "gate_steps": MESH_GRAPH_GATE, "gate_max_float_gap": gap,
+           "integer_state_equal": True,
+           "spare_launches": {c: kk.spare_launches
+                              for c, kk in kernels.items()
+                              if kk.spare_launches},
+           "launches": {c: kk.launches for c, kk in kernels.items()}}
+    del e_step, g_step
+    return rec, model, embed, state
+
+
+def mesh_eval_case(g_eval, e_eval, state, batches):
+    """A graphed and an eager eval step on one state: scores within 1e-5
+    batch for batch over WARMUP + MESH_EVAL_CALLS calls, then windows of
+    MESH_EVAL_CALLS calls in turns, ms a call."""
+    gap = 0.0
+    for i in range(2 + MESH_EVAL_CALLS):
+        dense, sparse = batches[i % len(batches)][:2]
+        got = g_eval(state, dense, sparse).clone()
+        gap = max(gap, float((got - e_eval(state, dense, sparse)).abs()
+                             .max()))
+    if not gap <= 1e-5 or not g_eval.graphed:
+        raise AssertionError(f"mesh_graph eval: scores {gap} apart")
+    times = {"eager": [], "graphed": []}
+    for mode in _order(MESH_GRAPH_WINDOWS):
+        ev = g_eval if mode == "graphed" else e_eval
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MESH_EVAL_CALLS):
+            ev(state, *batches[i % len(batches)][:2])
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3
+                           / MESH_EVAL_CALLS)
+    med = {mode: float(np.median(t)) for mode, t in times.items()}
+    return {"max_abs_diff": gap, "eager_ms_per_call": med["eager"],
+            "graphed_ms_per_call": med["graphed"],
+            "speedup": med["eager"] / med["graphed"],
+            "replays": g_eval.replays, "capture_s": g_eval.capture_s}
+
+
+def phase_mesh_graph(fns, eval_fns, Config, cfg128, data, batches, mesh,
+                     kernels):
+    """The mesh's steps in CUDA graphs at world size 1 (NCCL), each
+    configuration of mesh_graph_configs built once: the graphed train
+    step (its 2 warm-up calls and its capture) on the eager step's
+    state, then MESH_GRAPH_GATE replays, each against an eager step on a
+    clone of the state it started from (integer leaves bit-equal, float
+    leaves within REORDER_TOL); then windows of MESH_GRAPH_STEPS steps,
+    eager and graphed in turns on that state: ms a step (of the K steps
+    a call at K = 8), kernel launches a step and branch runs (equal in
+    both modes, the true sides' where a cond has no else branch; K5 4 a
+    step in the pallas exchange), peak memory,
+    launches a replay and the branch bodies. On the headline explicit
+    state, the graphed eval and int8 eval steps against their eager
+    twins (mesh_eval_case)."""
+    build_eval_step, build_quantized_eval_step = eval_fns
+    out = {}
+    for name, (cfg, k, want_a2a) in mesh_graph_configs(Config,
+                                                       cfg128).items():
+        t0 = time.perf_counter()
+        rec, model, embed, state = mesh_graph_case(
+            fns, cfg, k, want_a2a, data, batches, mesh, kernels)
+        if name == "headline_explicit":
+            rec["eval"] = mesh_eval_case(
+                build_eval_step(model, embed),
+                build_eval_step(model, embed, capture=False), state,
+                batches)
+            rec["eval_int8"] = mesh_eval_case(
+                build_quantized_eval_step(model, embed, state, 8),
+                build_quantized_eval_step(model, embed, state, 8,
+                                          capture=False), state, batches)
+        rec["wall_s"] = time.perf_counter() - t0
+        out[name] = rec
+        del model, embed, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---- QR, Off and AdaEmbed on the mesh, and the unique-compact exchange
@@ -2253,6 +2499,7 @@ def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
     state: loss within 1e-5 relative, tables within COMPACT_TOL, every
     integer leaf (the sketch) equal; the branch each leg of each step
     took; eager ms/step of each."""
+    from cafe_tpu_torch.parallel import exchange
     out = {}
     for method in methods:
         base = headline_cfg(Config, compress_method=method, mesh_shape=1,
@@ -2268,10 +2515,10 @@ def phase_unique_compact(build_all, from_reference, to_numpy, Config, data,
             state = from_reference(start, mesh.device)
             losses, branches = [], []
             for i in range(SHARDED_GATE_STEPS):
-                mesh.unique_branches.clear()
+                since = exchange.exchange_branches()
                 state, m = step(state, *batches[i])
                 losses.append(float(m["loss"]))
-                branches.append(dict(mesh.unique_branches))
+                branches.append(exchange.exchange_branches(since))
             gated = to_numpy(state.embed)
             state, win, ex_ms, ex_win = timed_steps(
                 step, state, batches, fence, SHARDED_WINDOWS,
@@ -2332,7 +2579,8 @@ def phase_cli_mesh(main_fn, make_criteo_arrays, kernels, name,
     (score_gate, accuracy within QUANT_GAP). The kernels launch as
     CLI_MESH[name] says a train step and an f32 eval batch (the quantized
     lookup's owners dequantize behind an all-gather and a reduce-scatter:
-    no K5)."""
+    no K5), besides what the graphed steps' warm-up calls launch in their
+    spare branches (kernels' spare_launches)."""
     flags, per_step, per_eval = CLI_MESH[name]
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(here, "build"), exist_ok=True)
@@ -2348,21 +2596,28 @@ def phase_cli_mesh(main_fn, make_criteo_arrays, kernels, name,
         model = os.path.join(root, "m")
         out, total = {}, {n: 0 for n in kernels}
 
+        def counted():
+            got = {n: k.launches for n, k in kernels.items()}
+            spare = {n: k.spare_launches for n, k in kernels.items()}
+            for n, v in got.items():
+                total[n] += v
+            return got, spare, {n: got[n] - spare[n] for n in got}
+
         def cli(tag, argv, steps, evals):
             for k in kernels.values():
                 k.launches = 0
+                k.spare_launches = 0
             t0 = time.perf_counter()
             res, lines = run_cli(main_fn, argv, f"{name}_{tag}.txt")
-            got = {n: k.launches for n, k in kernels.items()}
+            got, spare, main = counted()
             want = {n: per_step.get(n, 0) * steps
                     + per_eval.get(n, 0) * 8 * evals for n in kernels}
-            if device == "cuda" and got != want:
-                raise AssertionError(f"{name} {tag}: launches {got}, "
-                                     f"expected {want}")
-            for n, v in got.items():
-                total[n] += v
+            if device == "cuda" and main != want:
+                raise AssertionError(f"{name} {tag}: launches {got} "
+                                     f"({spare} in warm-up spare "
+                                     f"branches), expected {want}")
             return res, lines, {"wall_s": time.perf_counter() - t0,
-                                "launches": got}
+                                "launches": got, "spare_launches": spare}
 
         _, lines_a, rec_a = cli("a", mesh + ["--save_model", model,
                                              "--tensor_board_filename", ""],
@@ -2396,19 +2651,19 @@ def phase_cli_mesh(main_fn, make_criteo_arrays, kernels, name,
         for bits in (0, 8):
             for k in kernels.values():
                 k.launches = 0
+                k.spare_launches = 0
             res, scores[bits] = serve_cli(main_fn, mesh + [
                 "--inference_only", "true", "--load_model", model,
                 "--quantize_emb_bits", str(bits),
                 "--tensor_board_filename", ""],
                 f"{name}_serve_int{bits}.txt")
-            got = {n: k.launches for n, k in kernels.items()}
+            got, spare, main = counted()
             want = {n: 0 if bits else per_eval.get(n, 0) * 8
                     for n in kernels}
-            if device == "cuda" and got != want:
+            if device == "cuda" and main != want:
                 raise AssertionError(f"{name} serve int{bits}: launches "
-                                     f"{got}, expected {want}")
-            for n, v in got.items():
-                total[n] += v
+                                     f"{got} ({spare} in warm-up spare "
+                                     f"branches), expected {want}")
             serve[f"int{bits}" if bits else "f32"] = res["metrics"]
         gap = abs(serve["int8"]["accuracy"] - serve["f32"]["accuracy"])
         if not gap < QUANT_GAP:
@@ -3964,10 +4219,10 @@ def phase_serving_quant(bench, windows=5, steps=20):
 
 def phase_sharded_quant(build_all, init_state, copy_into, quant_eval, cfg,
                         data, batches, mesh):
-    """The quantized eval step on a mesh of one rank (eager) against the
-    same state served on one device through enable_sharded_layout(1)
-    (graphed): scores bit-equal at 8 and 4 bits on every batch; ms a
-    call of each."""
+    """The quantized eval step on a mesh of one rank, graphed and eager,
+    against the same state served on one device through
+    enable_sharded_layout(1) (graphed): scores bit-equal at 8 and 4 bits
+    on every batch; ms a call of each."""
     model, embed, state, step, _ = build_all(cfg, data, mesh=mesh,
                                              capture=False)
     for b in batches[:3]:
@@ -3983,19 +4238,24 @@ def phase_sharded_quant(build_all, init_state, copy_into, quant_eval, cfg,
     out = {"plus": cfg.cafe_plus}
     for bits in QUANT_BITS:
         qm = quant_eval(model, embed, state, bits)
+        qe = quant_eval(model, embed, state, bits, capture=False)
         q1 = quant_eval(model1, embed1, state1, bits)
-        if qm.graphed or not q1.graphed:
+        if not (qm.graphed and q1.graphed) or qe.graphed:
             raise AssertionError("sharded_quant: the mesh step must be "
-                                 "eager, the single-device one graphed")
+                                 "graphed and eager, the single-device one "
+                                 "graphed")
         for i in range(2 * len(batches)):
             d, s = batches[i % len(batches)][:2]
-            if not torch.equal(qm(state, d, s), q1(state1, d, s)):
+            got = qm(state, d, s).clone()
+            if not (torch.equal(got, qe(state, d, s))
+                    and torch.equal(got, q1(state1, d, s))):
                 raise AssertionError(f"sharded_quant int{bits}: batch {i} "
                                      f"scores differ")
         d, s = batches[0][:2]
         out[f"int{bits}"] = {
             "bit_equal_batches": 2 * len(batches),
-            "mesh_eager_ms": time_ms(lambda: qm(state, d, s), reps=10),
+            "mesh_graphed_ms": time_ms(lambda: qm(state, d, s), reps=10),
+            "mesh_eager_ms": time_ms(lambda: qe(state, d, s), reps=10),
             "single_graphed_ms": time_ms(lambda: q1(state1, d, s), reps=10)}
     return out
 
@@ -5000,10 +5260,12 @@ def main() -> int:
     from cafe_tpu_torch.train import (build_all, build_multi_step,
                                       build_quantized_eval_step, run)
     from cafe_tpu_torch.train.loop import pretrain_autoencoders
-    from cafe_tpu_torch.train.capture import WARMUP_CALLS, copy_into
+    from cafe_tpu_torch.train.capture import (WARMUP_CALLS, branch_runs,
+                                              copy_into)
     from cafe_tpu_torch.train.checkpoint import load_tree
-    from cafe_tpu_torch.train.step import (_bce, build_train_step,
-                                           clone_state, init_state)
+    from cafe_tpu_torch.train.step import (_bce, build_eval_step,
+                                           build_train_step, clone_state,
+                                           init_state)
     from cafe_tpu_torch.utils.timing import fence
 
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.jsonl")):
@@ -5231,8 +5493,24 @@ def main() -> int:
             build_all, init_state, copy_into, build_quantized_eval_step,
             cfg, data, batches, mesh_gpu)})
 
+    # ---- the mesh's steps in CUDA graphs beside their eager twins
     t0 = time.perf_counter()
+    before = graph_launches()
+    mg = phase_mesh_graph(
+        (build_all, build_train_step, build_multi_step, clone_state, fence,
+         branch_runs, WARMUP_CALLS),
+        (build_eval_step, build_quantized_eval_step), Config, cfg128,
+        data, batches, mesh_gpu, KERNELS)
+    count_in_graphs("mesh_graph", before)
+    by_path["mesh_graph"] = {name: sum(r["launches"][name]
+                                       for r in mg.values())
+                             for name in KERNELS}
+    emit({"phase": "mesh_graph", "wall_s": time.perf_counter() - t0, **mg})
+
+    t0 = time.perf_counter()
+    before = graph_launches()
     clis = phase_cli_sharded(main_torch.main, make_criteo_arrays, KERNELS)
+    count_in_graphs("cli_sharded", before)
     by_path["cli_sharded"] = clis["launches"]
     emit({"phase": "cli_sharded", "wall_s": time.perf_counter() - t0,
           **clis})
@@ -5252,8 +5530,10 @@ def main() -> int:
         build_all, from_reference, to_numpy, Config, data, batches, mesh_gpu,
         fence), "wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    before = graph_launches()
     clq = phase_cli_mesh(main_torch.main, make_criteo_arrays, KERNELS,
                          "sharded_methods_cli_qr")
+    count_in_graphs("sharded_methods_cli_qr", before)
     by_path["sharded_methods_cli_qr"] = clq["launches"]
     emit({"phase": "sharded_methods_cli_qr",
           "wall_s": time.perf_counter() - t0, **clq})
@@ -5280,8 +5560,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cla = {}
     for name in ("cli_auto", "cli_two_level"):
+        before = graph_launches()
         cla[name] = phase_cli_mesh(main_torch.main, make_criteo_arrays,
                                    KERNELS, name)
+        count_in_graphs(name, before)
         by_path[name] = cla[name]["launches"]
     emit({"phase": "cli_auto", "wall_s": time.perf_counter() - t0, **cla})
     t0 = time.perf_counter()
@@ -5511,6 +5793,9 @@ def main() -> int:
     # ab_apply128's
     lines[0]["other_paths"] = land_shapes
     lines[1]["other_paths"] = scatter_shapes
+    # the mesh's steps replay graphs: K5 must have run inside them
+    if not lines[4]["launches_in_graphs"]:
+        raise AssertionError("K5 launched in no CUDA graph replay")
     emit({"kernels": lines})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@
   unique, boolean indexing): one step of each configuration that
   train/step.capture_blockers lets replay a graph runs under it (train,
   multi-step and eval), and a step that a graph runs eagerly (AdaEmbed's
-  check step) trips it; on one device only a mesh, donate_state False
-  and a torch without conditional nodes block the capture;
+  check step) trips it; only donate_state False and a torch without
+  conditional nodes block the capture, on one device or a mesh of one
+  rank;
 * (c) the eval loop keeps each batch's scores when the eval step returns
   one reused output tensor, as a graphed eval step does.
 """
@@ -273,10 +274,14 @@ def test_only_donate_off_blocks_on_one_device(name):
         ["donate_state False"]
 
 
-def test_sharded_a2a_step_trips_the_mode():
+def test_sharded_a2a_step_trips_the_mode(monkeypatch):
     """The mesh step at world size 1 (a gloo group in this process): the
-    a2a legs read their overflow flag back to the host."""
+    a2a legs' overflow flag is a device branch (exchange.any_rank feeds
+    utils/cond.cond), so the mesh blocks no capture and the step runs
+    under the mode; the same step with that flag read on the host
+    outside the branch's predicate trips it."""
     import torch.distributed as dist
+    from cafe_tpu_torch.parallel import exchange
     from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
     own = maybe_init_distributed(TConfig(), "cpu")
     mesh = make_mesh(1, device="cpu")
@@ -284,10 +289,15 @@ def test_sharded_a2a_step_trips_the_mode():
         cfg, embed, state, step, eval_step, batch = _cpu_build(
             {"mesh_shape": 1, "shard_embeddings": True,
              "shard_exchange": "a2a"}, mesh=mesh)
-        assert capture_blockers(cfg, embed, mesh)
+        assert capture_blockers(cfg, embed, mesh) == []
         assert step.graphed is False and eval_step.graphed is False
         valid = torch.tensor(BC, dtype=torch.int32)
         state, _ = step(state, *batch, valid)
+        with NoCaptureBreaks():
+            state, _ = step(state, *batch, valid)
+        monkeypatch.setattr(
+            exchange, "cond", lambda pred, t, f, ops, name: (
+                t if bool(pred) else f)(*ops))
         with pytest.raises(CaptureBreak), NoCaptureBreaks():
             step(state, *batch, valid)
     finally:

@@ -17,9 +17,17 @@ process: `cuda` tests that skip here and run on a card with
   replays that ran the insert, also when the step is deleted before
   the count is read; CAFE+ with a reset firing inside a
   replay, Adagrad and Adam, and AdaEmbed across a check step (run
-  eagerly on the graph's state) equal their eager steps too.
+  eagerly on the graph's state) equal their eager steps too;
+* a mesh of one NCCL rank: the graphed train step (K = 1 and 2) and eval
+  step equal their eager twins from one state, in the explicit and
+  pallas exchanges, with the unique-compact legs and at insert interval
+  8, integers exact and floats within 1e-5 (the same kernels in the same
+  order: the one-device steps above are bit-equal); every replay runs
+  under torch.cuda.set_sync_debug_mode("error"), so no value is read
+  back to the host in a graphed mesh step.
 """
 
+import contextlib
 import gc
 
 import numpy as np
@@ -339,3 +347,99 @@ def _np_leaves(tree, path=""):
         return [x for i, v in enumerate(tree)
                 for x in _np_leaves(v, f"{path}[{i}]")]
     return [(path, np.asarray(tree))]
+
+
+# ------------------------------------------------- a mesh of one NCCL rank
+
+MESH_CASES = {"explicit": {}, "pallas": {"shard_exchange": "pallas"},
+              "unique": {"shard_unique_frac": 0.5},
+              "interval": {"cafe_insert_interval": 8}}
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from cafe_tpu_torch.parallel import make_mesh, maybe_init_distributed
+    own = maybe_init_distributed(Config(), "cuda")
+    mesh = make_mesh(1, device="cuda")
+    yield mesh
+    mesh.close()
+    if own:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _no_sync():
+    """Any synchronizing call (a value read back to the host) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _close_states(a, b, path=""):
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _close_states(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close_states(x, y, f"{path}[{i}]")
+    elif a is not None:
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(a, b, err_msg=path)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5,
+                                       err_msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_mesh_graphed_steps_equal_eager_without_host_reads(nccl_mesh, name,
+                                                           k):
+    cfg = Config(**dict(KW, mesh_shape=1, shard_embeddings=True,
+                        **MESH_CASES[name]))
+    data = get_dataset(cfg, "train")
+    _, _, state, g_step, g_eval = build_all(cfg, data, mesh=nccl_mesh)
+    _, _, _, e_step, e_eval = build_all(cfg, data, mesh=nccl_mesh,
+                                        capture=False)
+    assert g_step.graphed and g_eval.graphed and not e_step.graphed
+    if k > 1:
+        g_step = build_multi_step(g_step, k, donate=True, mesh_size=1)
+        e_step = build_multi_step(e_step, k, donate=True, mesh_size=1)
+        assert g_step.graphed
+    start = to_numpy(state)
+    rows = k * B
+    batches = [tuple(torch.from_numpy(np.ascontiguousarray(a[i:i + rows]))
+                     .cuda() for a in (data.dense, data.sparse, data.label))
+               for i in range(0, len(data) - rows + 1, rows)]
+    valids = [k * v for v in VALIDS]
+    e_state, e_m = _run(e_step, from_reference(start, "cuda"), batches,
+                        valids)
+    g_state, g_m = from_reference(start, "cuda"), []
+    for i, v in enumerate(valids):
+        replay = i > WARMUP_CALLS
+        with _no_sync() if replay else contextlib.nullcontext():
+            g_state, m = g_step(g_state, *batches[i % len(batches)], v)
+            g_m.append({n: x.clone() for n, x in m.items()})
+    torch.cuda.synchronize()
+    assert g_step.replays == len(valids) - WARMUP_CALLS
+    _close_states(to_numpy(g_state), to_numpy(e_state))
+    for em, gm in zip(e_m, g_m):
+        for n in em:
+            np.testing.assert_allclose(gm[n].cpu().numpy(),
+                                       em[n].cpu().numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=n)
+    assert sum(float(m["cafe_promotions"]) for m in g_m) > 0
+    for i, (dense, sparse, _) in enumerate(batches[:5]):
+        with _no_sync() if i > WARMUP_CALLS else contextlib.nullcontext():
+            got = g_eval(g_state, dense[:B], sparse[:B]).clone()
+        want = e_eval(e_state, dense[:B], sparse[:B])
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    assert g_eval.replays == 5 - WARMUP_CALLS

@@ -61,7 +61,7 @@ JAX_FREE = ["chip_smoke.py", "bench_torch.py", "main_torch.py",
             "tools/sweep_cafe_vs_hash_torch.py",
             "tools/variance_cafe_vs_hash_torch.py",
             "tools/traffic_table_torch.py", "tools/pod_shape_check_torch.py",
-            "tools/perf_report_torch.py"]
+            "tools/perf_report_torch.py", "tools/cond_nccl_probe_torch.py"]
 # the root tools that run on the card: each parses its flags (--help)
 # with jax blocked
 ROOT_TOOLS = [p[len("tools/"):-len(".py")] for p in JAX_FREE

@@ -1,6 +1,10 @@
 """The sharded slice across cards: K5 (kernels/a2a.cu) between processes
-on different cards, and 5 sharded train steps on NCCL at world size
-min(4, cards) against the same steps on gloo ranks on the CPU; with 4
+on different cards, eagerly and captured in a CUDA graph whose replays
+(fresh inputs each) interleave with eager calls on the same workspace
+(the call counter lives on the card), at 2 and 4 cards; 5 sharded
+train steps on NCCL at 2 and 4 cards, the default steps (graphed in the
+explicit exchange) and capture=False's, against each other and against
+the same steps on gloo ranks on the CPU; with 4
 cards, the (2, 2) two-level mesh against the flat one and
 --shard_exchange auto against one card's single-device step; the
 collective-bytes table (tools/traffic_table_torch.py) on NCCL ranks
@@ -63,45 +67,98 @@ def test_a2a_kernel_across_cards(world, tmp_path):
 
 
 @pytest.mark.cuda
-def test_sharded_steps_cards_match_cpu(world, tmp_path):
-    kw = dict(SHARD, mesh_shape=world)
+@pytest.mark.parametrize("n", [2, 4])
+def test_a2a_kernel_in_a_graph_across_cards(world, tmp_path, n):
+    """K5 in a CUDA graph over 4 replays with fresh inputs, each followed
+    by an eager call on other inputs: every output bit-equal to what
+    all_to_all_single delivers (each rank's chunk `rank` of every
+    rank's input). A replay that froze the capture's epoch would find
+    its flags already set and copy stale slots."""
+    if n > world:
+        pytest.skip(f"needs {n} CUDA cards")
+    chunk, dim, replays, seed = 4096, 16, 4, 31
+    res = w.run_ranks(w.kernel_a2a_graph, n, tmp_path, chunk, dim, replays,
+                      seed, device="cuda")
+    for rank, r in enumerate(res):
+        assert r["launches_at_capture"] == 0
+        for e, (got, eager) in enumerate(r["outs"]):
+            np.testing.assert_array_equal(
+                got, w.expected_a2a(n, chunk, dim, seed + e, rank)[1],
+                err_msg=f"replay {e}")
+            np.testing.assert_array_equal(
+                eager, w.expected_a2a(n, chunk, dim, seed + 1000 + e,
+                                      rank)[1], err_msg=f"eager {e}")
+
+
+def _metrics_close(c, g, mode):
+    for cm, gm in zip(c["metrics"], g["metrics"]):
+        for k in cm:
+            # the hot fraction is a count over the batch size, which the
+            # card's division may round an f32 ulp apart
+            tol = (1e-4 if k == "loss" else
+                   2.4e-7 * abs(cm[k]) if k.endswith("_frac") else 0.0)
+            assert abs(cm[k] - gm[k]) <= tol, (mode, k, cm[k], gm[k])
+
+
+def _runs_close(c, g, mode):
+    """Sketch, routing and promotions exact; tables, params and scores
+    within 1e-4."""
+    _metrics_close(c, g, mode)
+    for key, part in c["state"]["embed"].items():
+        gpart = g["state"]["embed"][key]
+        for f in SKETCH if "sketch" in part else ():
+            np.testing.assert_array_equal(gpart["sketch"][f],
+                                          part["sketch"][f],
+                                          err_msg=f"{mode} {key} {f}")
+        np.testing.assert_allclose(gpart["table"], part["table"],
+                                   rtol=1e-4, atol=1e-4)
+    for tower in ("bot", "top"):
+        for a, b in zip(g["state"]["params"][tower],
+                        c["state"]["params"][tower]):
+            for k in ("w", "b"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4,
+                                           atol=1e-4)
+    for key in c["routing"]:
+        np.testing.assert_array_equal(g["routing"][key], c["routing"][key])
+    np.testing.assert_allclose(g["scores"], c["scores"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_steps_cards_match_cpu(world, tmp_path, n):
+    """5 steps from build_all's state in each exchange mode: the default
+    steps on the cards against capture=False's, and both against gloo
+    ranks on the CPU. The explicit exchange's default steps replay CUDA
+    graphs (2 eager warm-up calls, a capture, replays); the a2a and
+    pallas legs stay eager on more than one rank, naming why (their
+    overflow branch holds NCCL collectives, which the card does not
+    capture into a conditional body there)."""
+    if n > world:
+        pytest.skip(f"needs {n} CUDA cards")
+    kw = dict(SHARD, mesh_shape=n)
     cfg = Config(**kw)
     batches = list(batch_iterator(get_dataset(cfg, "train"), 128,
                                   drop_last=True))[:5]
     modes = ("explicit", "a2a", "pallas")
-    card = w.run_ranks(w.train_steps, world, tmp_path / "card", kw, None,
-                       batches, modes, device="cuda")[0]
-    cpu = w.run_ranks(w.train_steps, world, tmp_path / "cpu", kw, None,
+    graphed, eager = w.run_ranks(
+        w.calls, n, tmp_path / "card",
+        [("train_steps", (kw, None, batches, modes)),
+         ("train_steps", (kw, None, batches, modes, False))],
+        device="cuda")[0]
+    cpu = w.run_ranks(w.train_steps, n, tmp_path / "cpu", kw, None,
                       batches, modes)[0]
     for mode in modes:
-        c, g = cpu[mode], card[mode]
-        for cm, gm in zip(c["metrics"], g["metrics"]):
-            for k in cm:
-                # the hot fraction is a count over the batch size, which
-                # the card's division may round an f32 ulp apart
-                tol = (1e-4 if k == "loss" else
-                       2.4e-7 * abs(cm[k]) if k.endswith("_frac") else 0.0)
-                assert abs(cm[k] - gm[k]) <= tol, (mode, k, cm[k], gm[k])
-        for key, part in c["state"]["embed"].items():
-            gpart = g["state"]["embed"][key]
-            for f in SKETCH if "sketch" in part else ():
-                np.testing.assert_array_equal(gpart["sketch"][f],
-                                              part["sketch"][f],
-                                              err_msg=f"{mode} {key} {f}")
-            np.testing.assert_allclose(gpart["table"], part["table"],
-                                       rtol=1e-4, atol=1e-4)
-        for tower in ("bot", "top"):
-            for a, b in zip(g["state"]["params"][tower],
-                            c["state"]["params"][tower]):
-                for k in ("w", "b"):
-                    np.testing.assert_allclose(a[k], b[k], rtol=1e-4,
-                                               atol=1e-4)
-        for key in c["routing"]:
-            np.testing.assert_array_equal(g["routing"][key],
-                                          c["routing"][key])
-        np.testing.assert_allclose(g["scores"], c["scores"], rtol=1e-4,
-                                   atol=1e-4)
-        assert sum(m["cafe_promotions"] for m in g["metrics"]) > 0
+        want = mode == "explicit"
+        assert graphed[mode]["graphed"] == [want, want], mode
+        assert graphed[mode]["blockers"] == ([] if want else [
+            f"a mesh of {n} ranks with NCCL collectives inside device "
+            f"branches"]), mode
+        assert eager[mode]["graphed"] == [False, False], mode
+        _runs_close(eager[mode], graphed[mode], mode)
+        for card in (graphed[mode], eager[mode]):
+            _runs_close(cpu[mode], card, mode)
+            assert sum(m["cafe_promotions"] for m in card["metrics"]) > 0
 
 
 @pytest.fixture

@@ -150,27 +150,31 @@ def _on(mesh, *arrays):
                      for a in arrays)))
 
 
-def train_steps(mesh, cfg_kw, ref_state, batches, modes):
+def train_steps(mesh, cfg_kw, ref_state, batches, modes, capture=True):
     """For each exchange mode: the layer built on the mesh, this rank's
     state cut from the bridged global `ref_state` (None: build_all's own
     state), the batches' slices stepped; returns per mode the metrics of
     every step, the global state after them (rank 0), the routing, every
-    aux tensor and the eval scores of the first batch, and the branches
-    the unique-compact legs took."""
+    aux tensor and the eval scores of the first batch, the branches the
+    exchange legs took and the eager runs of every device branch.
+    `capture` False builds the eager steps (on the card the default
+    ones replay CUDA graphs)."""
     from cafe_tpu_torch.bridge import from_reference_sharded
     from cafe_tpu_torch.config import Config
     from cafe_tpu_torch.parallel import unshard_state
     from cafe_tpu_torch.parallel import exchange as ex
     from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.utils.cond import branch_runs
     out = {}
     for mode in modes:
         cfg = Config(**dict(cfg_kw, shard_exchange=mode))
         _, embed, own, step, eval_step = build_all(
-            cfg, get_dataset(cfg, "train"), mesh=mesh)
+            cfg, get_dataset(cfg, "train"), mesh=mesh, capture=capture)
         init_embed = _to_numpy(unshard_state(own, mesh, embed).embed)
         state = own if ref_state is None else \
             from_reference_sharded(ref_state, mesh, embed)
-        mesh.unique_branches.clear()
+        since = ex.exchange_branches()
+        conds_before = branch_runs()["eager"]
         metrics, records = [], []
         for dense, sparse, label, valid in batches:
             with ex.record_collectives() as rec:
@@ -178,7 +182,10 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
                                 valid)
             metrics.append({k: float(v) for k, v in m.items()})
             records.append([tuple(r) for r in rec])
-        branches = dict(mesh.unique_branches)
+        branches = ex.exchange_branches(since)
+        conds = {name: [a - b for a, b in zip(
+            runs, conds_before.get(name, (0, 0)))]
+            for name, runs in branch_runs()["eager"].items()}
         d, s, _ = _on(mesh, *batches[0][:3])
         _, aux = embed.gather(state.embed, s)
 
@@ -198,6 +205,11 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes):
                          v if isinstance(v, tuple) else (v,))]
                          for k, v in aux.items()},
                      "scores": scores, "branches": branches,
+                     "graphed": [step.graphed, eval_step.graphed],
+                     "blockers": [b.split(" (")[0] for b in getattr(
+                         step, "capture_blockers", ())
+                         if b.startswith("a mesh")],
+                     "conds": {k: v for k, v in conds.items() if any(v)},
                      "records": records,
                      "auto_keys": [sorted(p.auto_keys)
                                    for p in embed.parts],
@@ -265,7 +277,7 @@ def unique_exchanges(mesh, cases):
         g_l = torch.from_numpy(grad[rank_slice(mesh, grad.shape[0])])
         res = {}
         for tag, f in (("compact", frac), ("full", 0.0)):
-            mesh.unique_branches.clear()
+            since = ex.exchange_branches()
             sizes = []
             with recording_collectives(sizes):
                 fetched = ex.sharded_fetch(mesh, tbl, i_l, f)
@@ -276,10 +288,55 @@ def unique_exchanges(mesh, cases):
                                         i_l, g_l, lr, optimizer, f)
             res[tag] = {"fetch": fetched.numpy(), "table": t.numpy(),
                         "slots": {k: v.numpy() for k, v in s.items()},
-                        "branches": dict(mesh.unique_branches),
+                        "branches": ex.exchange_branches(since),
                         "fetch_sizes": sizes, "apply_sizes": apply_sizes}
         out.append(res)
     return out
+
+
+def branch_exchanges(mesh, cases):
+    """For each (leg, table, idx, grad, lr, optimizer, knob): the leg's
+    fetch and apply on this rank's shard and batch slice, leg "unique"
+    the explicit exchange at unique fraction `knob`, leg "a2a" the
+    all-to-all exchange at slack `knob`; with the branches they took
+    (exchange.exchange_branches)."""
+    from cafe_tpu_torch.ops.sparse import init_slots
+    from cafe_tpu_torch.parallel import exchange as ex
+    out = []
+    for leg, table, idx, grad, lr, optimizer, knob in cases:
+        tbl = torch.from_numpy(table[rank_slice(mesh, table.shape[0])])
+        i_l = torch.from_numpy(idx[rank_slice(mesh, idx.shape[0])])
+        g_l = torch.from_numpy(grad[rank_slice(mesh, grad.shape[0])])
+        since = ex.exchange_branches()
+        t = tbl.clone()
+        if leg == "unique":
+            fetched = ex.sharded_fetch(mesh, tbl, i_l, knob)
+            t, s = ex.sharded_apply(mesh, t, init_slots(t, optimizer), i_l,
+                                    g_l, lr, optimizer, knob)
+        else:
+            fetched = ex.sharded_fetch_a2a(mesh, tbl, i_l, slack=knob)
+            t, s = ex.sharded_apply_a2a(mesh, t, init_slots(t, optimizer),
+                                        i_l, g_l, lr, optimizer, slack=knob)
+        out.append({"fetch": fetched.numpy(), "table": t.numpy(),
+                    "slots": {k: v.numpy() for k, v in s.items()},
+                    "branches": ex.exchange_branches(since)})
+    return out
+
+
+def with_constants(mesh, module, values, name, *args):
+    """`name` (a function of this module) called with the mesh and
+    `args` while the attributes `values` of `module` are set (e.g. a
+    part's step constants); they are restored after."""
+    import importlib
+    mod = importlib.import_module(module)
+    old = {k: getattr(mod, k) for k in values}
+    for k, v in values.items():
+        setattr(mod, k, v)
+    try:
+        return globals()[name](mesh, *args)
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
 
 
 def mesh_errors(mesh):
@@ -325,6 +382,40 @@ def kernel_a2a_epochs(mesh, chunk, dim, epochs, seed):
         outs.append((got_i.cpu().numpy(), got_r.cpu().numpy()))
     torch.cuda.synchronize()
     return {"outs": outs, "launches": a2a.KERNEL.launches - before}
+
+
+def kernel_a2a_graph(mesh, chunk, dim, replays, seed):
+    """K5 captured in a CUDA graph (a rows leg [n, chunk, dim] f32 on a
+    static input), then `replays` rounds of: the static input refilled
+    with round e's seeded rows, one replay, one eager call on round e's
+    other rows (seed + 1000 + e) on the same workspace. Returns per
+    round (replayed output, eager output) and the launch counts."""
+    from cafe_tpu_torch.kernels import a2a
+    n, dev = mesh.size, mesh.device
+
+    def rows(s):
+        return torch.from_numpy(inputs_a2a(n, chunk, dim, s,
+                                           mesh.rank)[1]).to(dev)
+
+    x = rows(seed - 1)
+    a2a.all_to_all(x, mesh)               # the workspace, before capture
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    before = a2a.KERNEL.launches
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = a2a.all_to_all(x, mesh)
+    captured = a2a.KERNEL.launches - before
+    outs = []
+    for e in range(replays):
+        x.copy_(rows(seed + e))
+        graph.replay()
+        got = out.clone()
+        eager = a2a.all_to_all(rows(seed + 1000 + e), mesh)
+        outs.append((got.cpu().numpy(), eager.cpu().numpy()))
+    torch.cuda.synchronize()
+    return {"outs": outs, "launches_at_capture": captured}
 
 
 def inputs_a2a(n, chunk, dim, seed, rank):

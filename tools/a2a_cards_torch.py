@@ -28,10 +28,19 @@ by NCCL, and prints one JSON line per phase from rank 0:
    synchronize and a barrier, then `receive`), so `wait_ms` = recv_ms -
    copy_out_ms. A tree whose a2a.py has no `send` / `receive` reports
    copy_out_ms and wait_ms as null;
-2. steps: the sharded headline (DLRM + CAFE, dim 16, cr 1e-3, bf16
-   towers, SGD) on the N-card mesh in each exchange mode: ms/step (host
-   clock around 3 windows of 10 steps ended by a device synchronize and
-   a barrier; median), K5 launches per step, loss.
+   Beside them `graph_ms` and `plain_graph_ms`: 20 calls captured in one
+   CUDA graph, replayed behind a device sleep (the call counter of K5's
+   workspace lives on the card, so a replay runs its own epoch);
+2. steps: the sharded headline (DLRM + CAFE, dim 16, cr 1e-3) and the
+   sibling (dim 128, cr 0.1 over the Terabyte vocabularies), bf16
+   towers, SGD, on the N-card mesh in the explicit and pallas
+   exchanges, at K = 1 and 8 steps a call: the graphed step (2 warm-up
+   calls, a capture) and the eager one (capture=False) on one state,
+   in 4 windows each of 5 calls taken in turns (e g g e ...), each ended
+   by a device synchronize and a barrier: ms/step of each (median), K5
+   launches per step, peak memory, loss. The pallas step stays eager on
+   more than one card (its capture_blockers, recorded): it is timed
+   eager only.
 
 Then the card's name and power limit. Exits non-zero without at least
 one CUDA card.
@@ -39,6 +48,7 @@ one CUDA card.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -75,6 +85,33 @@ def _window_ms(fn, mesh, calls=20, windows=5, behind_sleep=True) -> float:
         end.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / calls)
+    return float(np.median(out))
+
+
+def _graph_ms(fn, mesh, calls=20, windows=5) -> float:
+    """Device ms a call of `calls` fn() calls captured in one CUDA graph,
+    the graph replayed behind a device sleep (median of `windows`)."""
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    del graph
     return float(np.median(out))
 
 
@@ -161,6 +198,10 @@ def phase_a2a(mesh):
                      "plain_eager_ms": _window_ms(
                          lambda: a2a.all_to_all_plain(x, mesh), mesh,
                          behind_sleep=False),
+                     "graph_ms": _graph_ms(
+                         lambda: a2a.all_to_all(x, mesh), mesh),
+                     "plain_graph_ms": _graph_ms(
+                         lambda: a2a.all_to_all_plain(x, mesh), mesh),
                      "breakdown": breakdown(a2a, x, mesh),
                      "bound_ms": max(t_hbm, t_link) * 1e3,
                      "bound_by": "bytes (HBM)" if t_hbm >= t_link
@@ -168,42 +209,105 @@ def phase_a2a(mesh):
     return rec
 
 
+STEP_MODELS = {"headline": dict(dataset="criteo", embedding_dim=16,
+                                 compress_rate=0.001, learning_rate=0.1),
+               "sibling": dict(dataset="criteotb", embedding_dim=128,
+                               compress_rate=0.1, learning_rate=1.0)}
+STEP_EXCHANGES = ("explicit", "pallas")
+STEP_KS = (1, 8)
+STEP_WINDOWS, STEP_CALLS = 4, 5
+
+
+def _order(windows):
+    """Eager and graphed windows in turns, each pair's order flipped."""
+    return [m for w in range(windows)
+            for m in (("eager", "graphed") if w % 2 == 0
+                      else ("graphed", "eager"))]
+
+
 def phase_steps(mesh):
     from cafe_tpu_torch.config import Config
     from cafe_tpu_torch.data import make_criteo_batches
     from cafe_tpu_torch.kernels import a2a
     from cafe_tpu_torch.parallel import batch_slice
-    from cafe_tpu_torch.train import build_all
+    from cafe_tpu_torch.train import build_all, build_multi_step
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    from cafe_tpu_torch.train.step import build_train_step
     data, batches = make_criteo_batches(batch=BATCH, n_batches=8,
                                         device="cpu")
     mine = [tuple(t.to(mesh.device) for t in batch_slice(mesh, d, s, lab))
             + (v,) for d, s, lab, v in batches]
     rec = {}
-    for mode in ("pallas", "a2a", "explicit"):
-        cfg = Config(dataset="criteo", model="dlrm", embedding_dim=DIM,
-                     compress_method="cafe", compress_rate=0.001,
-                     cafe_sketch_threshold=500.0, cafe_hash_rate=0.5,
-                     mini_batch_size=BATCH, learning_rate=0.1, bf16=True,
-                     mesh_shape=mesh.size, shard_embeddings=True,
-                     shard_exchange=mode)
-        _, _, state, step, _ = build_all(cfg, data, mesh=mesh)
-        for i in range(2):
-            state, m = step(state, *mine[i])
-        a2a.KERNEL.launches = 0
-        win, k = [], 2
-        for _ in range(3):
-            torch.cuda.synchronize()
-            dist.barrier(group=mesh.group)
-            t0 = time.perf_counter()
-            for _ in range(10):
-                state, m = step(state, *mine[k % len(mine)])
-                k += 1
-            torch.cuda.synchronize()
-            dist.barrier(group=mesh.group)
-            win.append((time.perf_counter() - t0) * 1e3 / 10)
-        rec[mode] = {"ms_per_step": float(np.median(win)),
-                     "window_ms": win, "loss": float(m["loss"]),
-                     "a2a_launches_per_step": a2a.KERNEL.launches / 30}
+    for model_name, kw in STEP_MODELS.items():
+        for mode in STEP_EXCHANGES:
+            cfg = Config(model="dlrm", compress_method="cafe",
+                         cafe_sketch_threshold=500.0, cafe_hash_rate=0.5,
+                         mini_batch_size=BATCH, bf16=True,
+                         mesh_shape=mesh.size, shard_embeddings=True,
+                         shard_exchange=mode, **kw)
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, embed, state, e_one, _ = build_all(cfg, data, mesh=mesh,
+                                                      capture=False)
+            g_one = build_train_step(model, embed, cfg, mesh)
+            if not g_one.graphed and mode == "explicit":
+                raise AssertionError(f"steps {model_name} {mode}: not "
+                                     f"graphed: {g_one.capture_blockers}")
+            for k in STEP_KS:
+                # a step that stays eager (capture_blockers) is timed
+                # eager only
+                steps = {"eager": e_one}
+                if g_one.graphed:
+                    steps["graphed"] = g_one
+                bats = mine
+                if k > 1:
+                    steps = {m: build_multi_step(s, k, donate=True,
+                                                 mesh_size=mesh.size)
+                             for m, s in steps.items()}
+                    bats = [tuple(torch.cat([b[j] for b in mine[:k]])
+                                  for j in range(3)) + (k * BATCH,)]
+                n = 0
+
+                def run(step, count):
+                    nonlocal state, n
+                    for _ in range(count):
+                        state, m = step(state, *bats[n % len(bats)])
+                        n += 1
+                    torch.cuda.synchronize()
+                    dist.barrier(group=mesh.group)
+                    return m
+
+                if "graphed" in steps:
+                    run(steps["graphed"], WARMUP_CALLS + 1)
+                run(steps["eager"], 1)
+                times = {m_name: [] for m_name in steps}
+                k5 = {m_name: 0 for m_name in steps}
+                torch.cuda.reset_peak_memory_stats()
+                for m_name in _order(STEP_WINDOWS):
+                    if m_name not in steps:
+                        continue
+                    before = a2a.KERNEL.launches
+                    t0 = time.perf_counter()
+                    m = run(steps[m_name], STEP_CALLS)
+                    times[m_name].append((time.perf_counter() - t0) * 1e3
+                                         / (STEP_CALLS * k))
+                    k5[m_name] += a2a.KERNEL.launches - before
+                calls = STEP_WINDOWS * STEP_CALLS * k
+                med = {m_name: float(np.median(t))
+                       for m_name, t in times.items()}
+                graphed = med.get("graphed")
+                rec[f"{model_name}_{mode}_k{k}"] = {
+                    "eager_ms_per_step": med["eager"],
+                    "graphed_ms_per_step": graphed,
+                    "speedup": graphed and med["eager"] / graphed,
+                    "window_ms": times, "loss": float(m["loss"]),
+                    "a2a_launches_per_step": {
+                        m_name: v / calls for m_name, v in k5.items()},
+                    "peak_allocated_gb":
+                        torch.cuda.max_memory_allocated() / 2**30,
+                    "graphed": graphed is not None,
+                    "capture_blockers": list(g_one.capture_blockers)}
+            del model, embed, state, e_one, g_one
     return rec
 
 

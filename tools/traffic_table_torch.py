@@ -9,7 +9,9 @@ sums the compiled collectives' result bytes. torch compiles no program to
 read: here n ranks, one process each, run one sharded train step
 (--shard_exchange explicit) and the bytes are those of the collectives
 the step calls, as parallel/exchange.record_collectives notes them
-(cafe_tpu_torch/tools/wire_audit.audit; rank 0's record). The model is
+(cafe_tpu_torch/tools/wire_audit.audit; rank 0's record). That step is
+eager (capture=False) on the cards too: the record is made on the host
+at each call, and a replayed CUDA graph makes none. The model is
 cafe_tpu_torch/tools/hlo_traffic.model_result_bytes. The "HLO total"
 column keeps the JAX tool's name and holds the recorded total; per-axis
 is the recorded axis ("data" on a flat mesh, "dcn" / "ici" on a
