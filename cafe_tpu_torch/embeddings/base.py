@@ -109,6 +109,9 @@ class Part:
     # (all-gather + owner-compute + reduce-scatter), 'a2a' (request-routed
     # dist.all_to_all_single) or 'pallas' (the same through kernel K5)
     exchange_mode = "explicit"
+    # whether the part's routing and insert move ids over the mesh
+    # (CAFE), which take hierarchical compact legs on a two-level mesh
+    id_legs = False
     # whether the part's step takes a device branch (utils/cond.cond),
     # which a CUDA graph holds as a conditional node
     # (train/step.capture_blockers)

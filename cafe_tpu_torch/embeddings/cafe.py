@@ -26,7 +26,16 @@ with its own free stack, and promotions stay rank-local. The forward
 all-gathers the ids and reduce-scatters the hot-row answers (id-sized
 traffic) before the row exchange; the backward all-gathers (id, score)
 pairs for the insert, migrates a bounded n*mig_lanes rows, then runs the
-row-update exchange.
+row-update exchange. On a two-level ("dcn", "ici") mesh with
+--shard_unique_frac > 0 the id legs are HIERARCHICAL, as the JAX
+package's: the host's ids (and summed scores) combine over "ici" into C
+distinct lanes (C = unique_cap of the host's lanes) before they cross
+"dcn", with the flat leg when any host overflows C (device branches
+`route_unique` and `insert_unique`, counted by
+parallel/exchange.exchange_branches). The compact leg runs before its
+branch; the flat one, and the whole insert at
+--cafe_insert_interval > 1, run inside their branches on
+parallel/exchange.body_transport.
 
 CAFE+ (`plus=True`) swaps the sketch (sketch/hotsketch_plus.py: a staging
 tier, decay, an adaptive threshold) and nothing else: the sketch's init,
@@ -49,9 +58,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..ops.sparse import SLOT_SUFFIXES
+from ..ops.sparse import SLOT_SUFFIXES, coalesce_compact, unique_compact
 from ..parallel.exchange import (DROP_ROW, _local_idx, _owner_rows,
-                                 all_gather, psum, psum_scatter)
+                                 all_gather, any_rank, body_transport, psum,
+                                 psum_scatter, unique_cap)
 from ..sketch.hotsketch import (
     INVALID_ID,
     PROMO_LANES,
@@ -79,6 +89,7 @@ from .base import Part, _offsets, round_up
 class CafePart(Part):
     # enable_sharded_layout: the n-shard state layout without a mesh
     sharded_layout = False
+    id_legs = True
 
     def __init__(self, field_idx: List[int], counts: List[int],
                  global_offsets: List[int], hotn: int,
@@ -258,20 +269,73 @@ class CafePart(Part):
         raw = self._lookup(state, "table", row)
         return raw, (oids, row, hrow, is_hot)
 
-    def _route_sharded(self, state: Dict, ids: torch.Tensor):
-        """Sharded routing: all-gather the offset ids; each sketch shard
-        answers hot-routing for the ids it owns; an int32 reduce-scatter
-        hands each rank its lanes' hot rows (id-sized traffic). Returns
-        (oids, row, is_hot), each [b, F]."""
+    def _id_cap(self, m: int) -> int:
+        """C of the hierarchical id legs for m lanes a rank: unique_cap of
+        the host's lanes on a two-level mesh, else 0 (the flat legs)."""
+        mesh = self.mesh
+        return unique_cap(m * mesh.inner, self.unique_frac) \
+            if mesh.inner else 0
+
+    def _answer(self, state: Dict, cand: torch.Tensor) -> torch.Tensor:
+        """This sketch shard's global hot slot for each candidate id it
+        owns, 0 for every other lane (int32; a sum over the mesh
+        publishes the answers: one owner a lane)."""
         mesh, n, s_l = self.mesh, self.n_shards, self._s_l
-        b, f = ids.shape
-        oids = self._oids(ids)
-        cand = all_gather(oids.reshape(-1), mesh)
         mine = shard_of(cand, n) == mesh.rank
         q = self._sk_query(self._lcfg, shard_local_view(state["sketch"]),
                            torch.where(mine, cand, int(INVALID_ID)))
-        slot_g = torch.where(mine & (q < 0), -q + mesh.rank * s_l, 0)
-        slot = psum_scatter(slot_g.to(torch.int32), mesh).reshape(b, f)
+        return torch.where(mine & (q < 0), -q + mesh.rank * s_l,
+                           0).to(torch.int32)
+
+    def _route_flat(self, state: Dict, flat: torch.Tensor,
+                    transport: str = "group") -> torch.Tensor:
+        """The flat route of this rank's offset ids [m]: all-gather them,
+        answer, and reduce-scatter each rank its lanes' hot slots, on
+        `transport`."""
+        cand = all_gather(flat, self.mesh, transport=transport)
+        return psum_scatter(self._answer(state, cand), self.mesh,
+                            transport=transport)
+
+    def _route_unique(self, state: Dict, flat: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+        """The hierarchical route (the JAX package's compact_fn): the
+        host's ids all-gathered over "ici" and compacted to their `cap`
+        distinct ids, which alone cross "dcn"; every rank answers the
+        n_hosts * cap candidates, a sum over the mesh publishes them and
+        this rank picks its lanes at host * cap + inv. The flat route
+        when any host overflows."""
+        mesh = self.mesh
+        m = flat.shape[0]
+        ici_ids = all_gather(flat, mesh, "ici")              # [m_host]
+        uids, inv, nu = unique_compact(ici_ids, cap, int(INVALID_ID))
+        cand = all_gather(uids, mesh, "dcn")                 # [hosts*C]
+        slot_all = psum(self._answer(state, cand), mesh)
+        me = mesh.ici_index
+        pos = (mesh.rank // mesh.inner) * cap \
+            + inv[me * m:(me + 1) * m].clamp(0, cap - 1)
+        rare = body_transport(mesh)
+
+        def compact(flat_, slot_all_, pos_):
+            return slot_all_[pos_.long()]
+
+        def full(flat_, slot_all_, pos_):
+            return self._route_flat(state, flat_, rare)
+
+        return cond(any_rank(nu > cap, mesh), full, compact,
+                    (flat, slot_all, pos), name="route_unique")
+
+    def _route_sharded(self, state: Dict, ids: torch.Tensor):
+        """Sharded routing: all-gather the offset ids; each sketch shard
+        answers hot-routing for the ids it owns; an int32 reduce-scatter
+        hands each rank its lanes' hot rows (id-sized traffic), or on a
+        two-level mesh the hierarchical route (_route_unique). Returns
+        (oids, row, is_hot), each [b, F]."""
+        b, f = ids.shape
+        oids = self._oids(ids)
+        flat = oids.reshape(-1)
+        cap = self._id_cap(b * f)
+        slot = (self._route_unique(state, flat, cap) if cap
+                else self._route_flat(state, flat)).reshape(b, f)
         is_hot = slot > 0
         return oids, torch.where(is_hot, slot, self._hash_rows(oids)), is_hot
 
@@ -422,23 +486,16 @@ class CafePart(Part):
         """Promotion lanes a shard keeps a sharded insert."""
         return min(self.mig_lanes, max(self._s_l - 1, 1))
 
-    def _insert_sharded(self, sk_local, oids, scores):
-        """All-gather (id, score) lanes; this shard inserts the ids it
-        owns; promotions beyond the per-shard budget are reverted
-        losslessly; the kept ones compact to [p_cap, 3] lanes of (id,
-        global slot, mask). Returns (sketch, lanes, kept count)."""
+    def _insert_leg(self, sk_local, cand, cand_sc):
+        """This shard inserts the candidate (id, score) lanes it owns;
+        promotions beyond the per-shard budget are reverted losslessly;
+        the kept ones compact to [p_cap, 3] lanes of (id, global slot,
+        mask). Returns (sketch, lanes, kept count)."""
         mesh, n, s_l = self.mesh, self.n_shards, self._s_l
         p_cap = self._promo_cap()
-        # ids and score bits ride one int32 all-gather
-        pairs = all_gather(torch.stack(
-            [oids.reshape(-1), scores.reshape(-1).view(torch.int32)], 1),
-            mesh)
-        cand = pairs[:, 0]
         q_ids = torch.where(shard_of(cand, n) == mesh.rank, cand,
                             int(INVALID_ID))
-        st, promo = self._sk_insert(self._lcfg, sk_local, q_ids,
-                                    pairs[:, 1].contiguous().view(
-                                        torch.float32))
+        st, promo = self._sk_insert(self._lcfg, sk_local, q_ids, cand_sc)
         rank = torch.cumsum(promo.mask.to(torch.int32), 0,
                             dtype=torch.int32) - 1
         excess = promo.mask & (rank >= p_cap)
@@ -451,6 +508,60 @@ class CafePart(Part):
         lanes[pos] = torch.stack([promo.ids, promo.slots + mesh.rank * s_l,
                                   keep.to(torch.int32)], 1)
         return st, lanes[:p_cap], keep.sum(dtype=torch.int32)
+
+    def _insert_flat(self, sk_local, pairs, transport: str = "group"):
+        """The flat insert: all-gather this rank's (id, score bits) pairs
+        [m, 2] int32 over the mesh, on `transport`, and insert them."""
+        cand = all_gather(pairs, self.mesh, transport=transport)
+        return self._insert_leg(sk_local, cand[:, 0].contiguous(),
+                                cand[:, 1].contiguous().view(torch.float32))
+
+    def _insert_sharded(self, sk_local, oids, scores, transport="group"):
+        """All-gather (id, score) lanes and insert the ids this shard owns
+        (_insert_leg), the flat collectives on `transport`; on a
+        two-level mesh the hierarchical insert (_insert_unique). Returns
+        (sketch, lanes, kept count)."""
+        # ids and score bits ride one int32 all-gather
+        pairs = torch.stack([oids.reshape(-1),
+                             scores.reshape(-1).view(torch.int32)], 1)
+        cap = self._id_cap(pairs.shape[0])
+        if cap:
+            return self._insert_unique(sk_local, pairs, cap)
+        return self._insert_flat(sk_local, pairs, transport)
+
+    def _insert_unique(self, sk_local, pairs, cap: int):
+        """The hierarchical insert (the JAX package's compact_leg): the
+        host's (id, score) pairs all-gathered over "ici" and coalesced to
+        `cap` (id, score-sum) lanes (the sums the insert would
+        segment-sum anyway), which alone cross "dcn"; the flat insert
+        when any host overflows. Both write the new sketch into
+        `sk_local`. Returns (sketch, lanes, kept count)."""
+        mesh = self.mesh
+        host = all_gather(pairs, mesh, "ici")                # [m_host, 2]
+        uids, usc, nu = coalesce_compact(
+            host[:, 0].contiguous(),
+            host[:, 1:].contiguous().view(torch.float32), cap,
+            int(INVALID_ID))
+        cand = all_gather(torch.cat([uids[:, None], usc.view(torch.int32)],
+                                    1), mesh, "dcn")         # [hosts*C, 2]
+        rare = body_transport(mesh)
+
+        def insert(sk_, got):
+            new, lanes_, n_keep_ = got
+            copy_into(sk_, new)
+            return lanes_, n_keep_
+
+        def compact(sk_, pairs_, cand_):
+            return insert(sk_, self._insert_leg(
+                sk_, cand_[:, 0].contiguous(),
+                cand_[:, 1].contiguous().view(torch.float32)))
+
+        def full(sk_, pairs_, cand_):
+            return insert(sk_, self._insert_flat(sk_, pairs_, rare))
+
+        lanes, n_keep = cond(any_rank(nu > cap, mesh), full, compact,
+                             (sk_local, pairs, cand), name="insert_unique")
+        return sk_local, lanes, n_keep
 
     def _apply_sharded(self, state: Dict, g_raw: torch.Tensor, aux,
                        lr: float):
@@ -477,14 +588,16 @@ class CafePart(Part):
         if interval > 1:
             # the insert every interval-th tick, a device branch on the
             # replicated tick (every rank takes the same one, so the
-            # candidate all-gather inside it pairs up); the insert writes
-            # the new sketch into the state's, the skip returns empty
-            # promotion lanes, and the migration below runs on every step
+            # candidate all-gather inside it pairs up; it runs on
+            # body_transport); the insert writes the new sketch into the
+            # state's, the skip returns empty promotion lanes, and the
+            # migration below runs on every step
             p_cap = self._promo_cap()
+            rare = body_transport(mesh)
 
             def insert(sk_, oids_, scores_):
-                new, lanes_, n_keep_ = self._insert_sharded(sk_, oids_,
-                                                            scores_)
+                new, lanes_, n_keep_ = self._insert_sharded(
+                    sk_, oids_, scores_, rare)
                 copy_into(sk_, new)
                 return lanes_, n_keep_
 

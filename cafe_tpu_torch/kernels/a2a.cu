@@ -71,6 +71,14 @@
 // alone (a2a_send_kernel_local: a flat index, no peer table and no part
 // arithmetic).
 //
+// The SEND kernel reads chunk j at in + j * in_stride. The all-to-all
+// passes in_stride = chunk_bytes; the ALL-GATHER passes 0, so every peer
+// (and the local output) receives the one chunk the input holds, read
+// once for each of them: out[s] = rank s's chunk. The RECV kernel and the
+// protocol are the same for both, and so is the workspace of a chunk
+// size. The device reduce-scatter (kernels/a2a.py psum_scatter) is the
+// all-to-all followed by a sum over the received chunks.
+//
 // Bound on the H100: bytes. Each rank reads its input once and writes its
 // output once (plus the receive slots it fills on its peers); at n = 1
 // that is 2 * bytes at 3.35 TB/s, and at n > 1 the (n-1)/n of the input
@@ -188,13 +196,13 @@ __global__ void __launch_bounds__(kThreads)
 a2a_send_kernel(const char* __restrict__ in, char* __restrict__ out,
                 const __grid_constant__ Peers peers,
                 const int* __restrict__ counter, int me,
-                int64_t chunk_bytes, int64_t part_bytes) {
+                int64_t chunk_bytes, int64_t part_bytes, int64_t in_stride) {
   const int j = blockIdx.y;
   const int p = blockIdx.x;
   const int epoch = counter[0] + 1;
   const int par = epoch & 1;
   char* dst = j == me ? out + j * chunk_bytes : peers.slot[par][j];
-  copy_part<false>(dst, in + j * chunk_bytes, chunk_bytes, part_bytes, p);
+  copy_part<false>(dst, in + j * in_stride, chunk_bytes, part_bytes, p);
   if (j == me) return;   // the local chunk: no flag
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -324,18 +332,20 @@ extern "C" int a2a_ipc_close(void* p) {
   return static_cast<int>(cudaIpcCloseMemHandle(p));
 }
 
-// in [n * chunk_bytes], out [n * chunk_bytes]; slots[par * n + j] and
-// flags[par * n + j]: peer j's receive slot and `parts` flags for this
-// rank at parity par (n > 1 only); counter: this rank's [completed
-// calls, ticket] (n > 1 only). parts <= 0 picks a2a_parts(chunk_bytes,
-// n) on this device (n == 1 only: at n > 1 every rank must pass the same
-// count). Returns cudaGetLastError().
+// in: chunk j at in + j * in_stride (in_stride = chunk_bytes: the
+// all-to-all's [n * chunk_bytes] input; 0: the all-gather's one chunk);
+// out [n * chunk_bytes]; slots[par * n + j] and flags[par * n + j]: peer
+// j's receive slot and `parts` flags for this rank at parity par (n > 1
+// only); counter: this rank's [completed calls, ticket] (n > 1 only).
+// parts <= 0 picks a2a_parts(chunk_bytes, n) on this device (n == 1
+// only: at n > 1 every rank must pass the same count). Returns
+// cudaGetLastError().
 extern "C" int a2a_send_launch(const void* in, void* out,
                                void* const* slots, int* const* flags,
                                int n, int me, int64_t chunk_bytes,
-                               int parts, const int* counter,
-                               void* stream) {
-  if (n < 1 || n > kMaxPeers || me < 0 || me >= n ||
+                               int64_t in_stride, int parts,
+                               const int* counter, void* stream) {
+  if (n < 1 || n > kMaxPeers || me < 0 || me >= n || in_stride < 0 ||
       (n > 1 && (parts < 1 || slots == nullptr || flags == nullptr ||
                  counter == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -346,6 +356,7 @@ extern "C" int a2a_send_launch(const void* in, void* out,
   const auto* src = static_cast<const char*>(in);
   auto* dst = static_cast<char*>(out);
   if (n == 1) {   // part p is block p: its threads' vectors, in order
+    // (chunk 0 is the input's first chunk for either in_stride)
     const int threads = threads_of(part_bytes);
     const auto blocks = static_cast<unsigned>(
         ceil_div(ceil_div(chunk_bytes, 16), threads));
@@ -368,7 +379,7 @@ extern "C" int a2a_send_launch(const void* in, void* out,
     }
   }
   a2a_send_kernel<<<dim3(parts, n), threads_of(part_bytes), 0, s>>>(
-      src, dst, peers, counter, me, chunk_bytes, part_bytes);
+      src, dst, peers, counter, me, chunk_bytes, part_bytes, in_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

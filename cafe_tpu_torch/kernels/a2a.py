@@ -14,6 +14,18 @@ card it is `receive(send(xs, mesh))`: the SEND kernel, then the RECV
 kernel, one launch count a call (a measurement may run the two halves
 apart).
 
+The DEVICE COLLECTIVES run on the same kernels, so that a device branch
+of a step (utils/cond.cond) can hold a collective that a CUDA graph
+captures into a conditional body at any world size (NCCL's cannot be
+captured there on more than one rank): `all_gather` is K5 in its gather
+mode (the SEND kernel reads the one chunk for every peer), and
+`psum_scatter` is K5 on the n row blocks followed by a sum over the
+received blocks in rank order. Each has a plain version for CPU tensors
+(`all_gather_plain`, `psum_scatter_plain`: the same through
+`dist.all_to_all_single`), and each launch counts one K5 launch. Where
+each lane has one non-zero contribution (the exchange's owner answers),
+the reduce-scatter equals NCCL's bit for bit.
+
 Each rank keeps one workspace per chunk size on its Mesh
 (`mesh.a2a_workspaces`): made at the first call of that size (a
 collective: every rank makes it in the same call), freed by
@@ -42,7 +54,8 @@ from .build import CudaKernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SEND = CudaKernel("a2a.cu", "a2a_send_launch",
-                  [_P, _P, _P, _P, _I, _I, ctypes.c_int64, _I, _P, _P])
+                  [_P, _P, _P, _P, _I, _I, ctypes.c_int64, ctypes.c_int64,
+                   _I, _P, _P])
 RECV = CudaKernel("a2a.cu", "a2a_recv_launch",
                   [_P, _P, _P, _P, _I, _I, ctypes.c_int64, ctypes.c_int64,
                    _I, _P])
@@ -173,22 +186,30 @@ def all_to_all_plain(xs: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
-def send(xs: torch.Tensor, mesh) -> Pending:
+def send(xs: torch.Tensor, mesh, gather: bool = False) -> Pending:
     """The SEND half on the card: the local chunk into a new output and
-    every other chunk into its peer's receive slot, each part flagged."""
-    _check(xs, mesh)
+    every other chunk into its peer's receive slot, each part flagged.
+    With `gather` xs is ONE chunk, which every peer receives (the
+    all-gather's mode: the output is [n, *xs.shape])."""
+    if not gather:
+        _check(xs, mesh)
     if xs.device.type != "cuda":
         raise ValueError(f"all_to_all send: a CUDA tensor expected, got "
                          f"{xs.device}")
     xs = xs.contiguous()
-    out = torch.empty_like(xs)
     n, me = mesh.size, mesh.rank
-    chunk = xs.numel() // n * xs.element_size()
+    if gather:
+        out = xs.new_empty((n,) + tuple(xs.shape))
+        chunk = xs.numel() * xs.element_size()
+        in_stride = 0
+    else:
+        out = torch.empty_like(xs)
+        chunk = in_stride = xs.numel() // n * xs.element_size()
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     with torch.cuda.device(xs.device):
         if n == 1:
-            SEND(xs.data_ptr(), out.data_ptr(), None, None, 1, 0, chunk, 0,
-                 None, stream)
+            SEND(xs.data_ptr(), out.data_ptr(), None, None, 1, 0, chunk,
+                 in_stride, 0, None, stream)
             return Pending(out, None, chunk, stream)
         ws = mesh.a2a_workspaces.get(chunk)
         if ws is None:
@@ -199,7 +220,7 @@ def send(xs: torch.Tensor, mesh) -> Pending:
                     f"host: call K5 at this size eagerly first)")
             ws = mesh.a2a_workspaces[chunk] = Workspace(mesh, chunk)
         SEND(xs.data_ptr(), out.data_ptr(), ws.peer_slots, ws.peer_flags, n,
-             me, chunk, ws.parts, ws.counter, stream)
+             me, chunk, in_stride, ws.parts, ws.counter, stream)
     return Pending(out, ws, chunk, stream)
 
 
@@ -225,3 +246,67 @@ def all_to_all(xs: torch.Tensor, mesh) -> torch.Tensor:
     if xs.device.type != "cuda":
         raise ValueError(f"all_to_all: unsupported device {xs.device}")
     return receive(send(xs, mesh))
+
+
+def _cuda_or_plain(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the
+    plain version); anything else raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def _blocks(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x [n * k, ...] as [n, k, ...]: block p for rank p."""
+    n = mesh.size
+    if x.dim() < 1 or x.shape[0] % n:
+        raise ValueError(f"psum_scatter: dim 0 of {tuple(x.shape)} is not a "
+                         f"multiple of the mesh's {n} ranks")
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+
+
+def _sum_ranks(ys: torch.Tensor) -> torch.Tensor:
+    """ys [n, k, ...] summed over the leading axis in rank order (one add
+    a rank, in the tensor's own dtype)."""
+    if ys.shape[0] == 1:
+        return ys[0]
+    out = ys[0] + ys[1]
+    for s in range(2, ys.shape[0]):
+        out += ys[s]
+    return out
+
+
+def all_gather_plain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """all_gather's plain version: dist.all_to_all_single of the chunk
+    repeated n times."""
+    n = mesh.size
+    xs = x.unsqueeze(0).expand((n,) + tuple(x.shape))
+    return all_to_all_plain(xs, mesh).reshape((-1,) + tuple(x.shape[1:]))
+
+
+def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Tiled all-gather along dim 0 over the mesh's ranks: rows [s*k,
+    (s+1)*k) of the output are rank s's x [k, ...]. K5 in its gather
+    mode on the card (one launch count), the plain version for CPU
+    tensors."""
+    if not _cuda_or_plain(x, "all_gather"):
+        return all_gather_plain(x, mesh)
+    return receive(send(x, mesh, gather=True)).reshape(
+        (-1,) + tuple(x.shape[1:]))
+
+
+def psum_scatter_plain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """psum_scatter's plain version: dist.all_to_all_single of the row
+    blocks, then the same sum in rank order."""
+    return _sum_ranks(all_to_all_plain(_blocks(x, mesh), mesh))
+
+
+def psum_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum over the mesh's ranks, rank p keeping rows [p*k, (p+1)*k) of
+    x [n * k, ...]: K5 on the n row blocks (one launch count), then the
+    received blocks summed in rank order; the plain version for CPU
+    tensors. Bit-equal to NCCL's reduce-scatter where every lane has
+    one non-zero contribution."""
+    if not _cuda_or_plain(x, "psum_scatter"):
+        return psum_scatter_plain(x, mesh)
+    return _sum_ranks(all_to_all(_blocks(x, mesh), mesh))

@@ -126,7 +126,9 @@ class CudaKernel:
     conditional body counts on the replays that ran the body
     (train/capture.py). `spare_launches` counts the launches, among
     `launches`, that a GraphedStep's warm-up made in the branch it ran
-    on clones besides the one its predicate took (utils/cond.cond)."""
+    on clones besides the one its predicate took (utils/cond.cond), and
+    `body_launches` those that ran inside a branch's body (an eager run
+    of the branch taken, or a replay of the body)."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
@@ -136,6 +138,7 @@ class CudaKernel:
         self._graph_launches = 0
         self.captured = 0
         self.spare_launches = 0
+        self.body_launches = 0
         self._fn = None
 
     @property

@@ -26,6 +26,29 @@ a conditional node of a CUDA graph, the JAX package's lax.cond) on a
 predicate that a MAX all-reduce makes the same on every rank
 (`any_rank`); `exchange_branches` counts the branches each leg took.
 
+No process-group collective runs inside a branch's body on a flat mesh
+of one host, so the card can capture every branch into a CUDA graph at
+any world size (it refuses NCCL's work in a conditional body on more
+than one rank):
+
+* the leg a normal step takes (the compact leg, the routed all-to-all)
+  runs its collectives BEFORE the branch, at its fixed sizes, on its
+  usual transport (the process group; K5 for the pallas legs); the
+  branch that picks it holds only local work. On an overflow step its
+  results are thrown away: the values are the JAX package's, and only
+  that step moves more bytes;
+* the rare leg (every overflow branch's full explicit path, and the
+  sharded insert every interval-th tick, embeddings/cafe.py) runs its
+  collectives inside the body as DEVICE collectives
+  (kernels/a2a.all_gather / psum_scatter, carried by K5): `transport`
+  "device" in `all_gather` / `psum_scatter`, the helpers taking the
+  transport as an argument (`body_transport` picks it for a mesh).
+  K5 reaches only one host's cards (CUDA IPC), and the hierarchical
+  legs run over the row and column groups, so on a mesh across hosts
+  or a two-level mesh the bodies keep the process group's collectives
+  (train/step.capture_blockers keeps those steps eager on more than one
+  rank). The MAX all-reduce of each predicate stays outside the bodies.
+
 On a two-level ("dcn", "ici") mesh the explicit legs are HIERARCHICAL:
 ids (and grads) combine over "ici", this rank's host, before anything
 crosses "dcn", so only the host's combined (or compacted) set crosses
@@ -39,7 +62,8 @@ collective goes through the wrappers below (`all_gather`, `psum`,
 flat group or one level of a two-level mesh (`axis` "ici" / "dcn"), and
 which record each call while `record_collectives` is open
 (tools/wire_audit.py, the port's counterpart of the JAX package's HLO
-traffic audit).
+traffic audit), the device collectives under the op and axis of the
+collective they stand for, with the same bytes.
 """
 
 from __future__ import annotations
@@ -53,7 +77,7 @@ import torch.distributed as dist
 from ..kernels import a2a as _a2a_kernel
 from ..ops.sparse import (apply_rows, coalesce, coalesce_compact,
                           unique_compact)
-from ..utils.cond import branch_runs, cond, copy_into
+from ..utils.cond import branch_runs, cond, copy_into, in_body
 
 # sentinel row index far above any real table; survives the owner's
 # `- lo` shift still out of range, so scatters drop these lanes
@@ -65,13 +89,24 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
-class Collective(NamedTuple):
-    """One recorded collective: the op, the axis it ran over ("data" =
-    the mesh's flat group, "ici", "dcn") and its result's bytes on this
-    rank (the JAX audit's measure: an all-gather's gathered buffer)."""
+class _Record(NamedTuple):
     op: str
     axis: str
     bytes: int
+
+
+class Collective(_Record):
+    """One recorded collective: the op, the axis it ran over ("data" =
+    the mesh's flat group, "ici", "dcn") and its result's bytes on this
+    rank (the JAX audit's measure: an all-gather's gathered buffer).
+    Two more facts ride as attributes, outside the tuple (a record
+    unpacks as (op, axis, bytes)): `transport`, "group" for the process
+    group's collective (NCCL on the card, gloo on the CPU) or "device"
+    for K5's device collectives (kernels/a2a.py, the module docstring),
+    and `in_body`, whether it ran inside a device branch's body
+    (utils/cond.in_body)."""
+    transport = "group"
+    in_body = False
 
 
 # the open recorder's list, else None (no cost when no recorder is open)
@@ -91,10 +126,13 @@ def record_collectives():
         _RECORD = prev
 
 
-def _note(op: str, axis: Optional[str], out: torch.Tensor) -> None:
+def _note(op: str, axis: Optional[str], out: torch.Tensor,
+          transport: str = "group") -> None:
     if _RECORD is not None:
-        _RECORD.append(Collective(op, axis or "data",
-                                  out.numel() * out.element_size()))
+        rec = Collective(op, axis or "data",
+                         out.numel() * out.element_size())
+        rec.transport, rec.in_body = transport, in_body()
+        _RECORD.append(rec)
 
 
 def mesh_axes(mesh) -> tuple:
@@ -116,15 +154,46 @@ def _group(mesh, axis: Optional[str]):
     return mesh.dcn_group, mesh.size // mesh.inner
 
 
-def all_gather(x: torch.Tensor, mesh, axis: Optional[str] = None
-               ) -> torch.Tensor:
+TRANSPORTS = ("group", "device")
+
+
+def _device_transport(transport: str, axis: Optional[str]) -> bool:
+    if transport not in TRANSPORTS:
+        raise ValueError(f"unknown transport {transport!r}: one of "
+                         f"{TRANSPORTS}")
+    if transport == "device" and axis is not None:
+        raise ValueError(f"the device collectives run over the mesh's flat "
+                         f"group, not axis {axis!r}")
+    return transport == "device"
+
+
+def body_transport(mesh) -> str:
+    """The transport of the collectives inside a device branch's body on
+    `mesh`: "device" (K5's all-gather and reduce-scatter) on a flat mesh
+    whose ranks share one host, "group" (the process group's) on a
+    two-level mesh, whose bodies run over its row and column groups, or
+    across hosts, where K5 cannot reach (CUDA IPC maps one host's
+    cards). `mesh.hosts` holds the ranks' host names (parallel/mesh.py;
+    empty: one host)."""
+    if mesh.inner or len(set(mesh.hosts)) > 1:
+        return "group"
+    return "device"
+
+
+def all_gather(x: torch.Tensor, mesh, axis: Optional[str] = None,
+               transport: str = "group") -> torch.Tensor:
     """Tiled all-gather along dim 0 (jax.lax.all_gather(tiled=True)) over
-    the flat group or one level (`axis`) of a two-level mesh."""
-    group, n = _group(mesh, axis)
-    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    _all_gather_single(out, x.contiguous(), group=group)
-    _note("all-gather", axis, out)
+    the flat group or one level (`axis`) of a two-level mesh; `transport`
+    "device" runs it on K5 (kernels/a2a.all_gather, the flat group
+    only)."""
+    if _device_transport(transport, axis):
+        out = _a2a_kernel.all_gather(x, mesh)
+    else:
+        group, n = _group(mesh, axis)
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _all_gather_single(out, x.contiguous(), group=group)
+    _note("all-gather", axis, out, transport)
     return out
 
 
@@ -136,15 +205,20 @@ def psum(x: torch.Tensor, mesh, axis: Optional[str] = None) -> torch.Tensor:
     return y
 
 
-def psum_scatter(x: torch.Tensor, mesh, axis: Optional[str] = None
-                 ) -> torch.Tensor:
+def psum_scatter(x: torch.Tensor, mesh, axis: Optional[str] = None,
+                 transport: str = "group") -> torch.Tensor:
     """Sum over the mesh (or one level), position p of the group keeping
-    rows [p*k, (p+1)*k) of dim 0."""
-    group, n = _group(mesh, axis)
-    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    _reduce_scatter_single(out, x.contiguous(), group=group)
-    _note("reduce-scatter", axis, out)
+    rows [p*k, (p+1)*k) of dim 0; `transport` "device" runs it on K5
+    (kernels/a2a.psum_scatter, the flat group only: exact where each
+    lane has one non-zero contribution, as every caller's has)."""
+    if _device_transport(transport, axis):
+        out = _a2a_kernel.psum_scatter(x, mesh)
+    else:
+        group, n = _group(mesh, axis)
+        out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        _reduce_scatter_single(out, x.contiguous(), group=group)
+    _note("reduce-scatter", axis, out, transport)
     return out
 
 
@@ -171,11 +245,14 @@ def any_rank(flag: torch.Tensor, mesh) -> torch.Tensor:
 
 
 # the exchange's branches: cond name -> (the leg its false side runs,
-# its true side's), each true side the full-size explicit path
+# its true side's), each true side the full-size explicit path; CAFE's
+# hierarchical id legs (embeddings/cafe.py) on a two-level mesh too
 BRANCHES = {"fetch_unique": ("fetch_compact", "fetch_full"),
             "apply_unique": ("apply_compact", "apply_full"),
             "fetch_a2a": ("fetch_a2a", "fetch_a2a_full"),
-            "apply_a2a": ("apply_a2a", "apply_a2a_full")}
+            "apply_a2a": ("apply_a2a", "apply_a2a_full"),
+            "route_unique": ("route_compact", "route_full"),
+            "insert_unique": ("insert_compact", "insert_full")}
 
 
 def exchange_branches(since: Optional[dict] = None) -> dict:
@@ -254,9 +331,13 @@ def unique_cap(m: int, frac: float) -> int:
     return c if 0 < c < m else 0
 
 
-def _fetch_full(mesh, tbl: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    all_idx = all_gather(flat, mesh)
-    return psum_scatter(_owner_rows(tbl, all_idx, mesh), mesh)
+def _fetch_full(mesh, tbl: torch.Tensor, flat: torch.Tensor,
+                transport: str = "group") -> torch.Tensor:
+    """The full explicit fetch of `flat`'s rows over the flat group, on
+    `transport` (all_gather's)."""
+    all_idx = all_gather(flat, mesh, transport=transport)
+    return psum_scatter(_owner_rows(tbl, all_idx, mesh), mesh,
+                        transport=transport)
 
 
 def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
@@ -267,8 +348,9 @@ def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
     unique_frac > 0 turns on the UNIQUE-COMPACT exchange: the distinct
     row ids compact into a C-lane buffer (C = unique_cap), the exchange
     ships C rows instead of b*F, and a local expand restores the lanes.
-    If any rank overflows C, every rank takes the full-size path. On a
-    two-level mesh the exchange is hierarchical (_fetch_hier)."""
+    If any rank overflows C, every rank takes the full-size path (inside
+    the branch, on body_transport). On a two-level mesh the exchange is
+    hierarchical (_fetch_hier)."""
     if mesh.inner:
         return _fetch_hier(mesh, table, idx, unique_frac)
     b, fld = idx.shape
@@ -276,16 +358,17 @@ def sharded_fetch(mesh, table: torch.Tensor, idx: torch.Tensor,
     capacity = unique_cap(b * fld, unique_frac)
     if capacity:
         uids, inv, nu = unique_compact(flat, capacity, DROP_ROW)
+        urows = _fetch_full(mesh, table, uids)               # [C, D]
+        rare = body_transport(mesh)
 
-        def compact(flat_, uids_, inv_):
-            urows = _fetch_full(mesh, table, uids_)          # [C, D]
-            return urows[inv_.clamp(0, capacity - 1).long()]
+        def compact(flat_, urows_, inv_):
+            return urows_[inv_.clamp(0, capacity - 1).long()]
 
-        def full(flat_, uids_, inv_):
-            return _fetch_full(mesh, table, flat_)
+        def full(flat_, urows_, inv_):
+            return _fetch_full(mesh, table, flat_, rare)
 
         rows = cond(any_rank(nu > capacity, mesh), full, compact,
-                    (flat, uids, inv), name="fetch_unique")
+                    (flat, urows, inv), name="fetch_unique")
         return rows.reshape(b, fld, -1)
     return _fetch_full(mesh, table, flat).reshape(b, fld, -1)
 
@@ -308,7 +391,9 @@ def _fetch_hier(mesh, table: torch.Tensor, idx: torch.Tensor,
     "ici" first, so only they (or, compact, their C distinct ids, C =
     unique_cap(m_host)) cross "dcn"; this rank's m lanes are the slice at
     ici_index * m of the host's answer. The overflow test runs over the
-    whole mesh, so every rank takes the same branch."""
+    whole mesh, so every rank takes the same branch; the compact leg
+    runs before it, the full one inside it (on the row and column
+    groups: body_transport is "group" here)."""
     b, fld = idx.shape
     m = b * fld
     ici_ids = all_gather(idx.reshape(m), mesh, "ici")     # [m_host]
@@ -316,16 +401,16 @@ def _fetch_hier(mesh, table: torch.Tensor, idx: torch.Tensor,
     capacity = unique_cap(ici_ids.shape[0], unique_frac)
     if capacity:
         uids, inv, nu = unique_compact(ici_ids, capacity, DROP_ROW)
+        urows = _host_fetch(mesh, table, uids)               # [C, D]
 
-        def compact(ici_, uids_, inv_):
-            urows = _host_fetch(mesh, table, uids_)          # [C, D]
-            return urows[inv_[me].clamp(0, capacity - 1).long()]
+        def compact(ici_, urows_, inv_):
+            return urows_[inv_[me].clamp(0, capacity - 1).long()]
 
-        def full(ici_, uids_, inv_):
+        def full(ici_, urows_, inv_):
             return _host_fetch(mesh, table, ici_)[me]
 
         rows = cond(any_rank(nu > capacity, mesh), full, compact,
-                    (ici_ids, uids, inv), name="fetch_unique")
+                    (ici_ids, urows, inv), name="fetch_unique")
         return rows.reshape(b, fld, -1)
     return _host_fetch(mesh, table, ici_ids)[me].reshape(b, fld, -1)
 
@@ -391,8 +476,10 @@ def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
     """Request-routed all-to-all forward: each rank sends each owner only
     the ids it needs and receives only those rows (~m*4 + m*D*4*(n-1)/n
     bytes a rank, against sharded_fetch's ~m*D*4*(n-1)). Skew beyond the
-    per-peer capacity takes the full explicit path on every rank, and so
-    does a two-level mesh (the explicit path's hierarchical legs)."""
+    per-peer capacity takes the full explicit path on every rank (inside
+    the branch, on body_transport), and so does a two-level mesh (the
+    explicit path's hierarchical legs). Both all-to-all rounds and the
+    owner's lookup between them run before the branch."""
     if mesh.inner:
         return sharded_fetch(mesh, table, idx)
     n = mesh.size
@@ -402,33 +489,36 @@ def sharded_fetch_a2a(mesh, table: torch.Tensor, idx: torch.Tensor,
     rows_l = table.shape[0]
     cap = a2a_cap(m, n, slack)
     reqs, owner, slot, overflow = route_to_owners(flat, rows_l, n, cap)
+    got = _a2a(reqs, mesh, impl)                      # [n, cap] ids I own
+    loc = _local_idx(rows_l, got.reshape(-1), mesh).long()
+    rows = table[loc.clamp(0, rows_l - 1)]
+    rows = torch.where((loc < rows_l)[:, None], rows, torch.zeros_like(rows))
+    back = _a2a(rows.reshape(n, cap, -1), mesh, impl)
+    rare = body_transport(mesh)
 
-    def routed(flat_, reqs_, owner_, slot_):
-        got = _a2a(reqs_, mesh, impl)                 # [n, cap] ids I own
-        loc = _local_idx(rows_l, got.reshape(-1), mesh).long()
-        rows = table[loc.clamp(0, rows_l - 1)]
-        rows = torch.where((loc < rows_l)[:, None], rows,
-                           torch.zeros_like(rows))
-        back = _a2a(rows.reshape(n, cap, -1), mesh, impl)
-        mine = back.reshape(n * cap, -1)[
-            (owner_.clamp(0, n - 1) * cap + slot_).long()]
+    def routed(flat_, back_, owner_, slot_):
+        # lanes past a peer's capacity (a warm-up's spare run of this
+        # branch on an overflow step) read inside the buffer
+        mine = back_.reshape(n * cap, -1)[
+            (owner_.clamp(0, n - 1) * cap + slot_.clamp(0, cap - 1)).long()]
         return torch.where((owner_ < n)[:, None], mine,
                            torch.zeros_like(mine))
 
-    def full(flat_, reqs_, owner_, slot_):
-        return _fetch_full(mesh, table, flat_)
+    def full(flat_, back_, owner_, slot_):
+        return _fetch_full(mesh, table, flat_, rare)
 
     out = cond(any_rank(overflow, mesh), full, routed,
-               (flat, reqs, owner, slot), name="fetch_a2a")
+               (flat, back, owner, slot), name="fetch_a2a")
     return out.reshape(b, fld, -1)
 
 
 def _apply_full(mesh, table, slots, fi, fg, lr, optimizer, apply_impl,
-                axis=None):
+                axis=None, transport="group"):
     """All-gather the (id, grad) pairs over the mesh (or, for the
-    hierarchical apply, over "dcn") and let the owners apply them."""
-    ai = all_gather(fi, mesh, axis)
-    ag = all_gather(fg, mesh, axis)
+    hierarchical apply, over "dcn"), on `transport`, and let the owners
+    apply them."""
+    ai = all_gather(fi, mesh, axis, transport)
+    ag = all_gather(fg, mesh, axis, transport)
     return apply_rows(table, slots, _local_idx(table.shape[0], ai, mesh),
                       ag, lr, optimizer, apply_impl)
 
@@ -438,9 +528,10 @@ def sharded_apply_a2a(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
                       slack: float = 1.5, impl: str = "lax",
                       apply_impl: str = "auto"):
     """Owner-routed all-to-all backward: duplicates coalesce locally,
-    then each (id, grad row) ships only to its owner. Overflow takes the
-    explicit path on every rank, and so does a two-level mesh. Updates the
-    shard in place; returns (table, slots)."""
+    then each (id, grad row) ships only to its owner (both all-to-alls
+    before the branch, the owner's apply inside it). Overflow takes the
+    explicit path on every rank, and so does a two-level mesh. Updates
+    the shard in place; returns (table, slots)."""
     if mesh.inner:
         return sharded_apply(mesh, table, slots, idx, grad, lr, optimizer,
                              apply_impl=apply_impl)
@@ -451,29 +542,33 @@ def sharded_apply_a2a(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     cap = a2a_cap(m, n, slack)
     fi, fg = coalesce(idx.reshape(m), g, drop_sentinel=DROP_ROW)
     reqs, owner, slot, overflow = route_to_owners(fi, rows_l, n, cap)
+    # grads ride the same (owner, slot) routing as the ids; lanes past a
+    # peer's capacity (an overflow step, whose routed leg is thrown away)
+    # go to the spare row
+    pos = torch.where((owner < n) & (slot < cap),
+                      owner.clamp(0, n - 1) * cap + slot, n * cap).long()
+    gbuf = torch.zeros((n * cap + 1, fg.shape[1]), dtype=fg.dtype,
+                       device=fg.device)
+    gbuf[pos] = fg               # in-range positions are distinct
+    ids_in = _a2a(reqs, mesh, impl).reshape(-1)
+    g_in = _a2a(gbuf[: n * cap].reshape(n, cap, -1), mesh,
+                impl).reshape(n * cap, -1)
+    rare = body_transport(mesh)
 
-    def routed(table_, slots_, fi_, fg_, reqs_, owner_, slot_):
-        # grads ride the same (owner, slot) routing as the ids
-        pos = torch.where(owner_ < n, owner_.clamp(0, n - 1) * cap + slot_,
-                          n * cap).long()
-        gbuf = torch.zeros((n * cap + 1, fg_.shape[1]), dtype=fg_.dtype,
-                           device=fg_.device)
-        gbuf[pos] = fg_          # in-range positions are distinct
-        ids_in = _a2a(reqs_, mesh, impl).reshape(-1)
-        g_in = _a2a(gbuf[: n * cap].reshape(n, cap, -1), mesh,
-                    impl).reshape(n * cap, -1)
+    def routed(table_, slots_, fi_, fg_, ids_in_, g_in_):
         # a branch writes its result into its operands: the apply works
         # in place, and copy_into copies what it returned anew (Adam's t)
         copy_into((table_, slots_), apply_rows(
-            table_, slots_, _local_idx(rows_l, ids_in, mesh), g_in, lr,
+            table_, slots_, _local_idx(rows_l, ids_in_, mesh), g_in_, lr,
             optimizer, apply_impl))
 
     def full(table_, slots_, fi_, fg_, *_):
         copy_into((table_, slots_), _apply_full(
-            mesh, table_, slots_, fi_, fg_, lr, optimizer, apply_impl))
+            mesh, table_, slots_, fi_, fg_, lr, optimizer, apply_impl,
+            transport=rare))
 
     cond(any_rank(overflow, mesh), full, routed,
-         (table, slots, fi, fg, reqs, owner, slot), name="apply_a2a")
+         (table, slots, fi, fg, ids_in, g_in), name="apply_a2a")
     return table, slots
 
 
@@ -484,10 +579,11 @@ def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     [b, F, D]) of this rank's batch slice; duplicates coalesce locally
     before the all-gather. `slots` as ops.sparse.init_slots makes them
     (row slots are sharded with the table). unique_frac > 0 ships the
-    coalesced (id, grad) pairs in C-lane buffers, with the full-size
-    path when any rank overflows (see sharded_fetch). On a two-level mesh
-    the (id, grad) pairs combine over "ici" before they cross "dcn".
-    Updates the shard in place; returns (table, slots)."""
+    coalesced (id, grad) pairs in C-lane buffers (their all-gathers
+    before the branch), with the full-size path inside it when any rank
+    overflows (see sharded_fetch). On a two-level mesh the (id, grad)
+    pairs combine over "ici" before they cross "dcn". Updates the shard
+    in place; returns (table, slots)."""
     m = idx.numel()
     flat, g = idx.reshape(m), grad.reshape(m, -1)
     axis = None
@@ -498,20 +594,23 @@ def sharded_apply(mesh, table: torch.Tensor, slots, idx: torch.Tensor,
     capacity = unique_cap(flat.shape[0], unique_frac)
     if capacity:
         cidx, cgrad, nu = coalesce_compact(flat, g, capacity, DROP_ROW)
+        ai = all_gather(cidx, mesh, axis)
+        ag = all_gather(cgrad, mesh, axis)
+        rare = body_transport(mesh)
 
-        def compact(table_, slots_, flat_, g_, cidx_, cgrad_):
-            copy_into((table_, slots_), _apply_full(
-                mesh, table_, slots_, cidx_, cgrad_, lr, optimizer,
-                apply_impl, axis))
+        def compact(table_, slots_, flat_, g_, ai_, ag_):
+            copy_into((table_, slots_), apply_rows(
+                table_, slots_, _local_idx(table_.shape[0], ai_, mesh),
+                ag_, lr, optimizer, apply_impl))
 
-        def full(table_, slots_, flat_, g_, cidx_, cgrad_):
+        def full(table_, slots_, flat_, g_, ai_, ag_):
             fi, fg = coalesce(flat_, g_, drop_sentinel=DROP_ROW)
             copy_into((table_, slots_), _apply_full(
                 mesh, table_, slots_, fi, fg, lr, optimizer, apply_impl,
-                axis))
+                axis, rare))
 
         cond(any_rank(nu > capacity, mesh), full, compact,
-             (table, slots, flat, g, cidx, cgrad), name="apply_unique")
+             (table, slots, flat, g, ai, ag), name="apply_unique")
         return table, slots
     fi, fg = coalesce(flat, g, drop_sentinel=DROP_ROW)
     return _apply_full(mesh, table, slots, fi, fg, lr, optimizer,

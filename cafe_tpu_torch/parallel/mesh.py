@@ -23,7 +23,9 @@ them on its own.
 
 from __future__ import annotations
 
+import itertools
 import os
+import socket
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -47,7 +49,9 @@ class Mesh:
     `ici_group` (this rank's row) and `dcn_group` (its column).
     `a2a_workspaces` holds the peer-write all-to-all's shared buffers
     (kernels/a2a.py), one per chunk size, owned here so that they live
-    and die with the mesh."""
+    and die with the mesh. `hosts` holds every rank's host name, gathered
+    once when the mesh is made (empty: taken as one host); K5 reaches
+    only one host's cards (parallel/exchange.body_transport)."""
 
     size: int
     rank: int
@@ -59,6 +63,7 @@ class Mesh:
     # the groups this rank made but is not in (released by close())
     other_groups: list = field(default_factory=list, repr=False)
     a2a_workspaces: dict = field(default_factory=dict, repr=False)
+    hosts: tuple = ()
 
     @property
     def axis_names(self) -> tuple:
@@ -141,39 +146,67 @@ INIT_TRIES = 3
 RETRIED_INIT_ERROR = "Connection closed by peer"
 
 
-def init_file_group(backend: str, directory: str, rank: int,
-                    world: int) -> None:
-    """Join the default process group through a file:// store under
-    `directory` (no port to clash). A try that fails with gloo's
-    "Connection closed by peer" is retried on a fresh store, at most
-    INIT_TRIES times; any other error raises. Every rank posts each
-    try's outcome to a control store and waits for all of them, so the
-    ranks leave a failed try together (a rank whose group did form
-    destroys it) and no rank goes on alone."""
-    control = dist.FileStore(os.path.join(directory, "init_control"), world)
+def _agreed(make, undo, control, key: str, rank: int, world: int,
+            what: str):
+    """make(attempt) with the agreed retry: a try that fails with gloo's
+    "Connection closed by peer" is retried, at most INIT_TRIES times;
+    any other error raises. Every rank posts each try's outcome to the
+    `control` store under `key` and waits for all of them, so the ranks
+    leave a failed try together (a rank whose try did succeed undoes
+    it: undo(result)) and no rank goes on alone. Returns make's
+    result."""
     for attempt in range(INIT_TRIES):
-        error = None
+        error = result = None
         try:
-            dist.init_process_group(
-                backend, init_method=f"file://{directory}/store_{attempt}",
-                rank=rank, world_size=world)
+            result = make(attempt)
         except RuntimeError as e:
             error = e
         retry = error is not None and RETRIED_INIT_ERROR in str(error)
-        control.set(f"{attempt}/{rank}", "ok" if error is None
+        control.set(f"{key}{attempt}/{rank}", "ok" if error is None
                     else "retry" if retry else "fail")
-        states = {control.get(f"{attempt}/{r}").decode()
+        states = {control.get(f"{key}{attempt}/{r}").decode()
                   for r in range(world)}
         if states == {"ok"}:
-            return
+            return result
         if error is None:
-            dist.destroy_process_group()
+            undo(result)
         elif not retry:
             raise error
         if "fail" in states or attempt == INIT_TRIES - 1:
-            raise RuntimeError(f"rank {rank}: the process group did not "
-                               f"form (try {attempt + 1}: {sorted(states)})"
+            raise RuntimeError(f"rank {rank}: {what} did not form (try "
+                               f"{attempt + 1}: {sorted(states)})"
                                ) from error
+
+
+def init_file_group(backend: str, directory: str, rank: int,
+                    world: int) -> None:
+    """Join the default process group through a file:// store under
+    `directory` (no port to clash), with the agreed retry (_agreed): a
+    try that fails with "Connection closed by peer" is retried on a
+    fresh store."""
+    control = dist.FileStore(os.path.join(directory, "init_control"), world)
+    _agreed(lambda attempt: dist.init_process_group(
+        backend, init_method=f"file://{directory}/store_{attempt}",
+        rank=rank, world_size=world),
+        lambda _: dist.destroy_process_group(), control, "", rank, world,
+        "the process group")
+
+
+def new_group_agreed(ranks, backend: str, control, key: str, rank: int,
+                     world: int):
+    """dist.new_group(ranks, backend) on every rank of the default group
+    (`rank` of `world`), with init_file_group's agreed retry over the
+    `control` store under `key`: "Connection closed by peer" while the
+    group connects is retried with a new group (each try takes the next
+    group name on every rank), any other error raises."""
+    return _agreed(lambda _: dist.new_group(ranks, backend=backend),
+                   lambda g: None if g is dist.GroupMember.NON_GROUP_MEMBER
+                   else dist.destroy_process_group(g),
+                   control, key, rank, world, f"the group of ranks {ranks}")
+
+
+# make_mesh calls so far: each mesh's keys on the control store
+_MESHES = itertools.count()
 
 
 def _local_device(device="cuda") -> torch.device:
@@ -200,7 +233,10 @@ def make_mesh(n_devices: Optional[int] = None, inner: int = 0,
     backend (NCCL on the card, gloo on the CPU).
 
     Every rank creates every row and column group, in the same order,
-    including those it is not in: both backends hang or fail otherwise."""
+    including those it is not in: both backends hang or fail otherwise.
+    Each group forms with the agreed retry (new_group_agreed, on the
+    default group's store), and the ranks' host names are gathered into
+    `hosts`."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "maybe_init_distributed first")
@@ -218,17 +254,28 @@ def make_mesh(n_devices: Optional[int] = None, inner: int = 0,
         torch.cuda.set_device(dev)
     backend = _backend(dev)
     rank = dist.get_rank()
+    control = dist.distributed_c10d._get_default_store()
+    tag = f"make_mesh/{next(_MESHES)}/"
+    groups = itertools.count()
+
+    def new_group(ranks):
+        return new_group_agreed(ranks, backend, control,
+                                f"{tag}{next(groups)}/", rank, world)
+
     mesh = Mesh(size=n, rank=rank, device=dev, inner=inner,
-                group=dist.new_group(list(range(n)), backend=backend))
+                group=new_group(list(range(n))))
     if inner:
         rows = [list(range(h * inner, (h + 1) * inner))
                 for h in range(n // inner)]
         cols = [list(range(c, n, inner)) for c in range(inner)]
         for kind, ranks in [("ici", r) for r in rows] + \
                 [("dcn", c) for c in cols]:
-            g = dist.new_group(ranks, backend=backend)
+            g = new_group(ranks)
             if rank in ranks:
                 setattr(mesh, f"{kind}_group", g)
             else:
                 mesh.other_groups.append(g)
+    hosts = [None] * n
+    dist.all_gather_object(hosts, socket.gethostname(), group=mesh.group)
+    mesh.hosts = tuple(hosts)
     return mesh

@@ -34,14 +34,16 @@ On the card the three builders return CUDA-graph steps
 (train/capture.GraphedStep, `.graphed` True) when the configuration
 allows it, on one device or on a mesh (each rank captures its share of
 the step, collectives included, as the JAX package jits its shard_map
-step; on more than one rank a device branch may not hold a collective):
-`capture_blockers` lists what keeps a train step eager, decided when
-the step is built. CPU steps and `capture=False` are eager
-(`.graphed` False). The data-dependent branches (the skipped insert,
-CAFE+'s decay and reset, AdaEmbed's decay, the exchange's overflow
-legs) are conditional nodes in the graph (utils/cond.cond); AdaEmbed's
-check steps run eagerly on the graph's state, picked by its host mirror
-of the step counter (train/capture.StepMirror).
+step; on a flat mesh of one host the device branches' bodies hold only
+K5's device collectives, parallel/exchange.py, and on more than one
+rank a body may not hold NCCL's): `capture_blockers` lists what keeps
+a train step eager, decided when the step is built. CPU steps and
+`capture=False` are eager (`.graphed` False). The data-dependent
+branches (the skipped insert, CAFE+'s decay and reset, AdaEmbed's
+decay, the exchange's overflow legs) are conditional nodes in the
+graph (utils/cond.cond); AdaEmbed's check steps run eagerly on the
+graph's state, picked by its host mirror of the step counter
+(train/capture.StepMirror).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from ..parallel.exchange import psum
+from ..parallel.exchange import body_transport, psum
 from .capture import GraphedStep, StepMirror, conditional_node_blocker
 from .lr_schedule import lr_policy
 
@@ -201,38 +203,63 @@ def has_branches(embed_layer) -> bool:
         for p in embed_layer.parts)
 
 
-def nccl_branches(embed_layer, train: bool = True) -> List[str]:
-    """The device branches of the layer's step (`train`) or eval whose
-    bodies hold NCCL collectives: the a2a / pallas legs (their overflow
-    branch is the full explicit exchange), the unique-compact legs and
-    the sharded insert every interval-th tick (its candidate
-    all-gather)."""
+LOOKUPS = ("train", "eval", "quantized")
+
+
+def collective_branches(embed_layer, lookups: str = "train") -> List[str]:
+    """The device branches of the layer's train step, float eval or
+    quantized eval (`lookups`) whose bodies hold collectives: the a2a /
+    pallas legs and the unique-compact legs (their overflow branch is
+    the full explicit exchange), CAFE's hierarchical id legs on a
+    two-level mesh (the flat route and insert) and the sharded insert
+    every interval-th tick (its candidate all-gather). The quantized
+    lookups take CAFE's route only."""
+    if lookups not in LOOKUPS:
+        raise ValueError(f"lookups: one of {LOOKUPS}, got {lookups!r}")
     out = []
     for i, p in enumerate(embed_layer.parts):
         if p.mesh is None:
             continue
-        if p.exchange_mode != "explicit":
-            if not p.mesh.inner:       # a two-level mesh takes no a2a leg
-                out.append(f"part{i}: the {p.exchange_mode} legs")
-        elif p.unique_frac > 0:
-            out.append(f"part{i}: the unique-compact legs")
-        if train and getattr(p, "insert_interval", 1) > 1:
+        if lookups != "quantized":
+            if p.exchange_mode != "explicit":
+                if not p.mesh.inner:   # a two-level mesh takes no a2a leg
+                    out.append(f"part{i}: the {p.exchange_mode} legs")
+            elif p.unique_frac > 0:
+                out.append(f"part{i}: the unique-compact legs")
+        if p.id_legs and p.mesh.inner and p.unique_frac > 0:
+            out.append(f"part{i}: the hierarchical id legs")
+        if lookups == "train" and getattr(p, "insert_interval", 1) > 1:
             out.append(f"part{i}: the insert every {p.insert_interval} "
                        f"ticks")
     return out
 
 
-def _mesh_blockers(embed_layer, mesh, train: bool) -> List[str]:
+def nccl_branches(embed_layer, mesh, lookups: str = "train") -> List[str]:
+    """The device branches (collective_branches) whose bodies hold NCCL
+    collectives on `mesh`: every one on a two-level mesh or across
+    hosts, where the bodies keep the process group's collectives
+    (parallel/exchange.body_transport), none on a flat mesh of one host,
+    where they hold K5's device collectives."""
+    if mesh is None or body_transport(mesh) == "device":
+        return []
+    return collective_branches(embed_layer, lookups)
+
+
+def _mesh_blockers(embed_layer, mesh, lookups: str) -> List[str]:
     held = [] if mesh is None or mesh.size == 1 else nccl_branches(
-        embed_layer, train)
+        embed_layer, mesh, lookups)
     if not held:
         return []
+    why = ("a two-level mesh, whose bodies run over its row and column "
+           "groups (its 'dcn' level stands for links across hosts)"
+           if mesh.inner else
+           f"ranks on {len(set(mesh.hosts))} hosts, which K5's device "
+           f"collectives cannot reach (CUDA IPC maps one host's cards)")
     return [f"a mesh of {mesh.size} ranks with NCCL collectives inside "
-            f"device branches ({'; '.join(held)}): the card refuses to "
-            f"capture NCCL's work on more than one rank into a CUDA graph "
-            f"conditional body ('CUDA error: invalid argument', "
-            f"tools/cond_nccl_probe_torch.py --world 4); at world size 1 "
-            f"it graphs"]
+            f"device branches ({'; '.join(held)}) on {why}: the card "
+            f"refuses to capture NCCL's work on more than one rank into a "
+            f"CUDA graph conditional body ('CUDA error: invalid argument', "
+            f"tools/cond_nccl_probe_torch.py --world 4)"]
 
 
 def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
@@ -240,8 +267,10 @@ def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
     each with the code that keeps it eager; empty when nothing does.
     Decided from the configuration when the step is built, never from a
     failed capture. A mesh's collectives are captured on every rank
-    (train/capture.py), except inside a device branch on more than one
-    rank."""
+    (train/capture.py), and a device branch's body holds K5's device
+    collectives on a flat mesh of one host; on a two-level mesh or
+    across hosts its NCCL collectives keep the step eager on more than
+    one rank."""
     out = []
     if not cfg.donate_state:
         out.append(_UNDONATED)
@@ -249,7 +278,7 @@ def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
         no_nodes = conditional_node_blocker(embed_layer.device)
         if no_nodes:
             out.append(no_nodes)
-    return out + _mesh_blockers(embed_layer, mesh, train=True)
+    return out + _mesh_blockers(embed_layer, mesh, "train")
 
 
 def _step_mirror(embed_layer):
@@ -390,7 +419,7 @@ def build_multi_step(train_step, k: int, donate: bool = False,
 def build_eval_step(model, embed_layer, capture=True, gather=None):
     """Scores [B] of a batch. On the card, with `capture` and nothing
     that keeps it eager (a mesh's collectives do not, but for a device
-    branch that holds them on more than one rank), a GraphedStep whose
+    branch that holds NCCL's on more than one rank), a GraphedStep whose
     output tensor the next call overwrites. `gather` (state.embed, ids)
     -> raws replaces the layer's float lookup (the quantized one)."""
     quantized = gather is not None
@@ -407,10 +436,9 @@ def build_eval_step(model, embed_layer, capture=True, gather=None):
         no_nodes = conditional_node_blocker(embed_layer.device)
         if no_nodes:
             blockers.append(no_nodes)
-    if not quantized:
-        # the quantized lookups take no exchange branch
-        blockers += _mesh_blockers(embed_layer, embed_layer.mesh,
-                                   train=False)
+    # the quantized lookups take no exchange branch, only CAFE's route
+    blockers += _mesh_blockers(embed_layer, embed_layer.mesh,
+                               "quantized" if quantized else "eval")
     if capture and not blockers and embed_layer.device.type == "cuda":
         return GraphedStep(eval_step, carry=False)
     return _eager(eval_step, blockers)

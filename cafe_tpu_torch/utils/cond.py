@@ -24,7 +24,11 @@ the capture; the kernels those spare runs launch count in each kernel's
 own slot of the capture's device
 counter when it runs; the graph reads the counter when a kernel count is
 next read (kernels/build.settle) and credits each body's kernel launches
-and runs (`branch_runs`) by the replays that ran it.
+and runs (`branch_runs`) by the replays that ran it. The launches made
+inside a body (an eager run of the branch taken or a replay of the
+body) also count in each kernel's `body_launches`, and `in_body` tells
+code whether it runs inside a body (the collective recorder marks the
+collectives it records there, parallel/exchange.py).
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ _RUNS: Dict[str, Dict[str, List[int]]] = {"eager": {}, "graph": {},
                                           "spare": {}}
 _WARMING = False      # in a GraphedStep's warm-up call
 _SPARE = 0            # depth of spare (warm-up, untaken) branch runs
+_BODY = 0             # depth of branch bodies running or being captured
 _CAPTURE = None       # the _Capture of the GraphedStep capturing now
 
 
@@ -197,6 +202,7 @@ class _Capture:
                 count("graph", b.name, b.side, runs)
                 for kern, n in b.launches.items():
                     kern.add_launches(runs * n, in_graph=True)
+                    kern.body_launches += runs * n
         self.seen = hits
 
 
@@ -237,6 +243,22 @@ def _spare():
         _SPARE -= 1
 
 
+@contextlib.contextmanager
+def _body():
+    global _BODY
+    _BODY += 1
+    try:
+        yield
+    finally:
+        _BODY -= 1
+
+
+def in_body() -> bool:
+    """Whether the code running now is inside a branch body of a `cond`
+    (an eager or spare run of a branch, or a body being captured)."""
+    return _BODY > 0
+
+
 def cond(pred: torch.Tensor, true_fn, false_fn, operands=(),
          name: str = "cond"):
     """true_fn(*operands) if `pred` else false_fn(*operands): the port's
@@ -259,12 +281,22 @@ def cond(pred: torch.Tensor, true_fn, false_fn, operands=(),
     if _WARMING and other is not None:
         # cloned before `fn`, which may write into the operands
         spare = _map(lambda t: t.detach().clone(), operands)
-    out = None if fn is None else fn(*operands)
+    out = None
+    if fn is not None:
+        # the outermost body of an eager run credits its launches
+        outer = not (_BODY or _SPARE)
+        before = {k: k._launches for k in KERNELS.values()} if outer \
+            else None
+        with _body():
+            out = fn(*operands)
+        if outer:
+            for k, n in before.items():
+                k.body_launches += k._launches - n
     if spare is not None:
         outer = not _SPARE
         before = {k: k._launches for k in KERNELS.values()} if outer \
             else None
-        with _spare():
+        with _spare(), _body():
             count("spare", name, int(not take))
             other(*spare)
         if outer:
@@ -345,7 +377,7 @@ def _cond_in_graph(pred, true_fn, false_fn, operands, name):
             raise RuntimeError(f"cond {name}: more than {MAX_BODIES} "
                                f"branch bodies in one graph")
         before = {k: k.captured for k in KERNELS.values()}
-        with _if_body(cap, pred, negate=not side):
+        with _if_body(cap, pred, negate=not side), _body():
             cap.hits[slot].add_(1)
             out = fn(*operands)
             if false_fn is None:

@@ -52,9 +52,14 @@ Phases, each printing one JSON line and raising on failure:
    [1, 53,248] int32, rows [1, 53,248, 16] f32), bit-equal to its plain
    version (NCCL all_to_all_single) and timed beside it, `copy_` and the
    memory bound, and inside a replayed CUDA graph of 20 calls
-   (`graph_ms`); then K5 between 4 processes on the one card through
-   CUDA IPC over 3 successive calls, bit-equal on every rank (not timed:
-   processes on one card without MPS are time-sliced);
+   (`graph_ms`); K5's device all-gather and reduce-scatter (the rare
+   legs inside the mesh steps' branch bodies) at n = 1, bit-equal to
+   their plain versions, timed beside them, NCCL's all_gather_into_tensor
+   / reduce_scatter_tensor and the bound; then K5 between 4 processes on
+   the one card through CUDA IPC over 3 successive calls, and its device
+   all-gather and reduce-scatter (one-owner rows) against their plain
+   versions on the processes' gloo group, bit-equal on every rank (not
+   timed: processes on one card without MPS are time-sliced);
 11. sharded: the headline through build_all(mesh=make_mesh(1)) on NCCL
    with --shard_exchange pallas, timed as the headline (K5 must launch 4
    times and K1 once per step); the same state through explicit, a2a and
@@ -393,8 +398,10 @@ The device branches and the benchmark's twin:
    insert (cr 1e-4 and dim 128 are shapes of their own; other_paths).
 
 Then the kernels line (every kernel's launches on the main path, those
-made by graph replays, error, times, bound and, for K1 and K5, graph_ms;
-K1's and K2's cases at the other paths' shapes under "other_paths")
+made by graph replays and those inside branch bodies, error, times,
+bound and, for K1 and K5, graph_ms; K1's and K2's cases at the other
+paths' shapes under "other_paths", K5's device collectives under
+"collectives")
 and, last, the device line. Every JSON line carries `elapsed_s`, the
 seconds since the script started.
 Exits non-zero without a CUDA card or without the cafe_tpu_torch package
@@ -1600,6 +1607,12 @@ def a2a_inputs(n, chunk, dim, seed, rank):
                                                  dtype=np.float32)))
 
 
+def one_owner(rows, rank, n):
+    """rows [n * k, D] with every lane l zeroed but on rank l % n."""
+    lanes = torch.arange(rows.shape[0]) % n == rank
+    return torch.where(lanes[:, None], rows, torch.zeros_like(rows))
+
+
 def a2a_ipc_rank(rank, store, out_dir):
     """One of the 4 processes of the one-card K5 check: a gloo group for
     the IPC handles, card 0 for the data; writes its verdict as JSON."""
@@ -1623,6 +1636,31 @@ def a2a_ipc_rank(rank, store, out_dir):
             equal.append(bool(torch.equal(got, want)))
     torch.cuda.synchronize()
     launches = a2a.KERNEL.launches
+    # the device all-gather (the ids leg's chunk) and reduce-scatter (the
+    # rows leg, each lane non-zero on one rank only, as the exchange's
+    # owner answers are) against their plain versions on the gloo group
+    # (CPU tensors) and against the seeded inputs
+    coll_equal = []
+    for e in range(cfg["epochs"]):
+        seed = cfg["seed"] + 300 + e
+        ins = [a2a_inputs(n, cfg["chunk"], cfg["dim"], seed, s)
+               for s in range(n)]
+        owned = [one_owner(ins[s][1].reshape(n * cfg["chunk"], cfg["dim"]),
+                           s, n) for s in range(n)]
+        ids = ins[rank][0][0]
+        got = a2a.all_gather(ids.cuda(), mesh).cpu()
+        want = torch.cat([ins[s][0][0] for s in range(n)])
+        coll_equal.append(bool(torch.equal(got, want) and torch.equal(
+            got, a2a.all_gather_plain(ids, mesh))))
+        got = a2a.psum_scatter(owned[rank].cuda(), mesh).cpu()
+        blk = slice(rank * cfg["chunk"], (rank + 1) * cfg["chunk"])
+        want = owned[0][blk].clone()
+        for s in range(1, n):
+            want += owned[s][blk]
+        coll_equal.append(bool(torch.equal(got, want) and torch.equal(
+            got, a2a.psum_scatter_plain(owned[rank], mesh))))
+    torch.cuda.synchronize()
+    coll_launches = a2a.KERNEL.launches - launches
     # the rows leg captured in a CUDA graph on the same workspace: each
     # replay (fresh inputs in the static buffer) is followed by an eager
     # call, and both must deliver their own call's chunks (the call
@@ -1653,7 +1691,40 @@ def a2a_ipc_rank(rank, store, out_dir):
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "equal": equal, "launches": launches,
-                   "graph_equal": graph_equal}, f)
+                   "graph_equal": graph_equal,
+                   "collectives_equal": coll_equal,
+                   "collective_launches": coll_launches}, f)
+
+
+def a2a_collectives_n1(a2a, mesh, legs):
+    """K5's device all-gather (the ids leg's lanes) and reduce-scatter
+    (the rows leg's) at n = 1 against their plain versions: bit-equal,
+    ms, plain_ms, the library's NCCL call (all_gather_into_tensor /
+    reduce_scatter_tensor) and the bound (each byte read and written
+    once)."""
+    ids, rows = legs["ids"][0], legs["rows"][0]
+    cases = {
+        "all_gather": (ids, a2a.all_gather, a2a.all_gather_plain,
+                       dist.all_gather_into_tensor),
+        "psum_scatter": (rows, a2a.psum_scatter, a2a.psum_scatter_plain,
+                         dist.reduce_scatter_tensor)}
+    out = {}
+    for name, (x, fn, plain, lib) in cases.items():
+        got, want = fn(x, mesh), plain(x, mesh)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, x)):
+            raise AssertionError(f"K5 {name} differs from its plain "
+                                 f"version at n = 1")
+        dst = torch.empty_like(x)
+        nbytes = x.numel() * x.element_size()
+        bms, by = bound_ms(2 * nbytes, 0)
+        out[name] = {
+            "shape": list(x.shape), "bytes": nbytes, "max_abs_err": 0.0,
+            "ms": time_ms(lambda: fn(x, mesh)),
+            "plain_ms": time_ms(lambda: plain(x, mesh)),
+            "library_ms": time_ms(lambda: lib(dst, x, group=mesh.group)),
+            "bound_ms": bms, "bound_by": by}
+    return out
 
 
 def phase_a2a(a2a, mesh):
@@ -1684,6 +1755,7 @@ def phase_a2a(a2a, mesh):
             "plain_ms": time_ms(lambda: a2a.all_to_all_plain(x, mesh)),
             "library_ms": time_ms(lambda: out.copy_(x)),
             "bound_ms": bms, "bound_by": by}
+    rec["n1_collectives"] = a2a_collectives_n1(a2a, mesh, legs)
 
     # 4 processes on card 0, CUDA IPC between them, 3 calls of each leg
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1718,13 +1790,19 @@ def phase_a2a(a2a, mesh):
     want_launches = 2 * A2A_IPC["epochs"]
     if not all(all(v["equal"]) and v["launches"] == want_launches
                and len(v["graph_equal"]) == 2 * A2A_IPC["graph_replays"]
-               and all(v["graph_equal"]) for v in verdicts):
+               and all(v["graph_equal"])
+               and len(v["collectives_equal"]) == want_launches
+               and all(v["collectives_equal"])
+               and v["collective_launches"] == want_launches
+               for v in verdicts):
         raise AssertionError(f"K5 across 4 processes on one card: "
                              f"{verdicts}")
     rec["ipc_one_card"] = {
         **A2A_IPC, "bit_equal_every_rank_every_call": True,
         "graph_replays_interleaved_with_eager_bit_equal": True,
+        "device_all_gather_and_reduce_scatter_bit_equal_to_plain": True,
         "launches_per_rank": want_launches,
+        "collective_launches_per_rank": want_launches,
         "wall_s": time.perf_counter() - t0,
         "timed": False,
         "why_not_timed": "processes sharing one card without MPS run "
@@ -2009,8 +2087,11 @@ MESH_EVAL_CALLS = 8
 def mesh_graph_configs(Config, cfg128):
     """{name: (config, steps a call, K5 launches a step)} of mesh_graph:
     the sharded headline and sibling at world size 1 in each exchange,
-    with the unique-compact legs, at insert interval 8, with the dense
-    apply (K3), at K = 8, and AdaEmbed at the latency grid's width
+    with the unique-compact legs and with a capacity that overflows on
+    every step (the full legs in the branch bodies: K5's device
+    all-gathers and reduce-scatter, 4 a step), at insert interval 8 (the
+    insert's all-gather on K5, 1 in 8 steps), with the dense apply (K3),
+    at K = 8, and AdaEmbed at the latency grid's width
     (tools/latency_grid_torch.grid_config). Frequency scores, so that a
     graphed and an eager step from one state keep equal sketches."""
     sh = dict(mesh_shape=1, shard_embeddings=True, cafe_use_freq=True)
@@ -2022,7 +2103,9 @@ def mesh_graph_configs(Config, cfg128):
         "headline_pallas": (r(head, shard_exchange="pallas"), 1, 4),
         "headline_a2a": (r(head, shard_exchange="a2a"), 1, 0),
         "headline_unique": (r(head, shard_unique_frac=0.5), 1, 0),
-        "headline_interval8": (r(head, cafe_insert_interval=8), 1, 0),
+        "headline_unique_overflow": (
+            r(head, shard_unique_frac=UNIQUE_FRACS["overflow"]), 1, 4),
+        "headline_interval8": (r(head, cafe_insert_interval=8), 1, 0.125),
         "headline_dense": (r(head, sparse_apply_impl="dense"), 1, 0),
         "headline_k8": (head, 8, 0),
         "sibling_explicit": (sib, 1, 0),
@@ -2057,6 +2140,7 @@ def mesh_graph_case(fns, cfg, k, want_a2a, data, batches, mesh, kernels):
     for kern in kernels.values():
         kern.launches = 0
         kern.spare_launches = 0
+    bodies0 = {c: kk.body_launches for c, kk in kernels.items()}
     n = 0
 
     def run(step, st, count):
@@ -2131,6 +2215,9 @@ def mesh_graph_case(fns, cfg, k, want_a2a, data, batches, mesh, kernels):
            "spare_launches": {c: kk.spare_launches
                               for c, kk in kernels.items()
                               if kk.spare_launches},
+           "body_launches": {c: kk.body_launches - bodies0[c]
+                             for c, kk in kernels.items()
+                             if kk.body_launches - bodies0[c]},
            "launches": {c: kk.launches for c, kk in kernels.items()}}
     del e_step, g_step
     return rec, model, embed, state
@@ -2176,7 +2263,9 @@ def phase_mesh_graph(fns, eval_fns, Config, cfg128, data, batches, mesh,
     eager and graphed in turns on that state: ms a step (of the K steps
     a call at K = 8), kernel launches a step and branch runs (equal in
     both modes, the true sides' where a cond has no else branch; K5 4 a
-    step in the pallas exchange), peak memory,
+    step in the pallas exchange and with the overflowing compact legs,
+    1 in 8 at insert interval 8), the launches inside branch bodies,
+    peak memory,
     launches a replay and the branch bodies. On the headline explicit
     state, the graphed eval and int8 eval steps against their eager
     twins (mesh_eval_case)."""
@@ -5787,12 +5876,16 @@ def main() -> int:
             "ms": rec["ms"], "graph_ms": rec.get("graph_ms"),
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"], "shape": rec["shape"]})
+            "library_ms": rec["library_ms"], "shape": rec["shape"],
+            "launches_in_bodies": KERNELS[name].body_launches})
     # K1 also at the shapes the graph recommenders', the grid's and the
     # CAFE-vs-hash tools' inserts give it; K2 at the latency grid's and
     # ab_apply128's
     lines[0]["other_paths"] = land_shapes
     lines[1]["other_paths"] = scatter_shapes
+    # K5's device all-gather and reduce-scatter (the branch bodies' rare
+    # legs) at n = 1
+    lines[4]["collectives"] = kern["a2a"]["n1_collectives"]
     # the mesh's steps replay graphs: K5 must have run inside them
     if not lines[4]["launches_in_graphs"]:
         raise AssertionError("K5 launched in no CUDA graph replay")

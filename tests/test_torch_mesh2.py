@@ -5,7 +5,11 @@ tests/test_mesh2.py), and against the port's flat 4-rank mesh.
 
 The (2, 2) mesh keeps the flat mesh's row ownership, batch slices and
 shard-local sketch; only the explicit exchange's row legs change: ids
-and grads combine over "ici" before they cross "dcn".
+and grads combine over "ici" before they cross "dcn". With a unique
+fraction CAFE's id legs are hierarchical too (its route and insert
+compact the host's distinct ids before they cross "dcn", the flat legs
+when a host overflows): held against the JAX package's two-level runs
+at fractions that hold the host's distinct ids and one that overflows.
 
 Tolerances: integer state (the sketch, routed rows, hot flags, promotion
 counts) EXACT. Tables, dense params and loss within 1e-5 of the JAX
@@ -16,11 +20,17 @@ The compact run's tables within 1e-6 of the full-size run's.
 """
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
 import torch_dist_worker as w
-from test_torch_sharded import SHARD, STEPS, _close, _jax_run
+from cafe_tpu.ops.sparse import unique_compact as junique_compact
+from cafe_tpu.parallel import make_mesh as jmake_mesh
+from cafe_tpu.parallel.exchange import unique_cap as junique_cap
+from cafe_tpu.sketch.hotsketch import INVALID_ID
+from test_torch_sharded import (SHARD, STEPS, JConfig, _close, _jax_run,
+                                jbuild_all, jdata)
 
 torch.set_num_threads(1)
 
@@ -41,6 +51,12 @@ OTHERS = {
     "off": dict(HASH, compress_method="off", compress_rate=0.05),
     "ada": dict(HASH, compress_method="ada", compress_rate=0.3),
 }
+# CAFE's hierarchical id legs: 512-row batches of heavier-tailed ids, so
+# a host's 768 lanes hold 169-181 distinct ids. C = 384 (0.5) and 192
+# (0.25) hold them; C = 128 (0.125) does not, and every id leg overflows
+CAFE_IDS = dict(SHARD, mesh_shape=N, mesh_inner=INNER, mini_batch_size=512,
+                synthetic_rows=2048, synthetic_zipf=1.4)
+ID_FRACS = (0.5, 0.25, 0.125)
 
 
 @pytest.fixture(scope="module")
@@ -56,10 +72,45 @@ def mesh2(tmp_path_factory):
                      ("explicit",)))
     for kw in OTHERS.values():
         runs.append((kw, None, batches, ("explicit",)))
+    ids = {}
+    for frac in ID_FRACS:
+        kw = dict(CAFE_IDS, shard_unique_frac=frac)
+        ids[frac], ibatches = _jax_run(kw, N, "explicit", STEPS, INNER)
+        runs.append((kw, ids[frac]["init"], ibatches, ("explicit",)))
+    # the full-size id legs on the same data and state: the dcn bytes
+    runs.append((CAFE_IDS, ids[ID_FRACS[0]]["init"], ibatches,
+                 ("explicit",)))
+    ids["over"] = _jax_id_overflow(CAFE_IDS, ibatches)
+    jax_out["ids"] = ids
     tmp = tmp_path_factory.mktemp("ranks")
     two = w.run_ranks(w.train_runs, N, tmp / "two", runs, inner=INNER)[0]
     flat = w.run_ranks(w.train_runs, N, tmp / "flat", runs[:1])[0]
     return jax_out, two, flat[0]
+
+
+def _jax_id_overflow(kw, batches):
+    """{frac: [over a step]} of the JAX package's id-leg predicate: the
+    CAFE part's offset ids of each host's lanes through its
+    unique_compact, any host past C = unique_cap(host lanes) (its
+    pmax)."""
+    cfg = JConfig(**dict(kw, shard_unique_frac=ID_FRACS[0]))
+    _, embed, _, _, _ = jbuild_all(cfg, jdata(cfg, "train"),
+                                   mesh=jmake_mesh(N, INNER))
+    part = next(p for p in embed.parts if type(p).__name__ == "CafePart")
+    fields, offs = np.asarray(part.field_idx), \
+        np.asarray(part.global_offsets, dtype=np.int32)
+    out = {}
+    for frac in ID_FRACS:
+        over = []
+        for _, sparse, _, _ in batches:
+            hosts = np.split(sparse[:, fields] + offs, N // INNER)
+            cap = junique_cap(hosts[0].size, frac)
+            over.append(any(
+                int(junique_compact(jnp.asarray(h.reshape(-1)), cap,
+                                    int(INVALID_ID))[2]) > cap
+                for h in hosts))
+        out[frac] = over
+    return out
 
 
 def _check(port, ref):
@@ -162,6 +213,57 @@ def test_outer_traffic_stays_below_inner(mesh2):
         <= _bytes(compact["records"], "ici")
     assert 2 * _bytes(compact["records"], "dcn") \
         <= _bytes(full["records"], "dcn")
+
+
+def _id_run(two, i):
+    return two[6 + len(OTHERS) + i]["explicit"]
+
+
+@pytest.mark.parametrize("frac", ID_FRACS)
+def test_cafe_id_legs_match_jax_two_level(mesh2, frac):
+    """CAFE's hierarchical route and insert against the JAX package's
+    two-level run from one bridged state: the sketch's integers, the
+    routed rows and the promotions exact, params and tables within 1e-5;
+    the route and insert branch counts equal the JAX predicate's, and
+    the row legs take one branch a step (the fetch's and the apply's
+    the same)."""
+    jax_out, two, _ = mesh2
+    ids = jax_out["ids"]
+    run = _id_run(two, ID_FRACS.index(frac))
+    _check(run, ids[frac])
+    assert sum(m["cafe_promotions"] for m in run["metrics"]) > 0
+    over = ids["over"][frac]
+    for leg in ("route", "insert"):
+        want = {f"{leg}_full": sum(over), f"{leg}_compact": STEPS - sum(over)}
+        assert {k: v for k, v in run["branches"].items()
+                if k.startswith(leg)} == {k: v for k, v in want.items()
+                                          if v}
+    assert all(over) == (frac == 0.125) and not any(over) == (frac != 0.125)
+    rows = {k[len("fetch_"):]: v for k, v in run["branches"].items()
+            if k.startswith("fetch_")}
+    assert sum(rows.values()) == STEPS
+    assert {k[len("apply_"):]: v for k, v in run["branches"].items()
+            if k.startswith("apply_")} == rows
+
+
+def test_cafe_compact_id_legs_halve_the_outer_bytes(mesh2):
+    """The compact runs' dcn bytes against the full-size run's on the
+    same data: at 0.25 at most half (C = a quarter of the host's
+    lanes); at 0.5 below it but not half, since C is then half the
+    host's lanes, so the row legs alone halve and the id legs' own
+    C-lane buffers (route ids, insert pairs) come on top (156,672
+    against 258,048 bytes over the 3 steps here). The full-size run's
+    route and insert cross the flat group. Each compact run's dcn legs
+    carry no more than its ici legs."""
+    _, two, _ = mesh2
+    full = _id_run(two, len(ID_FRACS))
+    assert full["branches"] == {}
+    full_dcn = _bytes(full["records"], "dcn")
+    for i, frac in enumerate(ID_FRACS[:2]):
+        run = _id_run(two, i)
+        dcn = _bytes(run["records"], "dcn")
+        assert 0 < dcn <= _bytes(run["records"], "ici"), frac
+        assert (2 * dcn if frac == 0.25 else dcn) <= full_dcn, frac
 
 
 @pytest.mark.parametrize("name", list(OTHERS))

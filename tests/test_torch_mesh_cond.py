@@ -22,10 +22,12 @@ package's sharded step on its virtual 4-device CPU mesh.
   with importance are fewer than the check's top share, so the sampled
   k-th largest importance is 0 and every sampled id not admitted counts
   as churn.
-* capture_blockers names nothing of a mesh of one rank, and on more
-  than one rank only the device branches whose bodies hold NCCL
-  collectives (the a2a and pallas legs, the unique-compact legs, the
-  sharded insert interval; the card refuses to capture them there); the
+* capture_blockers names nothing of a mesh of one rank, nothing of a
+  flat mesh of 4 ranks on one host (the bodies hold K5's device
+  collectives), and on a two-level mesh or ranks of two hosts the
+  device branches whose bodies hold collectives (the a2a and pallas
+  legs, the unique-compact legs, CAFE's hierarchical id legs, the
+  sharded insert interval), which keep NCCL's there; the
   mesh's steps (train, K-step and eval; every exchange mode, the
   unique-compact legs, the insert interval, CAFE+, AdaEmbed's ordinary
   steps, auto and the two-level mesh) run under
@@ -291,8 +293,9 @@ def _mesh_of(meshes, inner):
     return meshes[inner]
 
 
-# the configurations whose branch bodies hold NCCL collectives, which
-# the card captures at world size 1 and refuses on more than one rank
+# the configurations whose branch bodies hold collectives: K5's device
+# collectives on a flat mesh of one host, NCCL's on a two-level mesh or
+# across hosts (which the card refuses to capture on more than one rank)
 NCCL_IN_BRANCHES = {"a2a", "pallas", "unique", "interval", "two_level"}
 
 
@@ -312,14 +315,21 @@ def test_mesh_steps_have_no_blocker_and_no_host_read(mesh1, name):
     off = TConfig(**dict(kw, donate_state=False))
     assert [b.split(":")[0] for b in capture_blockers(off, embed, mesh)] \
         == ["donate_state False"]
-    # on 4 ranks only the branches that hold a collective block, the
-    # train step's and (but for the insert interval) the eval step's
-    four = types.SimpleNamespace(size=4)
-    held = capture_blockers(cfg, embed, four)
+    # on 4 ranks of one host only the two-level mesh's bodies hold NCCL
+    # collectives; on ranks of two hosts every branch that holds a
+    # collective blocks, the train step's and (but for the insert
+    # interval) the eval step's
+    one_host = types.SimpleNamespace(size=4, inner=cfg.mesh_inner,
+                                     hosts=("h",) * 4)
+    two_hosts = types.SimpleNamespace(size=4, inner=0,
+                                      hosts=("a", "a", "b", "b"))
+    assert len(capture_blockers(cfg, embed, one_host)) == (
+        name == "two_level")
+    held = capture_blockers(cfg, embed, two_hosts)
     assert len(held) == (name in NCCL_IN_BRANCHES)
     assert all(b.startswith("a mesh of 4 ranks with NCCL collectives")
                for b in held)
-    assert bool(nccl_branches(embed, train=False)) == (
+    assert bool(nccl_branches(embed, two_hosts, "eval")) == (
         name in NCCL_IN_BRANCHES - {"interval"})
     b = cfg.mini_batch_size
     batch = [torch.from_numpy(np.ascontiguousarray(a[:b]))

@@ -2,9 +2,14 @@
 on different cards, eagerly and captured in a CUDA graph whose replays
 (fresh inputs each) interleave with eager calls on the same workspace
 (the call counter lives on the card), at 2 and 4 cards; 5 sharded
-train steps on NCCL at 2 and 4 cards, the default steps (graphed in the
-explicit exchange) and capture=False's, against each other and against
-the same steps on gloo ranks on the CPU; with 4
+train steps on NCCL at 2 and 4 cards, the default steps (graphed in
+every exchange) and capture=False's, against each other and against
+the same steps on gloo ranks on the CPU; the steps whose device
+branches hold collectives (pallas, a2a, the unique-compact legs with a
+batch that overflows them, the insert every 8 ticks) and the a2a legs
+alone at a capacity that a skewed batch overflows, graphed at 2 and 4
+cards, each replay against an eager step from one state, both sides of
+every branch run inside replays; with 4
 cards, the (2, 2) two-level mesh against the flat one and
 --shard_exchange auto against one card's single-device step; the
 collective-bytes table (tools/traffic_table_torch.py) on NCCL ranks
@@ -20,7 +25,9 @@ Tolerances: the all-to-all is a copy (bit-equal); sketch state, routing
 and promotion counts exact (frequency scores); the hot fraction within
 an f32 ulp; tables, params, loss and eval scores within 1e-4 (f32
 towers; NCCL and gloo sum the ranks' gradients in other orders, the
-card's row updates use atomics).
+card's row updates use atomics). A replay against an eager step from
+one state: integer leaves and fetched rows bit-equal, float leaves
+within 1e-6 (relative over 1).
 """
 
 import importlib.util
@@ -129,11 +136,10 @@ def _runs_close(c, g, mode):
 def test_sharded_steps_cards_match_cpu(world, tmp_path, n):
     """5 steps from build_all's state in each exchange mode: the default
     steps on the cards against capture=False's, and both against gloo
-    ranks on the CPU. The explicit exchange's default steps replay CUDA
-    graphs (2 eager warm-up calls, a capture, replays); the a2a and
-    pallas legs stay eager on more than one rank, naming why (their
-    overflow branch holds NCCL collectives, which the card does not
-    capture into a conditional body there)."""
+    ranks on the CPU. The default steps replay CUDA graphs (2 eager
+    warm-up calls, a capture, replays) in every exchange: the a2a and
+    pallas legs' overflow branches hold K5's device collectives, which
+    the card captures into a conditional body on more than one rank."""
     if n > world:
         pytest.skip(f"needs {n} CUDA cards")
     kw = dict(SHARD, mesh_shape=n)
@@ -149,16 +155,118 @@ def test_sharded_steps_cards_match_cpu(world, tmp_path, n):
     cpu = w.run_ranks(w.train_steps, n, tmp_path / "cpu", kw, None,
                       batches, modes)[0]
     for mode in modes:
-        want = mode == "explicit"
-        assert graphed[mode]["graphed"] == [want, want], mode
-        assert graphed[mode]["blockers"] == ([] if want else [
-            f"a mesh of {n} ranks with NCCL collectives inside device "
-            f"branches"]), mode
+        assert graphed[mode]["graphed"] == [True, True], mode
+        assert graphed[mode]["blockers"] == [], mode
         assert eager[mode]["graphed"] == [False, False], mode
         _runs_close(eager[mode], graphed[mode], mode)
         for card in (graphed[mode], eager[mode]):
             _runs_close(cpu[mode], card, mode)
             assert sum(m["cafe_promotions"] for m in card["metrics"]) > 0
+
+
+HASH = dict(SHARD, compress_method="hash", compress_rate=0.2,
+            synthetic_vocab=20000, mini_batch_size=512)
+# the steps whose branches hold collectives: (config, whether a batch of
+# distinct ids follows each data batch, the conds whose both sides must
+# run in replays)
+BODY_STEPS = {
+    "pallas": (dict(SHARD, shard_exchange="pallas"), False, ()),
+    "a2a": (dict(SHARD, shard_exchange="a2a"), False, ()),
+    # 512 rows a batch: C holds a data batch's distinct rows, not those of
+    # a batch of distinct ids
+    "unique": (dict(HASH, shard_unique_frac=0.5), True,
+               ("fetch_unique", "apply_unique")),
+    "interval8": (dict(SHARD, cafe_insert_interval=8), False,
+                  ("cafe_insert",)),
+}
+
+
+def _distinct_batch(batch, counts, seed):
+    """`batch` with every sparse id replaced by a distinct-looking one
+    within its field's vocabulary (a batch that overflows the compact
+    legs)."""
+    dense, sparse, label, valid = batch
+    rng = np.random.default_rng(seed)
+    ids = np.stack([np.resize(rng.permutation(int(c)), sparse.shape[0])
+                    for c in counts], 1).astype(sparse.dtype)
+    return dense, ids, label, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", list(BODY_STEPS))
+def test_body_steps_replay_eager(world, tmp_path, n, name):
+    """The step graphs on n cards; 6 replays (data batches and, for the
+    compact legs, batches of distinct ids between them), each against
+    an eager step from the state it started from: integers bit-equal,
+    floats within 1e-6; both sides of each named branch ran in
+    replays (the insert at ticks 0 and 8 of the interval)."""
+    if n > world:
+        pytest.skip(f"needs {n} CUDA cards")
+    cfg_kw, distinct, conds = BODY_STEPS[name]
+    kw = dict(cfg_kw, mesh_shape=n)
+    data = get_dataset(Config(**kw), "train")
+    batches = list(batch_iterator(data, kw["mini_batch_size"],
+                                  drop_last=True))
+    if distinct:
+        batches = [b for i, x in enumerate(batches[:3]) for b in (
+            x, _distinct_batch(x, data.counts, i))]
+    else:
+        # warm-ups and the capture take ticks 0-2: tick 8 replays
+        batches = batches[:6]
+    got = w.run_ranks(w.graph_vs_eager, n, tmp_path, kw, batches,
+                      device="cuda")
+    for r in got:
+        assert r["graphed"] and r["blockers"] == [], r["blockers"]
+        assert r["bad"] == [], r["bad"]
+        assert max(r["gaps"]) <= 1e-6, r["gaps"]
+        assert np.isfinite(r["loss"])
+        for c in conds:
+            assert all(r["graph_runs"].get(c, [0, 0])), (c, r["graph_runs"])
+
+
+def _exchange_batches(n, rows, lanes, dim, seed):
+    """(idx, grad) batches over a `rows`-row table, `lanes` ids a rank:
+    balanced (each rank's lanes spread evenly over the owners: the
+    routed legs) and skewed (every id owned by rank 0, more distinct
+    ids than a peer's capacity: both legs overflow), in turns."""
+    rng = np.random.default_rng(seed)
+    rows_l, b = rows // n, n * lanes // 8
+    out = []
+    for i in range(6):
+        lane = np.arange(n * lanes)
+        if i % 2 == 0:
+            idx = (lane % n) * rows_l + rng.integers(0, rows_l, lane.size)
+        else:
+            idx = rng.integers(0, rows_l, lane.size)
+        out.append((idx.astype(np.int32).reshape(b, 8),
+                    rng.normal(0, 1, (b, 8, dim)).astype(np.float32)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("impl", ["lax", "pallas"])
+def test_a2a_legs_replay_both_branches(world, tmp_path, n, impl):
+    """The a2a legs (fetch and apply) as one graphed step on n cards at
+    slack 1 over batches that route and batches that overflow, in
+    turns: the fetched rows bit-equal to an eager step's from one
+    state, the table within 1e-6, and both sides of both legs' branches
+    ran in replays."""
+    if n > world:
+        pytest.skip(f"needs {n} CUDA cards")
+    rows, dim = 4096, 16
+    table = np.random.default_rng(3).normal(0, 1, (rows, dim)).astype(
+        np.float32)
+    got = w.run_ranks(w.exchange_graph_vs_eager, n, tmp_path, table,
+                      _exchange_batches(n, rows, 512, dim, 5), 1.0, impl,
+                      device="cuda")
+    for r in got:
+        assert r["graphed"]
+        assert max(r["fetch_gaps"]) == 0.0, r["fetch_gaps"]
+        assert max(r["table_gaps"]) <= 1e-6, r["table_gaps"]
+        for c in ("fetch_a2a", "apply_a2a"):
+            assert r["graph_runs"][c] == [3, 3], r["graph_runs"]
 
 
 @pytest.fixture

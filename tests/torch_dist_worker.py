@@ -175,13 +175,15 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes, capture=True):
             from_reference_sharded(ref_state, mesh, embed)
         since = ex.exchange_branches()
         conds_before = branch_runs()["eager"]
-        metrics, records = [], []
+        metrics, records, bodies = [], [], []
         for dense, sparse, label, valid in batches:
             with ex.record_collectives() as rec:
                 state, m = step(state, *_on(mesh, dense, sparse, label),
                                 valid)
             metrics.append({k: float(v) for k, v in m.items()})
             records.append([tuple(r) for r in rec])
+            bodies.append([(r.op, r.axis, r.bytes, r.transport)
+                           for r in rec if r.in_body])
         branches = ex.exchange_branches(since)
         conds = {name: [a - b for a, b in zip(
             runs, conds_before.get(name, (0, 0)))]
@@ -210,7 +212,7 @@ def train_steps(mesh, cfg_kw, ref_state, batches, modes, capture=True):
                          step, "capture_blockers", ())
                          if b.startswith("a mesh")],
                      "conds": {k: v for k, v in conds.items() if any(v)},
-                     "records": records,
+                     "records": records, "bodies": bodies,
                      "auto_keys": [sorted(p.auto_keys)
                                    for p in embed.parts],
                      "local_shapes": {k: {n: tuple(v.shape) for n, v in
@@ -321,6 +323,220 @@ def branch_exchanges(mesh, cases):
                     "slots": {k: v.numpy() for k, v in s.items()},
                     "branches": ex.exchange_branches(since)})
     return out
+
+
+def device_collectives(mesh, seed):
+    """The device all-gather and reduce-scatter (kernels/a2a.py), their
+    plain versions, and the process group's (parallel/exchange.py, the
+    group and the device transport) on this rank's seeded int32 and
+    one-owner inputs (lane l non-zero on rank l % n only): {case: [the
+    four results]}, and the records the exchange's wrappers made as
+    (op, axis, bytes, transport)."""
+    from cafe_tpu_torch.kernels import a2a
+    from cafe_tpu_torch.parallel import exchange as ex
+    n, r = mesh.size, mesh.rank
+    rng = np.random.default_rng([seed, r])
+    owner = (np.arange(n * 24) % n == r)[:, None]
+    inputs = {
+        "int32": rng.integers(-2**31, 2**31 - 1, (n * 24, 3),
+                              dtype=np.int64).astype(np.int32),
+        "f32": rng.standard_normal((n * 24, 8)).astype(np.float32)}
+    out = {}
+    with ex.record_collectives() as rec:
+        for dt, x in inputs.items():
+            x = torch.from_numpy(x)
+            out[f"gather_{dt}"] = [
+                a2a.all_gather(x, mesh), a2a.all_gather_plain(x, mesh),
+                ex.all_gather(x, mesh),
+                ex.all_gather(x, mesh, transport="device")]
+            one = torch.where(torch.from_numpy(owner), x,
+                              torch.zeros_like(x))
+            out[f"scatter_{dt}"] = [
+                a2a.psum_scatter(one, mesh),
+                a2a.psum_scatter_plain(one, mesh),
+                ex.psum_scatter(one, mesh),
+                ex.psum_scatter(one, mesh, transport="device")]
+    return {"out": {k: [t.numpy() for t in v] for k, v in out.items()},
+            "records": [(c.op, c.axis, c.bytes, c.transport)
+                        for c in rec]}
+
+
+def body_exchanges(mesh, cases, warm=False):
+    """For each (leg, table, idx, grad, lr, optimizer, knob, impl): the
+    leg's fetch and apply on this rank's shard and batch slice, as
+    branch_exchanges runs them, the all-to-all legs through `impl`
+    ('lax', or 'pallas': K5's plain version on the CPU); with the
+    branches they took and the collectives recorded inside a branch's
+    body as (op, axis, bytes, transport). `warm`: as a GraphedStep's
+    warm-up calls run them (utils/cond.warming: each branch not taken
+    also runs, on clones)."""
+    from cafe_tpu_torch.ops.sparse import init_slots
+    from cafe_tpu_torch.parallel import exchange as ex
+    from cafe_tpu_torch.utils.cond import warming
+    if warm:
+        with warming():
+            return body_exchanges(mesh, cases)
+    out = []
+    for leg, table, idx, grad, lr, optimizer, knob, impl in cases:
+        tbl = torch.from_numpy(table[rank_slice(mesh, table.shape[0])])
+        i_l = torch.from_numpy(idx[rank_slice(mesh, idx.shape[0])])
+        g_l = torch.from_numpy(grad[rank_slice(mesh, grad.shape[0])])
+        since = ex.exchange_branches()
+        t = tbl.clone()
+        with ex.record_collectives() as rec:
+            if leg == "unique":
+                fetched = ex.sharded_fetch(mesh, tbl, i_l, knob)
+                t, _ = ex.sharded_apply(mesh, t, init_slots(t, optimizer),
+                                        i_l, g_l, lr, optimizer, knob)
+            else:
+                fetched = ex.sharded_fetch_a2a(mesh, tbl, i_l, slack=knob,
+                                               impl=impl)
+                t, _ = ex.sharded_apply_a2a(
+                    mesh, t, init_slots(t, optimizer), i_l, g_l, lr,
+                    optimizer, slack=knob, impl=impl)
+        out.append({"fetch": fetched.numpy(), "table": t.numpy(),
+                    "branches": ex.exchange_branches(since),
+                    "records": [(c.op, c.axis, c.bytes) for c in rec],
+                    "bodies": [(c.op, c.axis, c.bytes, c.transport)
+                               for c in rec if c.in_body]})
+    return out
+
+
+def step_blockers(mesh, cfg_kws, inner):
+    """{name: [the train step's capture_blockers, the eval step's, the
+    train step's on ranks that report two host names]} of each config
+    built on this mesh, and {name: the train step's blockers} on a
+    two-level mesh of the same ranks (make_mesh(n, inner))."""
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.parallel import make_mesh
+    from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.train.step import build_eval_step, capture_blockers
+    out, two = {}, {}
+    hosts = mesh.hosts
+    for name, kw in cfg_kws.items():
+        cfg = Config(**kw)
+        model, embed, _, _, _ = build_all(cfg, get_dataset(cfg, "train"),
+                                          mesh=mesh, capture=False)
+        mesh.hosts = tuple(f"host{r * 2 // mesh.size}"
+                           for r in range(mesh.size))
+        spread = capture_blockers(cfg, embed, mesh)
+        mesh.hosts = hosts
+        out[name] = [capture_blockers(cfg, embed, mesh),
+                     build_eval_step(model, embed).capture_blockers, spread]
+    mesh2 = make_mesh(mesh.size, inner, device="cpu")
+    try:
+        for name, kw in cfg_kws.items():
+            cfg = Config(**dict(kw, mesh_inner=inner))
+            _, embed, _, _, _ = build_all(cfg, get_dataset(cfg, "train"),
+                                          mesh=mesh2, capture=False)
+            two[name] = capture_blockers(cfg, embed, mesh2)
+    finally:
+        mesh2.close()
+    return {"flat": out, "hosts": list(hosts), "two_level": two}
+
+
+def _gaps(a, b):
+    """(max |a - b| / max(1, max |b|) over the float leaves of two state
+    trees, the paths of integer leaves that differ)."""
+    from cafe_tpu_torch.utils.cond import _leaves
+    gap, bad = 0.0, []
+    for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                bad.append(path)
+        elif x.numel():
+            x, y = x.detach(), y.detach()
+            gap = max(gap, float((x - y).abs().max()
+                                 / y.abs().max().clamp_min(1.0)))
+    return gap, bad
+
+
+def _graph_runs(since):
+    """{cond name: [false, true]} runs in graph replays since `since`
+    (a branch_runs() return)."""
+    from cafe_tpu_torch.utils.cond import branch_runs
+    now = branch_runs()["graph"]
+    return {name: [a - b for a, b in zip(v, since["graph"].get(name,
+                                                              (0, 0)))]
+            for name, v in now.items()
+            if v != list(since["graph"].get(name, (0, 0)))}
+
+
+def graph_vs_eager(mesh, cfg_kw, batches):
+    """The default train step (a CUDA graph on the card) against
+    capture=False's from one state: warm-up calls and the capture on the
+    first batch, then one call a batch of `batches`, each against an
+    eager step on a clone of the state it started from. Returns whether
+    it graphed, its blockers, the largest float gap a call, the integer
+    leaves that differed and the branch runs in graph replays."""
+    from cafe_tpu_torch.config import Config
+    from cafe_tpu_torch.train import build_all, get_dataset
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    from cafe_tpu_torch.train.step import build_train_step, clone_state
+    from cafe_tpu_torch.utils.cond import branch_runs
+    cfg = Config(**cfg_kw)
+    model, embed, state, e_step, _ = build_all(
+        cfg, get_dataset(cfg, "train"), mesh=mesh, capture=False)
+    g_step = build_train_step(model, embed, cfg, mesh)
+    on = [_on(mesh, d, s, lab) + (v,) for d, s, lab, v in batches]
+    for _ in range(WARMUP_CALLS + 1):
+        state, _ = g_step(state, *on[0])
+    since = branch_runs()
+    gaps, bad = [], []
+    for b in on:
+        ex, _ = e_step(clone_state(state), *b)
+        state, m = g_step(state, *b)
+        gap, wrong = _gaps(state, ex)
+        gaps.append(gap)
+        bad += wrong
+    return {"graphed": g_step.graphed,
+            "blockers": list(g_step.capture_blockers), "gaps": gaps,
+            "bad": bad, "loss": float(m["loss"]),
+            "graph_runs": _graph_runs(since)}
+
+
+def exchange_graph_vs_eager(mesh, table, batches, slack, impl):
+    """The a2a legs (fetch, then apply at lr 0.1, SGD) as one step on this
+    rank's shard, replayed as a CUDA graph on the card (GraphedStep; the
+    eager step on the CPU) against the eager step from one state: warm-up
+    calls and the capture on the first (idx, grad) batch, then one call
+    a batch. Returns the fetches' and tables' largest gaps a call and
+    the branch runs in graph replays."""
+    from cafe_tpu_torch.ops.sparse import init_slots
+    from cafe_tpu_torch.parallel import exchange as ex
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS, GraphedStep
+    from cafe_tpu_torch.train.step import clone_state
+    from cafe_tpu_torch.utils.cond import branch_runs
+
+    def step(st, idx, grad):
+        rows = ex.sharded_fetch_a2a(mesh, st["table"], idx, slack=slack,
+                                    impl=impl)
+        t, sl = ex.sharded_apply_a2a(mesh, st["table"], st["slots"], idx,
+                                     grad, 0.1, "sgd", slack=slack,
+                                     impl=impl)
+        return {"table": t, "slots": sl}, rows
+
+    tbl = torch.from_numpy(table[rank_slice(mesh, table.shape[0])]).to(
+        mesh.device)
+    state = {"table": tbl, "slots": init_slots(tbl, "sgd")}
+    g_step = GraphedStep(step, carry=True) \
+        if mesh.device.type == "cuda" else step
+    on = [tuple(torch.from_numpy(x[rank_slice(mesh, x.shape[0])]).to(
+        mesh.device) for x in b) for b in batches]
+    for _ in range(WARMUP_CALLS + 1):
+        state, _ = g_step(state, *on[0])
+    since = branch_runs()
+    fetch_gaps, table_gaps = [], []
+    for b in on:
+        ex_state, ex_rows = step(clone_state(state), *b)
+        state, rows = g_step(state, *b)
+        fetch_gaps.append(float((rows - ex_rows).abs().max()))
+        table_gaps.append(_gaps(state, ex_state)[0])
+    return {"graphed": getattr(g_step, "graphed", False),
+            "fetch_gaps": fetch_gaps, "table_gaps": table_gaps,
+            "graph_runs": _graph_runs(since),
+            "eager_runs": {k: v for k, v in branch_runs()["eager"].items()
+                           if k in ("fetch_a2a", "apply_a2a")}}
 
 
 def with_constants(mesh, module, values, name, *args):

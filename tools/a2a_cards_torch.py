@@ -33,14 +33,16 @@ by NCCL, and prints one JSON line per phase from rank 0:
    workspace lives on the card, so a replay runs its own epoch);
 2. steps: the sharded headline (DLRM + CAFE, dim 16, cr 1e-3) and the
    sibling (dim 128, cr 0.1 over the Terabyte vocabularies), bf16
-   towers, SGD, on the N-card mesh in the explicit and pallas
-   exchanges, at K = 1 and 8 steps a call: the graphed step (2 warm-up
-   calls, a capture) and the eager one (capture=False) on one state,
-   in 4 windows each of 5 calls taken in turns (e g g e ...), each ended
-   by a device synchronize and a barrier: ms/step of each (median), K5
-   launches per step, peak memory, loss. The pallas step stays eager on
-   more than one card (its capture_blockers, recorded): it is timed
-   eager only.
+   towers, SGD, on the N-card mesh in the explicit, pallas and a2a
+   exchanges, with the unique-compact legs (--shard_unique_frac 0.5)
+   and with the insert every 8 ticks, at K = 1 and 8 steps a call: the
+   graphed step (2 warm-up calls, a capture) and the eager one
+   (capture=False) on one state, in 4 windows each of 5 calls taken in
+   turns (e g g e ...), each ended by a device synchronize and a
+   barrier: ms/step of each (median), K5 launches per step, the
+   exchange's branch runs in the timed windows, peak memory, loss.
+   Every configuration must graph on one host (the branches' bodies
+   hold K5's device collectives, not NCCL's).
 
 Then the card's name and power limit. Exits non-zero without at least
 one CUDA card.
@@ -213,7 +215,12 @@ STEP_MODELS = {"headline": dict(dataset="criteo", embedding_dim=16,
                                  compress_rate=0.001, learning_rate=0.1),
                "sibling": dict(dataset="criteotb", embedding_dim=128,
                                compress_rate=0.1, learning_rate=1.0)}
-STEP_EXCHANGES = ("explicit", "pallas")
+# the step configurations: the exchanges, the unique-compact legs and
+# the insert interval (their device branches hold collectives)
+STEP_CONFIGS = {"explicit": {}, "pallas": {"shard_exchange": "pallas"},
+                "a2a": {"shard_exchange": "a2a"},
+                "unique": {"shard_unique_frac": 0.5},
+                "interval8": {"cafe_insert_interval": 8}}
 STEP_KS = (1, 8)
 STEP_WINDOWS, STEP_CALLS = 4, 5
 
@@ -230,6 +237,7 @@ def phase_steps(mesh):
     from cafe_tpu_torch.data import make_criteo_batches
     from cafe_tpu_torch.kernels import a2a
     from cafe_tpu_torch.parallel import batch_slice
+    from cafe_tpu_torch.parallel.exchange import exchange_branches
     from cafe_tpu_torch.train import build_all, build_multi_step
     from cafe_tpu_torch.train.capture import WARMUP_CALLS
     from cafe_tpu_torch.train.step import build_train_step
@@ -239,26 +247,22 @@ def phase_steps(mesh):
             + (v,) for d, s, lab, v in batches]
     rec = {}
     for model_name, kw in STEP_MODELS.items():
-        for mode in STEP_EXCHANGES:
+        for mode, extra in STEP_CONFIGS.items():
             cfg = Config(model="dlrm", compress_method="cafe",
                          cafe_sketch_threshold=500.0, cafe_hash_rate=0.5,
                          mini_batch_size=BATCH, bf16=True,
                          mesh_shape=mesh.size, shard_embeddings=True,
-                         shard_exchange=mode, **kw)
+                         **extra, **kw)
             gc.collect()
             torch.cuda.empty_cache()
             model, embed, state, e_one, _ = build_all(cfg, data, mesh=mesh,
                                                       capture=False)
             g_one = build_train_step(model, embed, cfg, mesh)
-            if not g_one.graphed and mode == "explicit":
+            if not g_one.graphed:
                 raise AssertionError(f"steps {model_name} {mode}: not "
                                      f"graphed: {g_one.capture_blockers}")
             for k in STEP_KS:
-                # a step that stays eager (capture_blockers) is timed
-                # eager only
-                steps = {"eager": e_one}
-                if g_one.graphed:
-                    steps["graphed"] = g_one
+                steps = {"eager": e_one, "graphed": g_one}
                 bats = mine
                 if k > 1:
                     steps = {m: build_multi_step(s, k, donate=True,
@@ -277,15 +281,13 @@ def phase_steps(mesh):
                     dist.barrier(group=mesh.group)
                     return m
 
-                if "graphed" in steps:
-                    run(steps["graphed"], WARMUP_CALLS + 1)
+                run(steps["graphed"], WARMUP_CALLS + 1)
                 run(steps["eager"], 1)
                 times = {m_name: [] for m_name in steps}
                 k5 = {m_name: 0 for m_name in steps}
                 torch.cuda.reset_peak_memory_stats()
+                since = exchange_branches()
                 for m_name in _order(STEP_WINDOWS):
-                    if m_name not in steps:
-                        continue
                     before = a2a.KERNEL.launches
                     t0 = time.perf_counter()
                     m = run(steps[m_name], STEP_CALLS)
@@ -295,18 +297,17 @@ def phase_steps(mesh):
                 calls = STEP_WINDOWS * STEP_CALLS * k
                 med = {m_name: float(np.median(t))
                        for m_name, t in times.items()}
-                graphed = med.get("graphed")
                 rec[f"{model_name}_{mode}_k{k}"] = {
                     "eager_ms_per_step": med["eager"],
-                    "graphed_ms_per_step": graphed,
-                    "speedup": graphed and med["eager"] / graphed,
+                    "graphed_ms_per_step": med["graphed"],
+                    "speedup": med["eager"] / med["graphed"],
                     "window_ms": times, "loss": float(m["loss"]),
                     "a2a_launches_per_step": {
                         m_name: v / calls for m_name, v in k5.items()},
+                    "branch_runs": exchange_branches(since),
                     "peak_allocated_gb":
                         torch.cuda.max_memory_allocated() / 2**30,
-                    "graphed": graphed is not None,
-                    "capture_blockers": list(g_one.capture_blockers)}
+                    "graphed": True}
             del model, embed, state, e_one, g_one
     return rec
 

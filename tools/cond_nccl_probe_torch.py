@@ -8,9 +8,10 @@ CUDA port (cafe_tpu_torch; no jax).
 Starts N processes (default 1), one card each, joined by NCCL in a mesh
 (parallel/mesh.make_mesh), and for each collective of the sharded
 exchange (all_reduce, all_gather, reduce_scatter, all_to_all_single, and
-K5 through kernels/a2a.py) x placement ("graph": in the captured graph;
-"body": inside the true body of a `cond`) x capture mode ("global",
-"thread_local"):
+K5 through kernels/a2a.py: its all-to-all and the device all-gather and
+reduce-scatter that the mesh steps' branch bodies hold) x placement
+("graph": in the captured graph; "body": inside the true body of a
+`cond`) x capture mode ("global", "thread_local"):
 
 1. one eager call (the communicator and K5's workspace exist before any
    capture);
@@ -58,6 +59,8 @@ def collectives(mesh):
         "all_to_all_single": lambda x: a2a.all_to_all_plain(
             x.reshape(n, -1, DIM), mesh),
         "k5": lambda x: a2a.all_to_all(x.reshape(n, -1, DIM), mesh),
+        "k5_all_gather": lambda x: a2a.all_gather(x, mesh),
+        "k5_reduce_scatter": lambda x: a2a.psum_scatter(x, mesh),
     }
 
 
