@@ -14,8 +14,13 @@ the full [n_nodes, 1, d] gradient to the part's apply_grads, which
 inserts into the sketch and updates the rows (rows-Adam by default).
 The insert lands through kernel K1 (land_impl 'auto', the CTR path's
 default): the JAX package's graphrec parts keep CafePart's 'segmax'
-default, XLA's segment_max, which lands the same values. The step is
-eager: the default Adam apply is not captured.
+default, XLA's segment_max, which lands the same values. The step reads
+nothing back to the host and makes no shape from the data (every node
+row each step, the rows-Adam / Adagrad apply on fixed-shape rows), so
+on the card `build_step` replays it as a CUDA graph, the port's
+counterpart of `jit_step` (train/capture.py); on the CPU it runs
+eagerly. Scoring and recall@k stay eager, as the JAX package does not
+jit them either.
 
 Evaluation scores users in chunks on the device, masks each user's train
 items and takes the top k there, so the [users x items] score matrix
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...embeddings.base import HashedTablePart
 from ...embeddings.cafe import CafePart
+from ...train.step import build_graphrec_step
 
 
 class Graph(NamedTuple):
@@ -135,6 +141,8 @@ class LightGCN:
         return raw[:, 0, :], aux
 
     def _on(self, x) -> torch.Tensor:
+        """x as an int64 tensor on the model's device (a device int64
+        tensor as it is)."""
         return torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x).to(self.device, torch.int64)
 
@@ -163,6 +171,17 @@ class LightGCN:
             state, _ = self.part.apply_grads(state, self._ids, g[:, None, :],
                                              aux, cfg.lr)
         return state, loss.detach()
+
+    def build_step(self, capture: bool = True):
+        """The BPR step main_graphrec_torch calls, (state, users, pos,
+        neg) -> (state, loss) with the batch as int64 device tensors: the
+        port's
+        `jit_step`. On the card, with `capture` and no
+        train.step.graphrec_capture_blockers, a GraphedStep (it owns the
+        state it captured and returns it, and `loss` is a tensor the next
+        replay overwrites); else the eager bpr_step."""
+        return build_graphrec_step(self.bpr_step, self.part, self.device,
+                                   carry=True, capture=capture)
 
     # -- evaluation -----------------------------------------------------
     @torch.no_grad()

@@ -10,8 +10,17 @@ neighbour blocks; the convs take the dense optimizer
 (train/step._dense_update) and the table the part's apply_grads on the
 block's padded unique ids, whose CAFE insert lands through kernel K1
 (land_impl 'auto'; the JAX package's part keeps the 'segmax' default,
-which lands the same values). The step is eager: the default Adam
-apply is not captured, and the host sampler, not the device, sets a
+which lands the same values).
+
+The train and representation steps read nothing back to the host and
+make no shape from the data (the block is padded to a fixed capacity,
+the rows-Adam / Adagrad apply updates fixed-shape rows), so on the card
+`build_train_step` and `build_representation_step` replay them as CUDA
+graphs, the port's counterparts of main_graphrec.py's
+`jax.jit(model.train_step)` and of `represent_items`' jitted
+representation step (train/capture.py). A graph keys on positional
+tensors, so the built steps take the block as BLOCK_KEYS in order; on
+the CPU they run eagerly. The host sampler, not the device, sets a
 step's pace.
 """
 
@@ -26,7 +35,38 @@ import torch
 from ...device import resolve_device
 from ...embeddings.base import HashedTablePart
 from ...embeddings.cafe import CafePart
-from ...train.step import _dense_update, _leaves, init_dense_opt
+from ...train.step import (_dense_update, _leaves, build_graphrec_step,
+                           init_dense_opt)
+
+# a block's tensors in the positional order of the built steps
+BLOCK_KEYS = ("ids", "ego_pos", "nbr1_pos", "nbr2_pos", "w1", "w2")
+
+
+def block_args(block: Dict) -> tuple:
+    """A block's tensors as the built steps take them (BLOCK_KEYS)."""
+    return tuple(block[k] for k in BLOCK_KEYS)
+
+
+class FixedLR:
+    """A train step built for one learning rate: `step(state, *block,
+    lr)`. A graph replays the lr it was captured with, so a call with
+    another lr raises rather than replay a stale constant. Attributes
+    not set here (`graphed`, `replays`, `capture_s`, ...) are the
+    wrapped step's."""
+
+    def __init__(self, step, lr: float):
+        self.step = step
+        self.lr = lr
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, state, *args):
+        *block, lr = args
+        if lr != self.lr:
+            raise ValueError(f"PinSAGE train step built for lr {self.lr}, "
+                             f"called with lr {lr}: build another step")
+        return self.step(state, *block)
 
 
 class RandomWalkSampler:
@@ -211,6 +251,31 @@ class PinSAGE:
                 state["embed"], ids, grads[-1], aux, lr)
         return new_state, loss.detach()
 
+    def build_train_step(self, lr: float, capture: bool = True):
+        """The train step main_graphrec_torch calls, (state,
+        *block_args(block), lr) -> (state, loss), built for `lr`
+        (FixedLR). On the card, with
+        `capture` and no train.step.graphrec_capture_blockers, it replays
+        a CUDA graph (a GraphedStep: it owns the state it captured and
+        returns it, and `loss` is a tensor the next replay overwrites);
+        else it runs train_step eagerly."""
+        def step(state, *block):
+            return self.train_step(state, dict(zip(BLOCK_KEYS, block)), lr)
+
+        return FixedLR(build_graphrec_step(step, self.part, self.device,
+                                           carry=True, capture=capture), lr)
+
+    def build_representation_step(self, capture: bool = True):
+        """representation_step as (state, *block_args(block)) -> [S, D]:
+        on the card, with `capture` and no blockers, a graphed eval step
+        whose output the next replay overwrites; else eager."""
+        def step(state, *block):
+            return self.representation_step(state,
+                                            dict(zip(BLOCK_KEYS, block)))
+
+        return build_graphrec_step(step, self.part, self.device,
+                                   carry=False, capture=capture)
+
     def make_block(self, sampler: RandomWalkSampler,
                    seeds: np.ndarray) -> Dict:
         """Assemble a static-shape conv block for arbitrary seed items."""
@@ -262,16 +327,20 @@ class PinSAGE:
         return self._block_rep(state, raw[:, 0, :], block)
 
     def represent_items(self, state: Dict, sampler: RandomWalkSampler,
-                        batch: int = 256) -> np.ndarray:
+                        batch: int = 256, step=None) -> np.ndarray:
         """[n_items, D] representations of every item (evaluation.py's
-        h_item), computed in fixed-shape blocks."""
+        h_item), computed in fixed-shape blocks, through `step` (a
+        build_representation_step; default the eager
+        representation_step). Each block's output is copied out before
+        the next call, which a graphed step's replay overwrites."""
         out = np.empty((self.n_items, self.cfg.hidden_dims), np.float32)
         for lo in range(0, self.n_items, batch):
             ids = np.arange(lo, min(lo + batch, self.n_items),
                             dtype=np.int32)
             pad = batch - len(ids)
             seeds = np.concatenate([ids, np.zeros(pad, np.int32)])
-            z = self.representation_step(state,
-                                         self.make_block(sampler, seeds))
+            block = self.make_block(sampler, seeds)
+            z = (self.representation_step(state, block) if step is None
+                 else step(state, *block_args(block)))
             out[lo:lo + len(ids)] = z[: len(ids)].cpu().numpy()
         return out

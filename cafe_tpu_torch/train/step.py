@@ -43,7 +43,9 @@ branches (the skipped insert, CAFE+'s decay and reset, AdaEmbed's
 decay, the exchange's overflow legs) are conditional nodes in the
 graph (utils/cond.cond); AdaEmbed's check steps run eagerly on the
 graph's state, picked by its host mirror of the step counter
-(train/capture.StepMirror).
+(train/capture.StepMirror). The graph recommenders' steps take the
+same capture through `build_graphrec_step`, with
+`graphrec_capture_blockers`.
 """
 
 from __future__ import annotations
@@ -279,6 +281,40 @@ def capture_blockers(cfg, embed_layer, mesh=None) -> List[str]:
         if no_nodes:
             out.append(no_nodes)
     return out + _mesh_blockers(embed_layer, mesh, "train")
+
+
+_NOT_ON_CUDA = ("not on CUDA: the step runs on the CPU, which replays no "
+                "CUDA graph")
+
+
+def graphrec_capture_blockers(part, device) -> List[str]:
+    """What keeps a graph recommender's jitted step (LightGCN's BPR step,
+    PinSAGE's train and representation steps, models/graphrec/) on
+    `device` from replaying a CUDA graph, each with its reason; empty
+    when nothing does. Decided from the configuration (the device and
+    the node-id part), never from a failed capture: a step off the card,
+    or a part with device branches on a torch or CUDA that cannot hold
+    them (utils/cond.conditional_node_blocker)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [_NOT_ON_CUDA]
+    no_nodes = conditional_node_blocker(device) if part.conds else None
+    return [no_nodes] if no_nodes else []
+
+
+def build_graphrec_step(fn, part, device, carry: bool, capture=True):
+    """`fn(state, *batch)` as a graph recommender's step: with `capture`
+    and no graphrec_capture_blockers a GraphedStep (`carry` True for a
+    train step returning (state, out), False for an eval step), else
+    `fn` run eagerly (`.graphed` False, `.capture_blockers` set)."""
+    blockers = graphrec_capture_blockers(part, device)
+    if capture and not blockers:
+        return GraphedStep(fn, carry=carry)
+
+    def step(state, *batch):
+        return fn(state, *batch)
+
+    return _eager(step, blockers)
 
 
 def _step_mirror(embed_layer):

@@ -211,8 +211,8 @@ dequantizing lookup is torch's row gather and element-wise ops):
    step on the world-size-1 NCCL mesh (eager) and the same state on one
    device through enable_sharded_layout(1) (graphed): scores bit-equal.
 
-The graph recommenders (main_graphrec_torch.py; eager steps, after
-phase 12; each phase prints its wall time):
+The graph recommenders (main_graphrec_torch.py, whose steps replay CUDA
+graphs on the card; after phase 12; each phase prints its wall time):
 
 39. graphrec_lightgcn: LightGCN at the reference's width (dim 64, 3
    layers, Adam lr 0.001, weight decay 1e-4, cr 0.1, hot rate 0.7, B =
@@ -221,18 +221,30 @@ phase 12; each phase prints its wall time):
    LIGHTGCN_THRESHOLD an epoch saved and a run that auto-resumes and
    trains one more: ms a step behind a synchronize, the host's negative
    sampling apart, recall@20 above a random ranking's, hot ids, K1 once
-   a step; K1 on the inputs a step of the trained state gives it,
-   bit-equal to its plain version and timed; one step from that state
-   on the card and on the CPU (frequency scores): sketch and tick
-   exact, table and Adam slots within adam_close;
+   a step; each run's step graphed, K1's launches inside graphs equal
+   to its replays (graphrec_graph_gate); K1 on the inputs a step of
+   the trained state gives it, bit-equal to its plain version and
+   timed; one step from that state on the card and on the CPU
+   (frequency scores): sketch and tick exact, table and Adam slots
+   within adam_close; then GRAPHREC_GRAPH_STEPS steps graphed beside
+   eager from that state on one batch (graphed_beside_eager): ms a step
+   of each, capture s, launches a replay, K1 inside graphs, peak
+   allocated memory and the graph's private pool; sketch, tick and hot
+   ids exact, table and Adam
+   slots within adam_close; the graphed step traced;
 40. graphrec_pinsage: PinSAGE at the reference's width (hidden 16, 2
    layers, T = 3, 10 walks, Adam) with CAFE (compress ratio 4) on a
    synthetic graph of MovieLens-1M's size (6,040 x 3,706), B = 2048
    (79,872 padded ids a step), PINSAGE_STEPS steps an epoch: train and
    save, auto-resume and train one more, hit@10 and NDCG; the host
-   sampler timed apart from the device step; K1 once a step, its case
-   and the card-against-CPU step as phase 39 (conv params and their
-   Adam slots within GRAPHREC_TOL).
+   sampler timed apart from the device step; K1 once a step, the graph
+   gate (the representation step graphed too), its case, the
+   card-against-CPU step and the graphed-beside-eager steps as phase 39
+   (conv params and their Adam slots within GRAPHREC_TOL), except that
+   the free run's floats are recorded and held step by step instead
+   (graphed_lockstep: each replay from the eager step's input state);
+   represent_items through the graphed representation step against the
+   eager one on one state within GRAPHREC_TOL (bit-equal expected).
 
 QR, Off and AdaEmbed on the mesh, and the unique-compact exchange (world
 size 1, after phase 12; eager steps; each line carries its wall time):
@@ -315,7 +327,8 @@ their entry points build them; each line carries its wall time):
    60,000 events) split by cafe_tpu_torch.tools.process_interactions (the
    last event of each user held out), then LightGCN with CAFE one epoch
    through main_graphrec_torch.main --data_path: one test item a user, K1
-   once a step, a finite recall@20.
+   once a step, the step graphed (graphrec_graph_gate), a finite
+   recall@20.
 
 The repo's root measurement tools and a dataset launcher (after phase
 51; each tools/*_torch.py in this process at its JAX twin's shapes, cut
@@ -3086,16 +3099,17 @@ def land_real_case(land, enc, keys, n):
     return row
 
 
-def adam_close(name, card, cpu, lr, tol=GRAPHREC_TOL):
+def adam_gaps(card, cpu, lr, tol=GRAPHREC_TOL):
     """A rows-Adam table [R, D] and its slots after one step on the card
-    and on the CPU: rows whose gradient is float noise in either (|m| <
-    1e-6; Adam moves such a row by up to lr whatever the noise) within
-    lr + tol, every other row within tol; each slot within 1e-3 of its
-    value plus 1e-5 of its largest magnitude. The card sums a row's
-    gradient terms with atomics in no fixed order: the sum moves by a few
-    ulps of its terms' magnitudes, which can dwarf a sum that cancels to
-    near 0, so the bound follows the slot's scale; a row updated wrongly
-    or not at all is off by its whole value. Returns the largest gaps."""
+    and on the CPU: (the largest gaps, whether they hold). Rows whose
+    gradient is float noise in either (|m| < 1e-6; Adam moves such a row
+    by up to lr whatever the noise) hold within lr + tol, every other row
+    within tol; each slot within 1e-3 of its value plus 1e-5 of its
+    largest magnitude. The card sums a row's gradient terms with atomics
+    in no fixed order: the sum moves by a few ulps of its terms'
+    magnitudes, which can dwarf a sum that cancels to near 0, so the
+    bound follows the slot's scale; a row updated wrongly or not at all
+    is off by its whole value."""
     noise = (np.abs(card["table_m"]).max(1) < 1e-6) \
         | (np.abs(cpu["table_m"]).max(1) < 1e-6)
     d = np.abs(card["table"] - cpu["table"])
@@ -3109,6 +3123,12 @@ def adam_close(name, card, cpu, lr, tol=GRAPHREC_TOL):
         rec[k + "_scale"] = float(np.abs(cpu[k]).max())
         ok &= bool((gap <= 1e-3 * np.abs(cpu[k])
                     + 1e-5 * rec[k + "_scale"]).all())
+    return rec, bool(ok)
+
+
+def adam_close(name, card, cpu, lr, tol=GRAPHREC_TOL):
+    """adam_gaps' largest gaps; raises where they do not hold."""
+    rec, ok = adam_gaps(card, cpu, lr, tol)
     if not ok:
         raise AssertionError(f"{name}: card against CPU {rec}")
     return rec
@@ -3122,13 +3142,115 @@ def _sketch_equal(name, card, cpu):
 
 def graphrec_cli(main_fn, argv, log_name, kernels):
     """main_graphrec_torch.main(argv): (its result, prints, wall s, every
-    kernel's launches in the run, read as it returns)."""
+    kernel's launches in the run, read as it returns). The result's
+    "launches_in_graphs" holds each kernel's launches inside graph
+    replays in the run."""
     for k in kernels.values():
         k.launches = 0
+    before = {n: k.graph_launches for n, k in kernels.items()}
     t0 = time.perf_counter()
     res, lines = run_cli(main_fn, argv, log_name)
     wall = time.perf_counter() - t0
+    res["launches_in_graphs"] = {n: k.graph_launches - before[n]
+                                 for n, k in kernels.items()}
     return res, lines, wall, {n: k.launches for n, k in kernels.items()}
+
+
+def graphrec_graph_gate(name, res, device):
+    """A graphrec CLI run on the card: its steps graphed, nothing
+    blocking, and K1's launches inside graphs equal to the train step's
+    replays (one insert a step; the representation step inserts
+    nothing). Returns the run's capture record."""
+    k1 = res["launches_in_graphs"]["land_max"]
+    rec = {"graphed": res["graphed"], "replays": res["replays"],
+           "capture_s": res["capture_s"], "k1_in_graphs": k1,
+           "capture_blockers": res["capture_blockers"]}
+    if device == "cuda" and not (
+            res["graphed"] and res["replays"] > 0 and k1 == res["replays"]
+            and all(e["graphed"] for e in res["epochs"])):
+        raise AssertionError(f"{name}: not graphed as it should be {rec}")
+    return rec
+
+
+# steps graphed beside eager from one state: untimed first (the graphed
+# step's warm-up calls, capture and a first replay), then windows in turns
+GRAPHREC_GRAPH_STEPS, GRAPHREC_UNTIMED, GRAPHREC_WINDOW = 20, 4, 4
+
+
+def _peak(base):
+    """Allocated memory: the peak, the peak over `base` (allocated at the
+    start) and what stays allocated."""
+    return {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_over_start_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "held_after_gb": (torch.cuda.memory_allocated() - base) / 1e9}
+
+
+def graph_pool_gb(step):
+    """What the private memory pools of a GraphedStep's graphs hold
+    reserved for their replays (the allocator's segments each graph's
+    pool owns, torch.cuda.memory_snapshot), GB. The blocks a capture
+    frees stay in its pool, so allocated memory does not show them."""
+    pools = {tuple(g.graph.pool()) for g in step._graphs.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in pools) / 1e9
+
+
+def graphed_beside_eager(make, call, land):
+    """GRAPHREC_GRAPH_STEPS steps eager and graphed, each mode from its
+    own copy of one state on one batch: make(capture) -> (model, step,
+    state), call(step, state) -> (state, loss). Each mode's first
+    GRAPHREC_UNTIMED steps are untimed (its peak memory is read over
+    them, the graph's capture and private pool included); then windows
+    of GRAPHREC_WINDOW steps in turns (_order), each ending in
+    torch.cuda.synchronize(). Returns (record, {mode: (model, step,
+    state, losses)}): ms a step (median of windows, and each window's),
+    capture s, launches per replay, K1's launches inside graphs (held to
+    the replays), peak allocated memory, the graph's private pool."""
+    from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    runs, rec = {}, {}
+    for mode in ("eager", "graphed"):
+        model, step, state = make(mode == "graphed")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g0 = land.KERNEL.graph_launches
+        losses = []
+        for _ in range(GRAPHREC_UNTIMED):
+            state, loss = call(step, state)
+            losses.append(loss.clone())
+        torch.cuda.synchronize()
+        rec[mode] = {"graphed": bool(step.graphed), **_peak(base),
+                     "windows_ms": []}
+        runs[mode] = [model, step, state, losses, g0]
+    windows = (GRAPHREC_GRAPH_STEPS - GRAPHREC_UNTIMED) // GRAPHREC_WINDOW
+    for mode in _order(windows):
+        model, step, state, losses, _ = runs[mode]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPHREC_WINDOW):
+            state, loss = call(step, state)
+            losses.append(loss.clone())
+        torch.cuda.synchronize()
+        rec[mode]["windows_ms"].append(
+            (time.perf_counter() - t0) * 1e3 / GRAPHREC_WINDOW)
+        runs[mode][2] = state
+    for mode in rec:
+        rec[mode]["ms_per_step"] = float(np.median(rec[mode]["windows_ms"]))
+        rec[mode]["steps"] = len(runs[mode][3])
+    g = runs["graphed"][1]
+    k1 = land.KERNEL.graph_launches - runs["graphed"][4]
+    per = g.launches_per_replay()
+    rec["graphed"].update(capture_s=g.capture_s, replays=g.replays,
+                          launches_per_replay=per, k1_in_graphs=k1,
+                          graph_pool_gb=graph_pool_gb(g))
+    if not g.graphed or rec["eager"]["graphed"] or \
+            g.replays != GRAPHREC_GRAPH_STEPS - WARMUP_CALLS or \
+            k1 != g.replays * per.get("land_max", 0):
+        raise AssertionError(f"graphed beside eager: {rec}")
+    losses = [torch.stack(runs[m][3]).double().cpu().numpy() for m in rec]
+    rec["loss_gap"] = float(np.abs(losses[0] - losses[1]).max())
+    return rec, {m: runs[m][:4] for m in runs}
 
 
 def sum_launches(runs):
@@ -3147,7 +3269,9 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
     K1 once a step, recall@20 above a random ranking's. Then K1 on the
     inputs a step of the trained state gives it, and one step from that
     state (frequency scores) on the card and on the CPU: the sketch
-    exact, the table and its Adam slots within adam_close."""
+    exact, the table and its Adam slots within adam_close. Each CLI run
+    graphs its step (graphrec_graph_gate); on the card the step is then
+    timed graphed beside eager from that state (lightgcn_graphed)."""
     plat = ["--force_platform", "cpu"] if device == "cpu" else []
     root = tempfile.mkdtemp(prefix="chip_smoke_lightgcn_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
@@ -3173,14 +3297,19 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
                 raise AssertionError(f"lightgcn {name}: K1 launched {k1} "
                                      f"times in {ep['steps']} steps")
             out[name] = {**ep, "wall_s": wall, "launches": launches,
+                         "launches_in_graphs": res["launches_in_graphs"],
+                         "capture": graphrec_graph_gate(
+                             f"lightgcn {name}", res, device),
                          "lines": [ln for ln in lines
                                    if ln.startswith(("epoch", "resumed"))]}
         if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
                    for ln in out["run_b"]["lines"]) \
                 or out["run_b"]["epoch"] != 1 or out["run_a"]["hot_ids"] <= 0:
             raise AssertionError(f"lightgcn resume: {out['run_b']}")
-        out["launches"] = sum_launches(
-            [out[n] for n in ("default_threshold", "run_a", "run_b")])
+        runs = [out[n] for n in ("default_threshold", "run_a", "run_b")]
+        out["launches"] = sum_launches(runs)
+        out["launches_in_graphs"] = sum_launches(
+            [{"launches": r["launches_in_graphs"]} for r in runs])
 
         args = gr.parse_args(flags + ["--sketch_threshold", threshold])
         train, _, n_items = gr.make_synthetic_interactions(
@@ -3216,9 +3345,62 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
             raise AssertionError("lightgcn: tick differs card vs CPU")
         out["card_vs_cpu"] = adam_close("lightgcn", card, cpu, args.lr)
         out["card_vs_cpu"]["sketch_equal"] = True
+        if device == "cuda":
+            batch = [torch.from_numpy(x).cuda().long()
+                     for x in (users, pos, neg)]
+            out["graphed_beside_eager"] = lightgcn_graphed(
+                gr, land, load_tree, to_numpy, args, train, n_items, ck,
+                batch)
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def lightgcn_graphed(gr, land, load_tree, to_numpy, args, train, n_items,
+                     ck, batch):
+    """LightGCN.build_step graphed beside eager from the checkpoint's
+    state on one batch (graphed_beside_eager, frequency scores): the
+    sketch, tick and hot ids exact, the table and its Adam slots within
+    adam_close; then the graphed step traced."""
+    def make(capture):
+        model = gr.lightgcn_model(args, train, n_items, "cuda")
+        model.part.use_freq = True
+        state, _ = load_tree(ck, model.init(), model.device)
+        return model, model.build_step(capture), state
+
+    rec, runs = graphed_beside_eager(
+        make, lambda step, state: step(state, *batch), land)
+    (_, _, e, _), (_, g_step, g, _) = runs["eager"], runs["graphed"]
+    e_np, g_np = to_numpy(e), to_numpy(g)
+    _sketch_equal("lightgcn graphed", g_np["sketch"], e_np["sketch"])
+    rec["hot_ids"] = [gr.hot_ids(g), gr.hot_ids(e)]
+    if g_np["tick"] != e_np["tick"] or rec["hot_ids"][0] != rec["hot_ids"][1]:
+        raise AssertionError(f"lightgcn graphed: tick or hot ids differ "
+                             f"from eager {rec}")
+    rec["graphed_vs_eager"] = {**adam_close("lightgcn graphed", g_np, e_np,
+                                            args.lr), "sketch_equal": True}
+    rec["profile_graph"] = trace_steps("graphrec_lightgcn_graph",
+                                       lambda i: g_step(g, *batch))
+    return rec
+
+
+def pinsage_dense_gaps(card, ref):
+    """PinSAGE's conv params and their optimizer slots against `ref`'s:
+    {key: the largest gap of each leaf}."""
+    return {key: [float(np.max(np.abs(np.asarray(a) - np.asarray(c))))
+                  for a, c in zip(_flat(card[key]), _flat(ref[key]))]
+            for key in [k for k in ref if k.startswith("conv")] + ["opt"]}
+
+
+def pinsage_dense_close(name, card, ref):
+    """PinSAGE's conv params and their optimizer slots within
+    GRAPHREC_TOL of `ref`'s: {key: the largest gap}."""
+    rec = {}
+    for key, gaps in pinsage_dense_gaps(card, ref).items():
+        rec[key] = max(gaps)
+        if not rec[key] <= GRAPHREC_TOL:
+            raise AssertionError(f"{name} {key}: {gaps}")
+    return rec
 
 
 def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
@@ -3232,7 +3414,9 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
     inputs a step of the trained state gives it, and one step from that
     state and one block (frequency scores) on the card and on the CPU:
     the sketch exact, conv params and their Adam slots within
-    GRAPHREC_TOL, the table within adam_close."""
+    GRAPHREC_TOL, the table within adam_close. Each CLI run graphs its
+    train and representation steps (graphrec_graph_gate); on the card
+    they are then held graphed beside eager (pinsage_graphed)."""
     plat = ["--force_platform", "cpu"] if device == "cpu" else []
     root = tempfile.mkdtemp(prefix="chip_smoke_pinsage_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
@@ -3254,13 +3438,23 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
                 raise AssertionError(f"pinsage {name}: K1 launched {k1} "
                                      f"times in {ep['steps']} steps")
             out[name] = {**ep, "wall_s": wall, "launches": launches,
+                         "launches_in_graphs": res["launches_in_graphs"],
+                         "capture": graphrec_graph_gate(
+                             f"pinsage {name}", res, device),
+                         "representation": res["representation"],
                          "lines": [ln for ln in lines
                                    if ln.startswith(("epoch", "resumed"))]}
+            if device == "cuda" and not res["representation"]["graphed"]:
+                raise AssertionError(f"pinsage {name}: the representation "
+                                     f"step ran eagerly {res}")
         if not any(ln.startswith("resumed from") and "epoch_0.ckpt" in ln
                    for ln in out["run_b"]["lines"]) \
                 or out["run_b"]["epoch"] != 1:
             raise AssertionError(f"pinsage resume: {out['run_b']}")
-        out["launches"] = sum_launches([out["run_a"], out["run_b"]])
+        runs = [out["run_a"], out["run_b"]]
+        out["launches"] = sum_launches(runs)
+        out["launches_in_graphs"] = sum_launches(
+            [{"launches": r["launches_in_graphs"]} for r in runs])
 
         args = gr.parse_args(flags)
         train, _, n_items = gr.make_synthetic_interactions(
@@ -3292,17 +3486,117 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
         _sketch_equal("pinsage", card["embed"]["sketch"],
                       cpu["embed"]["sketch"])
         rec = adam_close("pinsage", card["embed"], cpu["embed"], args.lr)
-        for key in [k for k in cpu if k.startswith("conv")] + ["opt"]:
-            gaps = [float(np.max(np.abs(np.asarray(a) - np.asarray(c))))
-                    for a, c in zip(_flat(card[key]), _flat(cpu[key]))]
-            rec[key] = max(gaps)
-            if not rec[key] <= GRAPHREC_TOL:
-                raise AssertionError(f"pinsage {key}: card against CPU "
-                                     f"{gaps}")
+        rec.update(pinsage_dense_close("pinsage card against CPU", card,
+                                       cpu))
         out["card_vs_cpu"] = {**rec, "sketch_equal": True}
+        if device == "cuda":
+            out["graphed_beside_eager"] = pinsage_graphed(
+                gr, land, load_tree, to_numpy, args, train, n_items, ck,
+                {k: v.cuda() for k, v in block.items()})
         return out
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def graphed_lockstep(g_step, e_step, state, call, close, to_numpy,
+                     steps=GRAPHREC_GRAPH_STEPS):
+    """`steps` steps from `state` in lockstep: at each, the graphed step
+    replays from a copy of the eager step's input (GraphedStep's copy-in
+    of a foreign state), then the eager step takes that input, and
+    close(graphed, eager) (numpy trees) holds the two results and
+    returns their gaps. Both read one state, so their forward passes
+    agree and only the backward's atomic sums differ, by ulps that one
+    step's bound holds at every step. A free run on one repeated batch
+    lets those ulps grow from step to step: two graphed runs from one
+    state part as far as a graphed and an eager run do. Returns the
+    largest of each gap and of the loss gap over the steps."""
+    from cafe_tpu_torch.train.step import clone_state
+    worst = {"loss_gap": 0.0}
+    for _ in range(steps):
+        g, g_loss = call(g_step, clone_state(state))
+        g_np, g_loss = to_numpy(g), float(g_loss)
+        state, e_loss = call(e_step, state)
+        gaps = close(g_np, to_numpy(state))
+        gaps["loss_gap"] = abs(g_loss - float(e_loss))
+        worst = {k: max(v, worst.get(k, v)) for k, v in gaps.items()}
+    return {**worst, "steps": steps}
+
+
+def pinsage_graphed(gr, land, load_tree, to_numpy, args, train, n_items,
+                    ck, block):
+    """PinSAGE's built train step graphed beside eager from the
+    checkpoint's state on one block (graphed_beside_eager, frequency
+    scores): the sketch, tick and hot ids exact, the free run's table,
+    slots and conv params recorded; then GRAPHREC_GRAPH_STEPS steps in
+    lockstep from the eager run's state (graphed_lockstep), each with
+    the sketch and tick exact, the table and its Adam slots within
+    adam_close, conv params and slots within GRAPHREC_TOL;
+    represent_items through the graphed representation step against the
+    eager one on the graphed state, within GRAPHREC_TOL (bit-equal
+    expected); then the graphed train step traced."""
+    from cafe_tpu_torch.models.graphrec.pinsage import block_args
+    blk = block_args(block)
+
+    def make(capture):
+        model, _ = gr.pinsage_model(args, train, n_items, "cuda")
+        model.part.use_freq = True
+        state, _ = load_tree(ck, model.init(), model.device)
+        return model, model.build_train_step(args.lr, capture), state
+
+    def call(step, state):
+        return step(state, *blk, args.lr)
+
+    rec, runs = graphed_beside_eager(make, call, land)
+    (_, e_step, e, _), (model, g_step, g, _) = (runs["eager"],
+                                                runs["graphed"])
+    e_np, g_np = to_numpy(e), to_numpy(g)
+    _sketch_equal("pinsage graphed", g_np["embed"]["sketch"],
+                  e_np["embed"]["sketch"])
+    rec["hot_ids"] = [gr.hot_ids(g["embed"]), gr.hot_ids(e["embed"])]
+    if g_np["embed"]["tick"] != e_np["embed"]["tick"] or \
+            rec["hot_ids"][0] != rec["hot_ids"][1]:
+        raise AssertionError(f"pinsage graphed: tick or hot ids differ "
+                             f"from eager {rec}")
+    free, within = adam_gaps(g_np["embed"], e_np["embed"], args.lr)
+    rec["free_run_gaps"] = {
+        **free, "within_one_step_bound": within,
+        **{k: max(v) for k, v in pinsage_dense_gaps(g_np, e_np).items()}}
+
+    def close(g_np, e_np):
+        _sketch_equal("pinsage graphed step", g_np["embed"]["sketch"],
+                      e_np["embed"]["sketch"])
+        if g_np["embed"]["tick"] != e_np["embed"]["tick"]:
+            raise AssertionError("pinsage graphed step: tick differs")
+        gaps = adam_close("pinsage graphed step", g_np["embed"],
+                          e_np["embed"], args.lr)
+        gaps.update(pinsage_dense_close("pinsage graphed step", g_np,
+                                        e_np))
+        return gaps
+
+    rec["graphed_vs_eager"] = {
+        **graphed_lockstep(g_step, e_step, e, call, close, to_numpy),
+        "sketch_equal": True}
+    reps, rep_rec = {}, {}
+    for mode in ("graphed", "eager"):
+        _, sampler = gr.pinsage_model(args, train, n_items, "cpu")
+        rep = model.build_representation_step(mode == "graphed")
+        t0 = time.perf_counter()
+        reps[mode] = model.represent_items(g, sampler, step=rep)
+        rep_rec[f"{mode}_s"] = time.perf_counter() - t0
+        if rep.graphed:
+            rep_rec.update(replays=rep.replays, capture_s=rep.capture_s)
+    rep_rec["max_abs_gap"] = float(np.abs(reps["graphed"]
+                                          - reps["eager"]).max())
+    rep_rec["bit_equal"] = bool(np.array_equal(reps["graphed"],
+                                               reps["eager"]))
+    if not rep_rec.get("replays") or \
+            not rep_rec["max_abs_gap"] <= GRAPHREC_TOL:
+        raise AssertionError(f"pinsage represent_items graphed against "
+                             f"eager: {rep_rec}")
+    rec["represent_items"] = rep_rec
+    rec["profile_graph"] = trace_steps(
+        "graphrec_pinsage_graph", lambda i: g_step(g, *blk, args.lr))
+    return rec
 
 
 def _flat(tree):
@@ -4703,6 +4997,9 @@ def phase_graphrec_interactions(gr, process_interactions, kernels, root,
         raise AssertionError(f"graphrec_interactions: K1 launched {k1} "
                              f"times in {ep['steps']} steps")
     return {"split": stats, **ep, "wall_s": wall, "launches": launches,
+            "launches_in_graphs": res["launches_in_graphs"],
+            "capture": graphrec_graph_gate("graphrec_interactions", res,
+                                           device),
             "lines": [ln for ln in lines if ln.startswith("epoch")]}
 
 
@@ -5671,6 +5968,7 @@ def main() -> int:
         rec = phase(main_graphrec_torch, land, load_tree, to_numpy, KERNELS)
         land_shapes[name] = rec["land_max_cases"]
         by_path[name] = rec["launches"]
+        in_graphs[name] = rec["launches_in_graphs"]
         emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
         torch.cuda.empty_cache()
 
@@ -5774,6 +6072,7 @@ def main() -> int:
                                           process_interactions, KERNELS,
                                           tools_root)
         by_path["graphrec_interactions"] = gri["launches"]
+        in_graphs["graphrec_interactions"] = gri["launches_in_graphs"]
         emit({"phase": "graphrec_interactions",
               "wall_s": time.perf_counter() - t0, **gri})
 

@@ -21,7 +21,14 @@ is generated so recall@k is meaningfully above random. Checkpoints are one
 torch.save file of CPU copies of the state (sketch included) plus its
 .meta.json, named {model}_epoch_{ep}.ckpt. `main` returns the run's
 numbers (recall or hit / NDCG, per-epoch loss, device ms per step, the
-host sampler's seconds, the sketch's hot ids).
+host sampler's seconds, the sketch's hot ids, whether the steps were
+graphed and their capture seconds).
+
+On the card the steps main_graphrec.py jits (LightGCN's BPR step,
+PinSAGE's train step and its representation step) replay CUDA graphs
+(train/capture.py), built once before the first epoch; on the CPU they
+run eagerly. `main(argv, capture=False)` builds the eager steps on the
+card too (chip_smoke.py times the two). A capture that fails raises.
 """
 
 import argparse
@@ -126,7 +133,16 @@ def lightgcn_model(args, train_pos, n_items, device):
     return LightGCN(cfg, graph, device=device)
 
 
-def run_lightgcn(args, train_pos, test_pos, n_items, device):
+def _capture_record(step):
+    """The run's record of how its steps ran: graphed or not, what kept
+    them eager, the replays and capture seconds so far."""
+    return {"graphed": step.graphed,
+            "capture_blockers": list(step.capture_blockers),
+            "replays": step.replays if step.graphed else 0,
+            "capture_s": step.capture_s if step.graphed else 0.0}
+
+
+def run_lightgcn(args, train_pos, test_pos, n_items, device, capture=True):
     from cafe_tpu_torch.models.graphrec.sampling import sample_negative
     from cafe_tpu_torch.train.checkpoint import save_tree
 
@@ -134,6 +150,7 @@ def run_lightgcn(args, train_pos, test_pos, n_items, device):
     items = np.concatenate(train_pos)
     model = lightgcn_model(args, train_pos, n_items, device)
     state, start_ep = _resume(args, "lightgcn", model.init(), device)
+    step = model.build_step(capture)
 
     out = {"epochs": [], "recall": float("nan")}
     if start_ep >= args.epochs:
@@ -147,19 +164,23 @@ def run_lightgcn(args, train_pos, test_pos, n_items, device):
                                   seed=args.seed + ep)
         perm = np.random.default_rng(ep).permutation(len(triples))
         triples = triples[perm]
-        t_sample = time.time() - t0
         # clamp so tiny datasets still take gradient steps; the tail
         # remainder smaller than the batch is dropped
         bb = min(args.bpr_batch, len(triples))
+        # (user, pos, neg) rows as int64 device tensors, one copy an epoch
+        cols = torch.from_numpy(np.ascontiguousarray(triples[:, :3].T)).to(
+            model.device, torch.int64)
+        t_sample = time.time() - t0
         losses = []
+        cap0 = _capture_record(step)["capture_s"]
         _sync(model.device)
         t1 = time.perf_counter()
         for lo in range(0, len(triples) - bb + 1, bb):
-            t = triples[lo:lo + bb]
-            state, loss = model.bpr_step(state, t[:, 0], t[:, 1], t[:, 2])
-            losses.append(loss)
+            state, loss = step(state, *cols[:, lo:lo + bb])
+            losses.append(loss.clone())   # a replay overwrites `loss`
         _sync(model.device)
         step_s = time.perf_counter() - t1
+        cap = _capture_record(step)
         t2 = time.perf_counter()
         rec = model.recall_at_k(state, train_pos, test_pos, k=args.topk)
         eval_s = time.perf_counter() - t2
@@ -173,11 +194,13 @@ def run_lightgcn(args, train_pos, test_pos, n_items, device):
             "epoch": ep, "loss": mean_loss, "recall": rec,
             "steps": len(losses), "sample_s": t_sample,
             "ms_per_step": step_s * 1e3 / max(len(losses), 1),
+            "graphed": cap["graphed"], "capture_s": cap["capture_s"] - cap0,
             "eval_s": eval_s, "hot_ids": hot_ids(state)})
         if args.save_dir:
             save_tree(osp.join(args.save_dir, f"lightgcn_epoch_{ep}.ckpt"),
                       state, {"epoch": ep, "recall": rec})
     out["hot_ids"] = hot_ids(state)
+    out.update(_capture_record(step))
     return out
 
 
@@ -223,11 +246,14 @@ def pinsage_model(args, train_pos, n_items, device):
             RandomWalkSampler(train_pos, item_users, seed=args.seed))
 
 
-def run_pinsage(args, train_pos, test_pos, n_items, device):
+def run_pinsage(args, train_pos, test_pos, n_items, device, capture=True):
+    from cafe_tpu_torch.models.graphrec.pinsage import block_args
     from cafe_tpu_torch.train.checkpoint import save_tree
 
     model, sampler = pinsage_model(args, train_pos, n_items, device)
     state, start_ep = _resume(args, "pinsage", model.init(), device)
+    step = model.build_train_step(args.lr, capture)
+    rep_step = model.build_representation_step(capture)
 
     batches = max(args.steps_per_epoch, 1)
     out = {"epochs": [], "loss": float("nan")}
@@ -238,18 +264,20 @@ def run_pinsage(args, train_pos, test_pos, n_items, device):
         t0 = time.time()
         losses = []
         host_s = dev_s = 0.0
+        cap0 = _capture_record(step)["capture_s"]
         for _ in range(batches):
             t1 = time.perf_counter()
             batch = model.make_batch(sampler, args.bpr_batch)
             _sync(model.device)
             t2 = time.perf_counter()
-            state, loss = model.train_step(state, batch, args.lr)
+            state, loss = step(state, *block_args(batch), args.lr)
+            losses.append(loss.clone())   # a replay overwrites `loss`
             _sync(model.device)
             host_s += t2 - t1
             dev_s += time.perf_counter() - t2
-            losses.append(loss)
+        cap = _capture_record(step)
         t3 = time.perf_counter()
-        reps = model.represent_items(state, sampler)
+        reps = model.represent_items(state, sampler, step=rep_step)
         hit, nd = pinsage_hit_ndcg(reps, train_pos, test_pos, k=args.topk)
         eval_s = time.perf_counter() - t3
         mean_loss = float(np.mean(torch.stack(losses).double().cpu()
@@ -262,13 +290,16 @@ def run_pinsage(args, train_pos, test_pos, n_items, device):
             "epoch": ep, "loss": mean_loss, "hit": hit, "ndcg": nd,
             "steps": batches, "ids_per_step": int(batch["ids"].shape[0]),
             "sampler_ms_per_step": host_s * 1e3 / batches,
-            "ms_per_step": dev_s * 1e3 / batches, "eval_s": eval_s,
-            "hot_ids": hot_ids(state["embed"])})
+            "ms_per_step": dev_s * 1e3 / batches,
+            "graphed": cap["graphed"], "capture_s": cap["capture_s"] - cap0,
+            "eval_s": eval_s, "hot_ids": hot_ids(state["embed"])})
         if args.save_dir:
             save_tree(osp.join(args.save_dir, f"pinsage_epoch_{ep}.ckpt"),
                       state, {"epoch": ep, "loss": mean_loss,
                               "hit": hit, "ndcg": nd})
     out["hot_ids"] = hot_ids(state["embed"])
+    out.update(_capture_record(step))
+    out["representation"] = _capture_record(rep_step)
     return out
 
 
@@ -311,7 +342,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, capture=True):
+    """Train and evaluate the model of `argv`; `capture` False keeps the
+    steps eager on the card (module docstring). Returns the run's
+    numbers."""
     args = parse_args(argv)
     from cafe_tpu_torch.device import resolve_device
     device = resolve_device("cpu" if args.force_platform == "cpu"
@@ -335,9 +369,8 @@ def main(argv=None):
     print(f"{args.model}: {len(train_pos)} users, {n_items} items, "
           f"{sum(len(p) for p in train_pos)} train interactions", flush=True)
 
-    if args.model == "lightgcn":
-        return run_lightgcn(args, train_pos, test_pos, n_items, device)
-    return run_pinsage(args, train_pos, test_pos, n_items, device)
+    run = run_lightgcn if args.model == "lightgcn" else run_pinsage
+    return run(args, train_pos, test_pos, n_items, device, capture)
 
 
 if __name__ == "__main__":

@@ -5,9 +5,10 @@
   on the same batches at valid = B, a tail and 0 (integer scores, so the
   sketch compares exactly; floats within tests/test_torch_train.py's
   1e-5), and the port gives the same bits for an int and a tensor valid;
-* (b) a TorchDispatchMode that raises on every value read back to the
-  host (`aten._local_scalar_dense`: `.item()`, `int()`, `float()`,
-  `bool()` of a tensor) other than a branch predicate's
+* (b) a TorchDispatchMode (tests/torch_capture_mode.py) that raises on
+  every value read back to the host (`aten._local_scalar_dense`:
+  `.item()`, `int()`, `float()`, `bool()` of a tensor) other than a
+  branch predicate's
   (utils/cond.host_pred, which a graph takes on the card), and on every
   op whose output shape depends on the data (nonzero, masked_select,
   unique, boolean indexing): one step of each configuration that
@@ -20,13 +21,10 @@
   one reused output tensor, as a graphed eval step does.
 """
 
-import sys
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from cafe_tpu.config import Config as JConfig
 from cafe_tpu.data import batch_iterator as jbatches
@@ -41,11 +39,11 @@ from cafe_tpu_torch.train.metrics import binary_metrics
 from cafe_tpu_torch.train.step import build_multi_step, capture_blockers
 from cafe_tpu_torch.utils.cond import cond, host_pred
 from test_torch_train import SKETCH_EXACT, SMALL, _close
+from torch_capture_mode import CaptureBreak, NoCaptureBreaks
 
 torch.set_num_threads(1)
 
 B = SMALL["mini_batch_size"]
-aten = torch.ops.aten
 
 
 # ---------------------------------------------------------------- (a)
@@ -123,48 +121,6 @@ def test_int_and_tensor_valid_give_the_same_bits(k):
 
 
 # ---------------------------------------------------------------- (b)
-
-class CaptureBreak(AssertionError):
-    """An op that a CUDA graph cannot hold."""
-
-
-# reads of a value to the host: .item(), int(), float() and bool() all
-# reach _local_scalar_dense
-_HOST_READS = {aten._local_scalar_dense.default}
-# output shapes that depend on the data
-_DATA_SHAPED = {aten.nonzero, aten.masked_select, aten._unique,
-                aten._unique2, aten.unique_dim, aten.unique_consecutive,
-                aten.argwhere, aten.bincount, aten.masked_scatter}
-_INDEXING = {aten.index, aten.index_put, aten.index_put_,
-             aten._index_put_impl_}
-
-
-def _in_host_pred() -> bool:
-    """Whether the read comes from a branch predicate (utils/cond's
-    host_pred): an eager step's one allowed read, a conditional node in
-    a graph."""
-    frame = sys._getframe()
-    while frame is not None:
-        if frame.f_code is host_pred.__code__:
-            return True
-        frame = frame.f_back
-    return False
-
-
-class NoCaptureBreaks(TorchDispatchMode):
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        packet = func.overloadpacket
-        if func in _HOST_READS and not _in_host_pred():
-            raise CaptureBreak(f"host read: {func}")
-        if packet in _DATA_SHAPED or (
-                packet is aten.repeat_interleave
-                and "output_size" not in (kwargs or {})):
-            raise CaptureBreak(f"data-dependent shape: {func}")
-        if packet in _INDEXING and any(
-                i is not None and i.dtype == torch.bool for i in args[1]):
-            raise CaptureBreak(f"boolean indexing: {func}")
-        return func(*args, **(kwargs or {}))
-
 
 def test_the_mode_catches_each_kind():
     x = torch.arange(6.0)

@@ -24,7 +24,12 @@ process: `cuda` tests that skip here and run on a card with
   8, integers exact and floats within 1e-5 (the same kernels in the same
   order: the one-device steps above are bit-equal); every replay runs
   under torch.cuda.set_sync_debug_mode("error"), so no value is read
-  back to the host in a graphed mesh step.
+  back to the host in a graphed mesh step;
+* the graph recommenders (models/graphrec/): LightGCN's BPR step (cr 1.0
+  and 0.5) and PinSAGE's train and representation steps (compress
+  ratio 1 and 4), graphed against eager from one state, replays under
+  the same sync check, K1 once a replay on CAFE; a PinSAGE step built
+  for one lr raises on another.
 """
 
 import contextlib
@@ -443,3 +448,144 @@ def test_mesh_graphed_steps_equal_eager_without_host_reads(nccl_mesh, name,
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
     assert g_eval.replays == 5 - WARMUP_CALLS
+
+
+# ------------------------------------------ the graph recommenders' steps
+
+GRAPHREC_LR = 0.01
+GRAPHREC_STEPS = 6
+
+
+def _graphrec_close(got, want, path=""):
+    """Numpy states after the same steps graphed and eager: integers
+    exact, floats within 1e-5, but for a rows-Adam table's rows whose
+    gradient is float noise in either (|m| < 1e-6), which Adam moves by
+    up to lr whatever the noise's sign: those within lr + 1e-5."""
+    if isinstance(got, dict) and "table_m" in got:
+        noise = (np.abs(got["table_m"]).max(1) < 1e-6) \
+            | (np.abs(want["table_m"]).max(1) < 1e-6)
+        d = np.abs(got["table"] - want["table"])
+        assert d[~noise].max(initial=0.0) <= 1e-5, f"{path}/table"
+        assert d[noise].max(initial=0.0) <= GRAPHREC_LR + 1e-5, path
+        got = {k: v for k, v in got.items() if k != "table"}
+        want = {k: v for k, v in want.items() if k != "table"}
+    if isinstance(got, dict):
+        assert set(got) == set(want), path
+        for k in got:
+            _graphrec_close(got[k], want[k], f"{path}/{k}")
+    elif isinstance(got, (list, tuple)):
+        for i, (x, y) in enumerate(zip(got, want)):
+            _graphrec_close(x, y, f"{path}[{i}]")
+    else:
+        _close_states(got, want, path)
+
+
+def _interactions():
+    import main_graphrec_torch
+    return main_graphrec_torch.make_synthetic_interactions()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr", [1.0, 0.5])
+def test_lightgcn_graphed_step_equals_eager(cr):
+    """LightGCN.build_step graphed against eager (rows-Adam, frequency
+    scores) from one state over GRAPHREC_STEPS BPR batches: losses and
+    states as _graphrec_close holds them, the sketch exact, K1 once a
+    replay on CAFE, no value read back to the host in a replay."""
+    _card()
+    from cafe_tpu_torch.models.graphrec import (
+        LightGCN, LightGCNConfig, build_bipartite_graph, sample_negative)
+    train, _, n_items = _interactions()
+    users = np.concatenate([np.full(len(p), u, np.int32)
+                            for u, p in enumerate(train)])
+    items = np.concatenate(train)
+    graph = build_bipartite_graph(users, items, len(train), n_items)
+    cfg = LightGCNConfig(latent_dim=16, n_layers=3, lr=GRAPHREC_LR,
+                         compress_rate=cr, sketch_threshold=2.0)
+    trip = sample_negative(len(train), n_items, len(items), train, seed=1)
+    cols = torch.from_numpy(np.ascontiguousarray(trip[:, :3].T)).cuda()
+    batches = [tuple(cols[:, i * B:(i + 1) * B].long())
+               for i in range(GRAPHREC_STEPS)]
+    runs = {}
+    for capture in (False, True):
+        model = LightGCN(cfg, graph, device="cuda")
+        model.part.use_freq = True
+        step = model.build_step(capture)
+        assert step.graphed is capture
+        state, losses = model.init(), []
+        for i, batch in enumerate(batches):
+            replay = capture and i > WARMUP_CALLS
+            with _no_sync() if replay else contextlib.nullcontext():
+                state, loss = step(state, *batch)
+                losses.append(loss.clone())
+        torch.cuda.synchronize()
+        runs[capture] = (to_numpy(state), torch.stack(losses).cpu(), step)
+    (e_state, e_loss, _), (g_state, g_loss, g_step) = runs[False], runs[True]
+    assert g_step.replays == GRAPHREC_STEPS - WARMUP_CALLS
+    assert g_step.launches_per_replay() == (
+        {"land_max": 1} if cr < 1 else {})
+    np.testing.assert_allclose(g_loss.numpy(), e_loss.numpy(), rtol=1e-5)
+    _graphrec_close(g_state, e_state)
+    if cr < 1:
+        assert int((g_state["sketch"]["dic"] != 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [1, 4])
+def test_pinsage_graphed_steps_equal_eager(ratio):
+    """PinSAGE's built train step (Adam) graphed against eager from one
+    state over GRAPHREC_STEPS blocks, then its representation step on
+    four blocks of the trained states; a graphed step built for one lr
+    raises on another."""
+    _card()
+    from cafe_tpu_torch.models.graphrec import (
+        PinSAGE, PinSAGEConfig, RandomWalkSampler)
+    from cafe_tpu_torch.models.graphrec.pinsage import block_args
+    train, _, n_items = _interactions()
+    item_users = [[] for _ in range(n_items)]
+    for u, its in enumerate(train):
+        for it in its:
+            item_users[int(it)].append(u)
+    sampler = RandomWalkSampler(train, [np.asarray(x, np.int32)
+                                        for x in item_users], seed=1)
+    cfg = PinSAGEConfig(hidden_dims=16, compress_ratio=ratio,
+                        sketch_threshold=2.0)
+    models = {c: PinSAGE(cfg, n_items, device="cuda") for c in (False, True)}
+    for m in models.values():
+        m.part.use_freq = True
+    blocks = [block_args(models[True].make_batch(sampler, B))
+              for _ in range(GRAPHREC_STEPS)]
+    reps = [block_args(models[True].make_block(
+        sampler, np.arange(i * B, (i + 1) * B, dtype=np.int32) % n_items))
+        for i in range(4)]
+    runs = {}
+    for capture, model in models.items():
+        step = model.build_train_step(GRAPHREC_LR, capture)
+        rep = model.build_representation_step(capture)
+        assert step.graphed is capture and rep.graphed is capture
+        state, losses, zs = model.init(), [], []
+        for i, block in enumerate(blocks):
+            replay = capture and i > WARMUP_CALLS
+            with _no_sync() if replay else contextlib.nullcontext():
+                state, loss = step(state, *block, GRAPHREC_LR)
+                losses.append(loss.clone())
+        for i, block in enumerate(reps):
+            replay = capture and i > WARMUP_CALLS
+            with _no_sync() if replay else contextlib.nullcontext():
+                zs.append(rep(state, *block).clone())
+        torch.cuda.synchronize()
+        runs[capture] = (to_numpy(state), torch.stack(losses).cpu(),
+                         torch.stack(zs).cpu(), step, rep)
+        if capture:
+            with pytest.raises(ValueError, match="built for lr"):
+                step(state, *blocks[0], GRAPHREC_LR / 2)
+    (e_state, e_loss, e_z, _, _) = runs[False]
+    (g_state, g_loss, g_z, g_step, g_rep) = runs[True]
+    assert g_step.replays == GRAPHREC_STEPS - WARMUP_CALLS
+    assert g_rep.replays == 4 - WARMUP_CALLS
+    assert g_step.launches_per_replay() == (
+        {"land_max": 1} if ratio > 1 else {})
+    np.testing.assert_allclose(g_loss.numpy(), e_loss.numpy(), rtol=1e-5)
+    _graphrec_close(g_state, e_state)
+    np.testing.assert_allclose(g_z.numpy(), e_z.numpy(), rtol=1e-5,
+                               atol=1e-5)
