@@ -116,7 +116,10 @@ def to_numpy(node):
         return {k: to_numpy(v) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [to_numpy(v) for v in node]
-    return np.array(node.detach().cpu())   # a copy: steps update in place
+    node = node.detach()
+    # a copy (steps update in place): the device's copy to the host is one
+    return node.cpu().numpy() if node.device.type != "cpu" \
+        else node.numpy().copy()
 
 
 def to_reference(state, like):

@@ -14,6 +14,8 @@ Contract per part (as in the JAX package):
   transform(dense_params, raw)     -> feats [B, Fp, D]
   apply_grads(state, ids, g_raw, aux, lr) -> (state, stats)
   quantize_for_serving(state, bits) -> {key: QuantizedTable}, made once
+                                      (CAFE v1 on one device adds its
+                                      frozen sketch view, `sk_packed`)
   gather_quantized(state, qt, ids) -> raw as gather returns it, the rows
                                       dequantized from the codes (routing
                                       state stays full precision)
@@ -100,6 +102,9 @@ class Part:
     optimizer: str = "sgd"
     # sparse apply route (cfg.sparse_apply_impl; ops/sparse.apply_rows)
     apply_impl: str = "auto"
+    # sum duplicate rows in a fixed order in every apply arm
+    # (ops/sparse.apply_rows' deterministic; the graph recommenders)
+    deterministic_sums = False
     device = torch.device("cpu")
     # set by EmbeddingLayer.set_mesh on a part that opted in: gather and
     # apply_grads then run the explicit exchange on this rank's shard
@@ -238,7 +243,8 @@ class Part:
             idx = _local_idx(state[key].shape[0], idx, self.auto_mesh)
         table, slots = apply_rows(state[key], self._slots_of(state, key),
                                   idx, grad, lr, self.optimizer,
-                                  self.apply_impl)
+                                  self.apply_impl,
+                                  deterministic=self.deterministic_sums)
         if not sharded:
             self._agree(table, *slots.values())
         return self._put_slots({**state, key: table}, key, slots)

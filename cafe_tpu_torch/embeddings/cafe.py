@@ -44,7 +44,9 @@ insert and the sharded paths stay one code path. Its insert reports all
 B*F lanes (v1 compacts to PROMO_LANES) before the migration cap.
 
 Serving (quantize_for_serving / gather_quantized) routes as `gather`
-does and dequantizes the rows it fetches. `enable_sharded_layout(n)`
+does and dequantizes the rows it fetches; on one device the v1 part
+freezes a packed view of its sketch at quantize time (`sk_packed`, the
+JAX package's) and routes through that view. `enable_sharded_layout(n)`
 gives a part without a mesh the n-shard state layout, so the global
 state of a run on n ranks (parallel/sharding.unshard_state) serves on one
 device; the sketch is then queried through sketch/sharded's one-process
@@ -66,7 +68,9 @@ from ..sketch.hotsketch import (
     INVALID_ID,
     PROMO_LANES,
     HotSketchConfig,
+    _pack_cells,
     init_sketch,
+    query_cells_packed,
     revert_promotions,
     sketch_insert,
     sketch_query,
@@ -244,13 +248,15 @@ class CafePart(Part):
                 + self._const("hash_off")[0][pf]).clamp(
                     0, self.hash_rows - 1) + self.hash_base
 
-    def _route(self, state: Dict, ids: torch.Tensor):
+    def _route(self, state: Dict, ids: torch.Tensor, packed=None):
         """Without a mesh: (oids, row, hrow, is_hot), each [B, F], from
         the sketch (through the one-process sharded query under the
-        sharded layout)."""
+        sharded layout), or from its packed view `packed`."""
         b, f = ids.shape
         oids = self._oids(ids)
-        if self.sharded_layout:
+        if packed is not None:
+            q = query_cells_packed(self.sketch_cfg, packed, oids.reshape(-1))
+        elif self.sharded_layout:
             qfn = query_sharded_plus if self.plus else query_sharded
             q = qfn(self.sketch_cfg, self.n_shards, state["sketch"],
                     oids.reshape(-1))
@@ -348,18 +354,24 @@ class CafePart(Part):
 
     def quantize_for_serving(self, state: Dict, bits: int) -> Dict:
         """The unified table quantized (this rank's shard under a mesh).
-        The JAX package also freezes a packed view of the v1 sketch for
-        its TPU query (`sk_packed`); the port's v1 query has no packed
-        form, so it routes through the sketch as `gather` does."""
-        return {"table": self._quantize(state["table"], bits)}
+        On one device in the flat layout the v1 part also freezes the
+        packed view of its sketch (`sk_packed`, as the JAX package does):
+        the served routing is the sketch as it stood here."""
+        out = {"table": self._quantize(state["table"], bits)}
+        if self.mesh is None and self.n_shards == 1 and not self.plus \
+                and not self.sharded_layout:
+            sk = state["sketch"]
+            out["sk_packed"] = _pack_cells(sk["val"], sk["cnt"], sk["dic"])
+        return out
 
     def gather_quantized(self, state: Dict, qt: Dict, ids: torch.Tensor):
-        """The routing of `gather`; the row fetch dequantizes. Under a
-        mesh the owners dequantize their rows (Part._dequantize)."""
+        """The routing of `gather` (through the frozen view where `qt`
+        holds one); the row fetch dequantizes. Under a mesh the owners
+        dequantize their rows (Part._dequantize)."""
         if self.mesh is not None:
             _, row, _ = self._route_sharded(state, ids)
         else:
-            _, row, _, _ = self._route(state, ids)
+            _, row, _, _ = self._route(state, ids, qt.get("sk_packed"))
         return self._dequantize(qt["table"], row)
 
     def _insert_and_compact(self, sketch_in, flat_oids, g_raw):

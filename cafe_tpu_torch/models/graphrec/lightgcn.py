@@ -4,9 +4,13 @@ cafe_tpu/models/graphrec/lightgcn.py).
 The node-id table (users then items, one unified id space) is a CAFE
 hot/hash pair behind the v1 HotSketch when compress_rate < 1, else a full
 HashedTablePart; the sizing, the init draws and the BPR step are the JAX
-package's. Propagation is a gather and an `index_add_` over the COO edge
-list, where the JAX package takes XLA's segment_sum (no Pallas kernel
-there, so a library scatter here).
+package's. Propagation gathers each edge's source row and sums the
+messages by destination through ops/sparse.segment_rows (the JAX
+package's XLA segment_sum; kernel K3 on the card), and the gather's
+backward sums through segment_rows too (ops/sparse.gather_rows), so the
+step's sums run in a fixed order, as XLA's do, and two runs from one
+state repeat bit for bit; the part's apply coalesces its duplicate rows
+the same way (Part.deterministic_sums).
 
 One BPR step gathers all n_nodes rows through the part, runs autograd
 through propagate, the softplus BPR loss and the ego L2 term, and hands
@@ -39,6 +43,7 @@ import torch.nn.functional as F
 from ...device import resolve_device
 from ...embeddings.base import HashedTablePart
 from ...embeddings.cafe import CafePart
+from ...ops.sparse import gather_rows, segment_rows
 from ...train.step import build_graphrec_step
 
 
@@ -106,6 +111,7 @@ class LightGCN:
                                         [self.n_nodes], d,
                                         optimizer=cfg.optimizer)
         self.part.device = self.device
+        self.part.deterministic_sums = True
 
         def dev(a, dtype):
             return torch.from_numpy(np.asarray(a)).to(self.device, dtype)
@@ -131,8 +137,8 @@ class LightGCN:
         out = emb0
         acc = emb0
         for _ in range(self.cfg.n_layers):
-            msgs = out[self._src] * self._w
-            out = torch.zeros_like(emb0).index_add(0, self._dst, msgs)
+            msgs = gather_rows(out, self._src) * self._w
+            out = segment_rows(msgs, self._dst, self.n_nodes)
             acc = acc + out
         return acc / (self.cfg.n_layers + 1)
 

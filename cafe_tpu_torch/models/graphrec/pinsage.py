@@ -10,7 +10,12 @@ neighbour blocks; the convs take the dense optimizer
 (train/step._dense_update) and the table the part's apply_grads on the
 block's padded unique ids, whose CAFE insert lands through kernel K1
 (land_impl 'auto'; the JAX package's part keeps the 'segmax' default,
-which lands the same values).
+which lands the same values). The block's three position gathers take
+ops/sparse.gather_rows, whose backward sums a repeated position's
+gradients through segment_rows (kernel K3 on the card), and the part
+coalesces its duplicate rows the same way (Part.deterministic_sums): the
+step's sums run in a fixed order, so two runs from one state repeat bit
+for bit.
 
 The train and representation steps read nothing back to the host and
 make no shape from the data (the block is padded to a fixed capacity,
@@ -35,6 +40,7 @@ import torch
 from ...device import resolve_device
 from ...embeddings.base import HashedTablePart
 from ...embeddings.cafe import CafePart
+from ...ops.sparse import gather_rows
 from ...train.step import (_dense_update, _leaves, build_graphrec_step,
                            init_dense_opt)
 
@@ -166,6 +172,7 @@ class PinSAGE:
             self.part = HashedTablePart([0], [n_items], [n_items], d,
                                         optimizer=cfg.optimizer)
         self.part.device = self.device
+        self.part.deterministic_sums = True
 
     def init(self) -> Dict:
         rng = np.random.default_rng(self.cfg.seed)
@@ -215,9 +222,9 @@ class PinSAGE:
 
     def _block_rep(self, state, feats, block):
         return self._representation(
-            state, feats[block["ego_pos"]],
-            feats[block["nbr1_pos"]], block["w1"],
-            feats[block["nbr2_pos"]], block["w2"])
+            state, gather_rows(feats, block["ego_pos"]),
+            gather_rows(feats, block["nbr1_pos"]), block["w1"],
+            gather_rows(feats, block["nbr2_pos"]), block["w2"])
 
     def train_step(self, state: Dict, batch: Dict, lr: float
                    ) -> Tuple[Dict, torch.Tensor]:

@@ -149,11 +149,14 @@ def use_table_pass(n_rows: int, n_lanes: int) -> bool:
 
 
 def apply_rows_pass(table: torch.Tensor, slots: dict, idx: torch.Tensor,
-                    grad: torch.Tensor, lr: float, optimizer: str):
+                    grad: torch.Tensor, lr: float, optimizer: str,
+                    seg_sum=seg_sum):
     """Sparse optimizer apply as a full-table pass, in place: duplicates
     coalesce by one segment sum into [N, D] (0 for untouched rows, which
-    then move by exactly 0), then one sgd / adagrad / adam row step.
-    Adam masks its moment decay to touched rows. Returns (table, slots)."""
+    then move by exactly 0; `seg_sum(vals, sorted_ids, n)`, ops/sparse's
+    segment_rows for a sum in a fixed order), then one sgd / adagrad /
+    adam row step. Adam masks its moment decay to touched rows. Returns
+    (table, slots)."""
     n = table.shape[0]
     order = torch.argsort(idx, stable=True)
     sidx = idx[order]

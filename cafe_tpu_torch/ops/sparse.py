@@ -24,9 +24,24 @@ package donates them to the jitted step) and returned.
   coalesced rows at a fixed shape: ids wrap and drop as JAX's
   mode="drop" scatters do, so nothing waits for the card and a CUDA
   graph holds the update.
+
+`apply_rows(..., deterministic=True)` (the graph recommenders' parts,
+Part.deterministic_sums) sums duplicate rows through `segment_rows` in
+every arm, so the update repeats bit for bit: SGD takes K3 whatever the
+gate, the table pass and the per-row arms coalesce with it. The default
+keeps the routes above, whose index_add_ / scatter_add_ sum duplicates
+in float atomics on the card.
+
+`segment_rows` is the JAX package's `segment_rows` (jax.ops.segment_sum)
+on kernel K3: one launch into a zeroed table, the lanes of a segment
+summed in a fixed order, so the sum repeats bit for bit. `gather_rows`
+is `table[idx]` whose backward is segment_rows of the incoming gradient
+over the same ids (torch's own index backward is the library's).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -127,14 +142,20 @@ def coalesce_compact(idx: torch.Tensor, grad: torch.Tensor, capacity: int,
             cgrad[:capacity], seg[-1] + 1)
 
 
-def _coalesce_rows(idx: torch.Tensor, grad: torch.Tensor, n_rows: int):
+def _coalesce_rows(idx: torch.Tensor, grad: torch.Tensor, n_rows: int,
+                   deterministic: bool = False):
     """coalesce() onto n_rows rows at a fixed shape, as JAX's `.at[uidx]`
     with mode="drop" writes them: a negative id wraps once (numpy's
     rule), what is still outside [0, n_rows) is dropped. Returns (uidx,
     summed grad, rows int64, kept bool, the lanes' ids sorted), a
-    dropped lane's row 0 (callers write it nothing)."""
+    dropped lane's row 0 (callers write it nothing). `deterministic`
+    sums the groups through segment_rows (K3)."""
     order, sidx, head, seg = _sorted_groups(idx)
-    summed = torch.zeros_like(grad).index_add_(0, seg.long(), grad[order])
+    if deterministic:
+        summed = segment_rows(grad[order], seg, grad.shape[0])
+    else:
+        summed = torch.zeros_like(grad).index_add_(0, seg.long(),
+                                                   grad[order])
     ugrad = summed[seg.long()] * head[:, None]
     uidx = torch.where(head, sidx, n_rows)
     wrapped = torch.where(uidx < 0, uidx + n_rows, uidx)
@@ -165,13 +186,14 @@ def _set_rows_(x: torch.Tensor, uidx, rows, kept, sidx, vals) -> None:
                                                      fill)
 
 
-def sparse_adagrad(table, acc, idx, grad, lr: float, eps: float = 1e-10):
+def sparse_adagrad(table, acc, idx, grad, lr: float, eps: float = 1e-10,
+                   deterministic: bool = False):
     """Adagrad with torch semantics (coalesce first; per-element acc):
     acc += g^2, row -= lr * g / (sqrt(acc) + eps). In place, at a fixed
     shape: dropped lanes add zeros to row 0, as sparse_sgd's do, and the
     accumulator is read at clip(id), as the JAX package reads it."""
     n = table.shape[0]
-    uidx, ugrad, rows, kept, _ = _coalesce_rows(idx, grad, n)
+    uidx, ugrad, rows, kept, _ = _coalesce_rows(idx, grad, n, deterministic)
     g = ugrad * kept[:, None]
     acc.index_add_(0, rows, g * g)
     std = torch.sqrt(acc[uidx.clamp(0, n - 1).long()]) + eps
@@ -180,13 +202,15 @@ def sparse_adagrad(table, acc, idx, grad, lr: float, eps: float = 1e-10):
 
 
 def sparse_adam(table, m, v, t, idx, grad, lr: float, beta1: float = 0.9,
-                beta2: float = 0.999, eps: float = 1e-8):
+                beta2: float = 0.999, eps: float = 1e-8,
+                deterministic: bool = False):
     """Rows-Adam: moments advance only for rows touched this step; bias
     correction uses the table-global step count t. In place, at a fixed
     shape (the moments are read at clip(id), as the JAX package reads
     them; dropped lanes write nothing); returns (table, m, v, t)."""
     n = table.shape[0]
-    uidx, ugrad, rows, kept, sidx = _coalesce_rows(idx, grad, n)
+    uidx, ugrad, rows, kept, sidx = _coalesce_rows(idx, grad, n,
+                                                   deterministic)
     t = t + 1
     safe = uidx.clamp(0, n - 1).long()
     m_rows = beta1 * m[safe] + (1.0 - beta1) * ugrad
@@ -235,11 +259,16 @@ def _use_dense_rowsum(n_rows: int, dim: int, lanes: int,
 
 def apply_rows(table: torch.Tensor, slots: dict, idx: torch.Tensor,
                grad: torch.Tensor, lr: float, optimizer: str,
-               impl: str = "auto", table_pass: bool | None = None):
+               impl: str = "auto", table_pass: bool | None = None,
+               deterministic: bool = False):
     """Sparse row update, in place, with `slots` as init_slots made them.
-    Returns (table, slots)."""
+    `deterministic` sums duplicate rows through segment_rows (module
+    docstring). Returns (table, slots)."""
     if optimizer not in SLOT_SUFFIXES:
         raise ValueError(f"unknown optimizer {optimizer!r}")
+    if optimizer == "sgd" and deterministic:
+        upd = (-lr * grad).to(table.dtype)
+        return _rowsum.sparse_add_dense_(table, idx, upd), {}
     if optimizer == "sgd" and _use_pallas_apply(table.shape[0],
                                                 table.shape[1], impl):
         upd = (-lr * grad).to(table.dtype)
@@ -253,13 +282,82 @@ def apply_rows(table: torch.Tensor, slots: dict, idx: torch.Tensor,
         table_pass = optimizer != "sgd" and _sorted.use_table_pass(
             table.shape[0], idx.shape[0])
     if table_pass:
-        return _sorted.apply_rows_pass(table, slots, idx, grad, lr,
-                                       optimizer)
+        return _sorted.apply_rows_pass(
+            table, slots, idx, grad, lr, optimizer,
+            seg_sum=segment_rows if deterministic else _sorted.seg_sum)
     if optimizer == "adagrad":
-        table, acc = sparse_adagrad(table, slots["acc"], idx, grad, lr)
+        table, acc = sparse_adagrad(table, slots["acc"], idx, grad, lr,
+                                    deterministic=deterministic)
         return table, {"acc": acc}
     if optimizer == "adam":
         table, m, v, t = sparse_adam(table, slots["m"], slots["v"],
-                                     slots["t"], idx, grad, lr)
+                                     slots["t"], idx, grad, lr,
+                                     deterministic=deterministic)
         return table, {"m": m, "v": v, "t": t}
     return sparse_sgd(table, idx, grad, lr), {}
+
+
+def _segment_sum(values: torch.Tensor, seg_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """segment_rows without autograd: K3 into a zeroed f32 table of
+    num_segments rows, the trailing dims flattened to its width."""
+    if values.dtype != torch.float32:
+        raise TypeError(f"segment_rows: f32 values expected (kernel K3), "
+                        f"got {values.dtype}")
+    e = values.shape[0]
+    flat = values.reshape(e, math.prod(values.shape[1:]))
+    out = torch.zeros((num_segments, flat.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    if e:
+        _rowsum.sparse_add_dense_(out, seg_ids.reshape(e), flat)
+    return out.reshape((num_segments,) + tuple(values.shape[1:]))
+
+
+class _SegmentRows(torch.autograd.Function):
+    """segment_rows; its backward gathers the incoming gradient at each
+    lane's segment (ids in [0, num_segments))."""
+
+    @staticmethod
+    def forward(ctx, values, seg_ids, num_segments):
+        ctx.save_for_backward(seg_ids)
+        return _segment_sum(values, seg_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad):
+        seg_ids, = ctx.saved_tensors
+        return grad[seg_ids], None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[idx]; its backward sums the incoming gradient into the
+    table's rows through segment_rows (ids in [0, rows))."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        flat = grad.reshape((idx.numel(),) + tuple(grad.shape[idx.dim():]))
+        return _segment_sum(flat, idx.reshape(-1), ctx.rows), None
+
+
+def segment_rows(values: torch.Tensor, seg_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """[num_segments, ...]: row s sums values [E, ...] over the lanes
+    with seg_ids == s (int32 or int64 [E]); lanes with an id outside
+    [0, num_segments) are dropped, as jax.ops.segment_sum drops them.
+    f32 only. One K3 launch on the card (its plain version for CPU
+    tensors), summing each segment in a fixed order. Differentiable in
+    values for ids in range (the gradient is a gather)."""
+    return _SegmentRows.apply(values, seg_ids, num_segments)
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] (ids in [0, rows), any shape) whose backward is
+    segment_rows of the incoming gradient over idx: the gradient of a
+    row gathered many times sums in a fixed order on the card."""
+    return _GatherRows.apply(table, idx)

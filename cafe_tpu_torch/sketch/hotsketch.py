@@ -112,13 +112,34 @@ def _bucket_of(cfg: HotSketchConfig, ids: torch.Tensor) -> torch.Tensor:
     return (mul_u32(ids, _HASH_MULT) % cfg.buckets).to(torch.int32)
 
 
+def _pack_cells(val: torch.Tensor, cnt: torch.Tensor,
+                dic: torch.Tensor) -> torch.Tensor:
+    """The [R, 3C] int32 view (val | cnt's f32 bits | dic) that one
+    wide-row gather queries: byte-equal to the JAX package's. cnt >= 0,
+    so its bits are > 0 exactly where cnt > 0."""
+    return torch.cat([val, cnt.view(torch.int32), dic], dim=1)
+
+
+def query_cells_packed(cfg: HotSketchConfig, packed: torch.Tensor,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """query_cells against a packed [R, 3C] view (_pack_cells): one row
+    gather, then the JAX package's mask and max. Serving freezes the view
+    once (CafePart.quantize_for_serving)."""
+    c = packed.shape[1] // 3
+    prow = packed[_bucket_of(cfg, ids).long()]
+    bd = prow[:, 2 * c:]
+    m = (prow[:, c:2 * c] > 0) & (prow[:, :c] == ids[:, None]) & (bd != 0)
+    slot = torch.where(m, bd, 0).amax(dim=1)
+    return torch.where(slot > 0, -slot, ids)
+
+
 def query_cells(cfg: HotSketchConfig, val: torch.Tensor, cnt: torch.Tensor,
                 dic: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """-hot_slot for hot ids, the id itself otherwise."""
-    h = _bucket_of(cfg, ids).long()
-    m = (cnt[h] > 0) & (val[h] == ids[:, None]) & (dic[h] != 0)
-    slot = torch.where(m, dic[h], 0).amax(dim=1)
-    return torch.where(slot > 0, -slot, ids)
+    """-hot_slot for hot ids, the id itself otherwise: the cells packed,
+    then one wide-row gather (query_cells_packed), as the JAX package
+    queries them (chip_smoke.py's serving_packed times this against four
+    narrow row gathers on the card)."""
+    return query_cells_packed(cfg, _pack_cells(val, cnt, dic), ids)
 
 
 def sketch_query(cfg: HotSketchConfig, state: SketchState,

@@ -486,9 +486,11 @@ def build_quantized_eval_step(model, embed_layer, state: TrainState,
     (ops/quantized.py). Each part quantizes its float row tables once,
     here, from `state`; its lookups gather codes and dequantize them.
     Routing state (sketches, hot dicts, Ada's dic) stays full precision
-    and is read from the state passed at each call; MDE / AE projections
-    apply in f32. On the card a GraphedStep, as build_eval_step, on a
-    mesh too."""
+    and is read from the state passed at each call, except a CAFE v1
+    part's on one device, which routes through the packed sketch view
+    it froze here (`sk_packed`, held in `qtables` beside the codes);
+    MDE / AE projections apply in f32. On the card a GraphedStep, as
+    build_eval_step, on a mesh too."""
     with torch.no_grad():
         qtables = embed_layer.quantize_for_serving(state.embed, bits)
     step = build_eval_step(

@@ -97,7 +97,7 @@ The compiled step (CUDA graphs, train/capture.py), run before phase 9:
 17-19. headline_graph, headline_dense_graph, sibling_graph: the step of
    phases 3, 5 and 7 built graphed (it must report `.graphed`) and eager
    on one state, in alternating windows of 20 steps ended by a
-   synchronize, 5 each: ms/step and windows of each, peak memory,
+   synchronize, 3 each: ms/step and windows of each, peak memory,
    capture time, and the launches a graphed step makes, counted per
    replay, which must equal what the capture recorded (K1 once; K3 or
    K2 once in dense and sibling). Then the gate `replay_equals_eager`,
@@ -112,7 +112,7 @@ The compiled step (CUDA graphs, train/capture.py), run before phase 9:
    bound of the step's scatter-add (each order within it of the exact
    sums), beside the gap between two eager steps;
 20. eval_graph: the graphed eval step's scores equal the eager one's
-   batch for batch, then alternating windows of 20 calls, 5 each;
+   batch for batch, then alternating windows of 20 calls, 3 each;
 21. profile_headline_graph: phase 8's trace of 5 replayed headline
    steps (device busy, idle share, kernels a step, one K1 a step);
 22. cli_timing (after phase 9): main_torch.main graphed and eager, in
@@ -196,7 +196,13 @@ dequantizing lookup is torch's row gather and element-wise ops):
    0.1, 16,384 rows): graphed f32, int8 and int4 eval steps in
    alternating windows, ms a call, the codes' bytes against the f32
    table, mean |p_f32 - p_q| < 0.01, and the A/B of the code-row
-   gather's two forms at that shape; then the headline eval exported
+   gather's two forms at that shape (the tool's int8_plain arm routes
+   without CAFE's frozen sketch view); then serving_packed: the frozen
+   packed sketch view (CafePart.quantize_for_serving's sk_packed) at the
+   headline flags after 8 steps, its route exactly the plain query's,
+   its rows and graphed int8 scores bit-equal to the plain route's, the
+   query alone timed plain, packed each call and frozen, and the A/B of
+   the two routes at both shapes; then the headline eval exported
    from the card's state at B = 2048 (torch.export), loaded back and
    held against the eager eval step within 1e-5;
 37. cli_quant (with phase 9): run A's best checkpoint served with
@@ -231,7 +237,13 @@ graphs on the card; after phase 12; each phase prints its wall time):
    of each, capture s, launches a replay, K1 inside graphs, peak
    allocated memory and the graph's private pool; sketch, tick and hot
    ids exact, table and Adam
-   slots within adam_close; the graphed step traced;
+   slots within adam_close; beside them the step graphed with its sums
+   in float atomics (atomic_sums: as before segment_rows), its ms a step
+   in the same windows; two more graphed runs of 20 steps from one
+   state bit-equal; K3 (segment_rows: the message sums, the gathers'
+   backward, the apply) 7 times a step, inside graphs 7 times a replay,
+   and on the inputs one step gave it against its plain version and
+   timed (rowsum_case); the graphed step traced;
 40. graphrec_pinsage: PinSAGE at the reference's width (hidden 16, 2
    layers, T = 3, 10 walks, Adam) with CAFE (compress ratio 4) on a
    synthetic graph of MovieLens-1M's size (6,040 x 3,706), B = 2048
@@ -240,9 +252,10 @@ graphs on the card; after phase 12; each phase prints its wall time):
    sampler timed apart from the device step; K1 once a step, the graph
    gate (the representation step graphed too), its case, the
    card-against-CPU step and the graphed-beside-eager steps as phase 39
-   (conv params and their Adam slots within GRAPHREC_TOL), except that
-   the free run's floats are recorded and held step by step instead
-   (graphed_lockstep: each replay from the eager step's input state);
+   (conv params and their Adam slots within GRAPHREC_TOL; K3 4 times a
+   train step: the three position gathers' backward and the apply), the
+   free run's floats held and also step by step (graphed_lockstep: each
+   replay from the eager step's input state);
    represent_items through the graphed representation step against the
    eager one on one state within GRAPHREC_TOL (bit-equal expected).
 
@@ -251,7 +264,7 @@ size 1, after phase 12; eager steps; each line carries its wall time):
 
 41. sharded_methods: QR (add, mult, concat) and Off at the headline flags
    (dense apply) and AdaEmbed at the sibling's, sharded, each in the
-   explicit, a2a and pallas modes on the card, 3 steps, each from the
+   explicit, a2a and pallas modes on the card, 2 steps, each from the
    pallas run's state before it: integer state, routing and AdaEmbed's
    admitted counts equal, tables, loss and dense params within DENSE_TOL
    of the pallas run's step; the pallas
@@ -299,7 +312,7 @@ The rest of the mesh (world size 1, after phase 43; eager steps):
 The data and experiment tools (after phase 34; eager and graphed as
 their entry points build them; each line carries its wall time):
 
-48. preprocess_cli: a 262,144-row Kaggle-format TSV (label, 13 dense, 26
+48. preprocess_cli: a 131,072-row Kaggle-format TSV (label, 13 dense, 26
    hex categoricals, missing cells) through cafe_tpu_torch.data.preprocess
    and native.NativeEncoder, one after the other and each timed alone:
    counts, labels and dense floats byte-equal,
@@ -456,6 +469,68 @@ CLI_FLAGS = ["--dataset", "criteo", "--embedding_dim", "16",
 
 
 T0 = time.perf_counter()
+
+# uniform draws of at least this many values (the tables' inits) are
+# memoised, up to MEMO_DRAW_BYTES of them (_MemoDraws)
+MEMO_DRAW_MIN, MEMO_DRAW_BYTES = 1 << 24, 16 << 30
+
+
+class _MemoDraws(np.random.Generator):
+    """A numpy Generator whose large uniform draws are memoised by the
+    generator's state and arguments: a configuration built again (the
+    phases build the sibling's 3.2 M-row tables some thirty times) takes
+    its draws from memory, bit-equal, and leaves the generator where the
+    draw would have left it. The memo's arrays are read-only; the oldest
+    go first past MEMO_DRAW_BYTES."""
+
+    _memo: dict = {}
+
+    def uniform(self, low=0.0, high=1.0, size=None):
+        n = int(np.prod(size)) if size is not None else 1
+        if n < MEMO_DRAW_MIN:
+            return super().uniform(low, high, size)
+        key = (repr(self.bit_generator.state), np.asarray(low).tobytes(),
+               np.asarray(high).tobytes(), repr(size))
+        hit = self._memo.pop(key, None)
+        if hit is None:
+            out = super().uniform(low, high, size)
+            out.flags.writeable = False
+            hit = (out, self.bit_generator.state)
+        self._memo[key] = hit               # the newest last
+        while sum(a.nbytes for a, _ in self._memo.values()) \
+                > MEMO_DRAW_BYTES and len(self._memo) > 1:
+            self._memo.pop(next(iter(self._memo)))
+        self.bit_generator.state = hit[1]
+        return hit[0]
+
+
+def memo_table_draws() -> None:
+    """np.random.default_rng returns a _MemoDraws over the generator it
+    would have made (the same bit generator and draws)."""
+    make = np.random.default_rng
+    if getattr(make, "memo", False):
+        return
+
+    def default_rng(seed=None):
+        return _MemoDraws(make(seed).bit_generator)
+
+    default_rng.memo = True
+    np.random.default_rng = default_rng
+
+
+def cpu_copy(tree):
+    """A CPU copy of a state tree (one device-to-host copy a tensor;
+    other leaves shared)."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        return t.cpu() if t.device.type != "cpu" else t.clone()
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(cpu_copy(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cpu_copy(v) for v in tree)
+    return tree
 
 
 def emit(obj) -> None:
@@ -880,7 +955,7 @@ def trace_steps(name, one, steps=5, landings=1):
                             for k, t, c in dev[:10] + ours]}
 
 
-GRAPH_STEPS, GRAPH_WINDOWS = 20, 5
+GRAPH_STEPS, GRAPH_WINDOWS = 20, 3
 # the replay gates' 12 batches: full ones, a tail and an empty batch
 GATE_VALIDS = [2048, 2048, 2048, 2048 - 301, 2048, 0, 2048, 2048, 2047,
                2048, 2048, 2048]
@@ -1089,7 +1164,7 @@ def gate_replay(build_all, build_train_step, clone_state, from_reference,
     if not g_step.graphed:
         raise AssertionError("gate: the step is not graphed")
     e_step = build_train_step(model, embed, cfg, capture=False)
-    start = to_numpy(state0)
+    start = clone_state(state0)         # on the card: no host round trip
     del state0
 
     def batch(i):
@@ -1104,7 +1179,7 @@ def gate_replay(build_all, build_train_step, clone_state, from_reference,
     runs = {}
     fires = {"reset": 0, "decay": 0}
     for name, step in (("eager", e_step), ("graphed", g_step)):
-        st, ms = from_reference(start, "cuda"), []
+        st, ms = clone_state(start), []
         for i in range(len(GATE_VALIDS)):
             if name == "eager":
                 count_fires(fires, cafe, st.embed[key]["sketch"])
@@ -1131,22 +1206,21 @@ def gate_replay(build_all, build_train_step, clone_state, from_reference,
     if exact_tables and (diff or metric_diff != 0.0):
         raise AssertionError(f"gate trajectory: {diff} differ, metrics by "
                              f"{metric_diff}")
-    e_np, g_np = to_numpy(e_st), to_numpy(g_st)
     traj = {"steps": len(GATE_VALIDS), "valids": GATE_VALIDS,
             "integer_state_equal": True, "promotions": promos[1],
             "plus_fires": fires if cafe.plus else None,
             "float_leaves_differing": diff,
             "max_abs_diff_metrics": metric_diff,
             "max_abs_diff_tables": {
-                p: float(np.max(np.abs(e_np["embed"][p]["table"]
-                                       - g_np["embed"][p]["table"])))
-                for p in e_np["embed"]},
-            "max_abs_diff_params": float(max(
-                np.max(np.abs(a[k] - b[k]))
+                p: float((e_st.embed[p]["table"]
+                          - g_st.embed[p]["table"]).abs().max())
+                for p in e_st.embed},
+            "max_abs_diff_params": max(
+                float((a[k] - b[k]).detach().float().abs().max())
                 for t in ("bot", "top")
-                for a, b in zip(e_np["params"][t], g_np["params"][t])
-                for k in ("w", "b")))}
-    del runs, e_st, e_np, g_np
+                for a, b in zip(e_st.params[t], g_st.params[t])
+                for k in ("w", "b"))}
+    del runs, e_st, start
 
     tables = {p: f"/embed/{p}/table" for p in g_st.embed}
     per_step = []
@@ -2308,7 +2382,7 @@ def phase_mesh_graph(fns, eval_fns, Config, cfg128, data, batches, mesh,
 
 # ---- QR, Off and AdaEmbed on the mesh, and the unique-compact exchange
 SHARDED_MODES = ("explicit", "a2a", "pallas")
-SHARDED_GATE_STEPS = 3
+SHARDED_GATE_STEPS = 2
 SHARDED_WINDOWS, SHARDED_STEPS = 2, 5
 # the unique fraction of the compact runs: C = 26,624 lanes of a batch's
 # 53,248 hold its ~7-9 thousand distinct rows; C = 5,376 cannot
@@ -3048,7 +3122,7 @@ PINSAGE_FLAGS = ["--model", "pinsage", "--dim", "16", "--layers", "2",
                  "--topk", "10",
                  # MovieLens-1M's size (the DGL PinSAGE example's data)
                  "--synthetic_users", "6040", "--synthetic_items", "3706"]
-PINSAGE_STEPS = "6"           # steps an epoch: the host sampler sets the pace
+PINSAGE_STEPS = "4"           # steps an epoch: the host sampler sets the pace
 GRAPHREC_TOL = 1e-5           # card against CPU, f32 (see adam_close)
 
 
@@ -3156,20 +3230,126 @@ def graphrec_cli(main_fn, argv, log_name, kernels):
     return res, lines, wall, {n: k.launches for n, k in kernels.items()}
 
 
-def graphrec_graph_gate(name, res, device):
+# K3 launches a train step: LightGCN's layers each sum their messages
+# and their gathers' backward, then the part's apply; PinSAGE's three
+# position gathers' backward and the apply (the representation step
+# takes none)
+K3_PER_STEP = {"lightgcn": 2 * 3 + 1, "pinsage": 3 + 1}
+
+
+def graphrec_graph_gate(name, res, device, model="lightgcn"):
     """A graphrec CLI run on the card: its steps graphed, nothing
-    blocking, and K1's launches inside graphs equal to the train step's
+    blocking, K1's launches inside graphs equal to the train step's
     replays (one insert a step; the representation step inserts
-    nothing). Returns the run's capture record."""
+    nothing) and K3's K3_PER_STEP[model] times them (the sums of
+    ops/sparse.segment_rows). Returns the run's capture record."""
     k1 = res["launches_in_graphs"]["land_max"]
+    k3 = res["launches_in_graphs"]["rowsum"]
     rec = {"graphed": res["graphed"], "replays": res["replays"],
            "capture_s": res["capture_s"], "k1_in_graphs": k1,
+           "k3_in_graphs": k3,
            "capture_blockers": res["capture_blockers"]}
     if device == "cuda" and not (
             res["graphed"] and res["replays"] > 0 and k1 == res["replays"]
+            and k3 == K3_PER_STEP[model] * res["replays"]
             and all(e["graphed"] for e in res["epochs"])):
         raise AssertionError(f"{name}: not graphed as it should be {rec}")
     return rec
+
+
+def rowsum_captured(rowsum, fn):
+    """fn() with K3's wrapper recording its distinct inputs (by shape and
+    first ids) outside a capture, in call order: [(table, ids, upd)]
+    cloned (LightGCN's three layers sum over one set of ids)."""
+    calls, wrapper = {}, rowsum.sparse_add_dense_
+
+    def recording(table, ids, upd):
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            key = (tuple(table.shape), tuple(ids.shape),
+                   tuple(ids[:8].tolist()))
+            if key not in calls:
+                calls[key] = (table.clone(), ids.clone(), upd.clone())
+        return wrapper(table, ids, upd)
+
+    rowsum.sparse_add_dense_ = recording
+    try:
+        fn()
+    finally:
+        rowsum.sparse_add_dense_ = wrapper
+    return list(calls.values())
+
+
+def _repeats(fn, n=4) -> bool:
+    """Whether n calls of fn() give bit-equal tensors."""
+    first = fn()
+    return all(torch.equal(first, fn()) for _ in range(n - 1))
+
+
+def rowsum_graphrec_cases(rowsum, calls, names):
+    """K3 against its plain version (rowsum_case, no stage window) on the
+    inputs a graph recommender's step gave it, named in call order; and
+    whether the library's routes repeat bit for bit on them
+    (`index_add_` and `scatter_add_` into zeros, torch's own index
+    backward)."""
+    if len(calls) != len(names):
+        raise AssertionError(f"K3: {len(calls)} distinct inputs in a step, "
+                             f"want {names}")
+    out = {}
+    for name, (table, ids, upd) in zip(names, calls):
+        out[name] = {"role": name, **rowsum_case(rowsum, table, ids, upd,
+                                                 stages=False)}
+        if table.is_cuda:
+            x = torch.zeros_like(table).requires_grad_()
+            idx2 = ids.long()[:, None].expand(-1, upd.shape[1])
+            out[name].update(
+                index_add_repeats=_repeats(lambda: torch.zeros_like(
+                    table).index_add_(0, ids.long(), upd)),
+                scatter_add_repeats=_repeats(lambda: torch.zeros_like(
+                    table).scatter_add_(0, idx2, upd)),
+                index_backward_repeats=_repeats(lambda: torch.autograd.grad(
+                    x[ids.long()], x, upd)[0]))
+    return out
+
+
+@contextlib.contextmanager
+def atomic_sums(model):
+    """The graph recommender `model` summing as it did before its sums
+    took K3 (the A/B's other arm): gathers with torch's index backward,
+    LightGCN's message sum as index_add, the part's apply coalescing in
+    float atomics (index_add_ / scatter_add_)."""
+    from cafe_tpu_torch.models.graphrec import lightgcn, pinsage
+    saved = (lightgcn.gather_rows, lightgcn.segment_rows,
+             pinsage.gather_rows, model.part.deterministic_sums)
+
+    def index_sum(values, seg, n):
+        return torch.zeros((n,) + tuple(values.shape[1:]),
+                           dtype=values.dtype,
+                           device=values.device).index_add(0, seg, values)
+
+    lightgcn.gather_rows = pinsage.gather_rows = lambda t, i: t[i]
+    lightgcn.segment_rows = index_sum
+    model.part.deterministic_sums = False
+    try:
+        yield
+    finally:
+        (lightgcn.gather_rows, lightgcn.segment_rows, pinsage.gather_rows,
+         model.part.deterministic_sums) = saved
+
+
+class AtomicStep:
+    """A built step whose calls (warm-ups and capture included) run under
+    atomic_sums(model); its other attributes are the step's."""
+
+    def __init__(self, step, model):
+        self.step, self.model = step, model
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+    def __call__(self, *args):
+        with atomic_sums(self.model):
+            return self.step(*args)
 
 
 # steps graphed beside eager from one state: untimed first (the graphed
@@ -3196,61 +3376,129 @@ def graph_pool_gb(step):
                if tuple(seg["segment_pool_id"]) in pools) / 1e9
 
 
-def graphed_beside_eager(make, call, land):
-    """GRAPHREC_GRAPH_STEPS steps eager and graphed, each mode from its
-    own copy of one state on one batch: make(capture) -> (model, step,
-    state), call(step, state) -> (state, loss). Each mode's first
-    GRAPHREC_UNTIMED steps are untimed (its peak memory is read over
-    them, the graph's capture and private pool included); then windows
-    of GRAPHREC_WINDOW steps in turns (_order), each ending in
-    torch.cuda.synchronize(). Returns (record, {mode: (model, step,
-    state, losses)}): ms a step (median of windows, and each window's),
-    capture s, launches per replay, K1's launches inside graphs (held to
-    the replays), peak allocated memory, the graph's private pool."""
+MODES = ("eager", "graphed", "graphed_atomics")
+
+
+def _order3(windows):
+    """The three modes' windows in turns, the order rotated each round."""
+    return [MODES[(w + j) % 3] for w in range(windows) for j in range(3)]
+
+
+def _bit_equal(a, b) -> bool:
+    """Two numpy trees (to_numpy's) bit-equal leaf by leaf."""
+    la, lb = _np_leaves(a), _np_leaves(b)
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        x.shape == y.shape and x.tobytes() == y.tobytes()
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def graphed_beside_eager(make, call, land, to_numpy):
+    """GRAPHREC_GRAPH_STEPS steps eager, graphed, and graphed with the
+    sums in float atomics (make(mode) -> (model, step, state), each mode
+    from its own copy of one state on one batch; call(step, state) ->
+    (state, loss)). Each mode's first GRAPHREC_UNTIMED steps are untimed
+    (its peak memory is read over them, the graph's capture and private
+    pool included); then windows of GRAPHREC_WINDOW steps in turns
+    (_order3), each ending in torch.cuda.synchronize(). Then the graphed
+    step replays GRAPHREC_GRAPH_STEPS steps twice more, each run from a
+    copy of the start state: the two runs' states and losses must be
+    bit-equal (every sum of the step runs in a fixed order). Returns
+    (record, {mode: (model, step, state, losses)}): ms a step (median of
+    windows, and each window's), capture s, launches per replay, K1's
+    and K3's launches inside graphs (held to the replays), peak
+    allocated memory, the graph's private pool."""
     from cafe_tpu_torch.train.capture import WARMUP_CALLS
+    from cafe_tpu_torch.train.step import clone_state
     runs, rec = {}, {}
-    for mode in ("eager", "graphed"):
-        model, step, state = make(mode == "graphed")
+
+    def steps(mode, n):
+        """n steps of `mode`, counting K1's and K3's launches inside
+        graph replays during them."""
+        _, step, state, losses, inside = runs[mode]
+        k0 = (land.KERNEL.graph_launches, rowsum_module().KERNEL.graph_launches)
+        for _ in range(n):
+            state, loss = call(step, state)
+            losses.append(loss.clone())
+        inside[0] += land.KERNEL.graph_launches - k0[0]
+        inside[1] += rowsum_module().KERNEL.graph_launches - k0[1]
+        runs[mode][2] = state
+
+    starts = {}
+    for mode in MODES:
+        model, step, state = make(mode)
+        starts[mode] = clone_state(state)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        g0 = land.KERNEL.graph_launches
-        losses = []
-        for _ in range(GRAPHREC_UNTIMED):
-            state, loss = call(step, state)
-            losses.append(loss.clone())
+        runs[mode] = [model, step, state, [], [0, 0]]
+        steps(mode, GRAPHREC_UNTIMED)
         torch.cuda.synchronize()
         rec[mode] = {"graphed": bool(step.graphed), **_peak(base),
                      "windows_ms": []}
-        runs[mode] = [model, step, state, losses, g0]
     windows = (GRAPHREC_GRAPH_STEPS - GRAPHREC_UNTIMED) // GRAPHREC_WINDOW
-    for mode in _order(windows):
-        model, step, state, losses, _ = runs[mode]
+    for mode in _order3(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(GRAPHREC_WINDOW):
-            state, loss = call(step, state)
-            losses.append(loss.clone())
+        steps(mode, GRAPHREC_WINDOW)
         torch.cuda.synchronize()
         rec[mode]["windows_ms"].append(
             (time.perf_counter() - t0) * 1e3 / GRAPHREC_WINDOW)
-        runs[mode][2] = state
     for mode in rec:
         rec[mode]["ms_per_step"] = float(np.median(rec[mode]["windows_ms"]))
         rec[mode]["steps"] = len(runs[mode][3])
     g = runs["graphed"][1]
-    k1 = land.KERNEL.graph_launches - runs["graphed"][4]
+    k1, k3 = runs["graphed"][4]
     per = g.launches_per_replay()
     rec["graphed"].update(capture_s=g.capture_s, replays=g.replays,
                           launches_per_replay=per, k1_in_graphs=k1,
-                          graph_pool_gb=graph_pool_gb(g))
+                          k3_in_graphs=k3, graph_pool_gb=graph_pool_gb(g))
+    rec["graphed_atomics"]["capture_s"] = runs["graphed_atomics"][1].capture_s
+    rec["k3_over_atomics"] = (rec["graphed"]["ms_per_step"]
+                              / rec["graphed_atomics"]["ms_per_step"])
     if not g.graphed or rec["eager"]["graphed"] or \
+            not rec["graphed_atomics"]["graphed"] or \
             g.replays != GRAPHREC_GRAPH_STEPS - WARMUP_CALLS or \
-            k1 != g.replays * per.get("land_max", 0):
+            k1 != g.replays * per.get("land_max", 0) or \
+            not per.get("rowsum") or k3 != g.replays * per["rowsum"]:
         raise AssertionError(f"graphed beside eager: {rec}")
-    losses = [torch.stack(runs[m][3]).double().cpu().numpy() for m in rec]
+    losses = [torch.stack(runs[m][3]).double().cpu().numpy() for m in rec
+              if m in MODES]
     rec["loss_gap"] = float(np.abs(losses[0] - losses[1]).max())
+    first = to_numpy(runs["graphed"][2])
+    rec["graphed_vs_eager_bit_equal"] = _bit_equal(
+        first, to_numpy(runs["eager"][2]))
+    # two more runs of each graph from its start state, replays only
+    # (the step's state is the graph's own, so this overwrites the first
+    # run's, which `first` keeps): the graphed step's bit for bit; the
+    # atomics' recorded
+    def two_runs(mode):
+        step, out = runs[mode][1], []
+        for _ in range(2):
+            st, ls = clone_state(starts[mode]), []
+            for _ in range(GRAPHREC_GRAPH_STEPS):
+                st, loss = call(step, st)
+                ls.append(loss.clone())
+            out.append((to_numpy(st), torch.stack(ls).cpu().numpy()))
+        return out, (_bit_equal(out[0][0], out[1][0])
+                     and out[0][1].tobytes() == out[1][1].tobytes())
+
+    again, equal = two_runs("graphed")
+    rec["two_graphed_runs"] = {"steps": GRAPHREC_GRAPH_STEPS,
+                               "bit_equal": equal}
+    if not equal:
+        raise AssertionError(f"two graphed runs from one state differ: "
+                             f"{rec['two_graphed_runs']}")
+    rec["two_graphed_runs"]["equal_to_the_first"] = _bit_equal(
+        again[0][0], first)
+    rec["graphed_atomics"]["two_runs_bit_equal"] = two_runs(
+        "graphed_atomics")[1]
+    del again, starts, first
     return rec, {m: runs[m][:4] for m in runs}
+
+
+def rowsum_module():
+    from cafe_tpu_torch.kernels import rowsum
+    return rowsum
 
 
 def sum_launches(runs):
@@ -3266,12 +3514,13 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
     on a synthetic graph of Gowalla's size: one epoch at the default
     threshold 500 (its hot ids recorded), then at `threshold` one
     epoch saved and a second run that auto-resumes and trains one more;
-    K1 once a step, recall@20 above a random ranking's. Then K1 on the
-    inputs a step of the trained state gives it, and one step from that
-    state (frequency scores) on the card and on the CPU: the sketch
-    exact, the table and its Adam slots within adam_close. Each CLI run
-    graphs its step (graphrec_graph_gate); on the card the step is then
-    timed graphed beside eager from that state (lightgcn_graphed)."""
+    K1 once a step, K3 K3_PER_STEP times, recall@20 above a random
+    ranking's. Then K1 and K3 on the inputs a step of the trained state
+    gives them, and one step from that state (frequency scores) on the
+    card and on the CPU: the sketch exact, the table and its Adam slots
+    within adam_close. Each CLI run graphs its step (graphrec_graph_gate);
+    on the card the step is then timed graphed beside eager from that
+    state (lightgcn_graphed)."""
     plat = ["--force_platform", "cpu"] if device == "cpu" else []
     root = tempfile.mkdtemp(prefix="chip_smoke_lightgcn_", dir=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build"))
@@ -3293,9 +3542,12 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
             if len(res["epochs"]) != 1 or not (
                     np.isfinite(ep["loss"]) and ep["recall"] > random_recall):
                 raise AssertionError(f"lightgcn {name}: {res}")
-            if device == "cuda" and k1 != ep["steps"]:
-                raise AssertionError(f"lightgcn {name}: K1 launched {k1} "
-                                     f"times in {ep['steps']} steps")
+            if device == "cuda" and (
+                    k1 != ep["steps"] or launches["rowsum"]
+                    < K3_PER_STEP["lightgcn"] * ep["steps"]):
+                raise AssertionError(f"lightgcn {name}: K1 launched {k1}, "
+                                     f"K3 {launches['rowsum']} times in "
+                                     f"{ep['steps']} steps")
             out[name] = {**ep, "wall_s": wall, "launches": launches,
                          "launches_in_graphs": res["launches_in_graphs"],
                          "capture": graphrec_graph_gate(
@@ -3324,11 +3576,19 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
             model = gr.lightgcn_model(args, train, n_items, dev)
             model.part.use_freq = True
             state, _ = load_tree(ck, model.init(), model.device)
-            new = []
-            calls = land_captured(land, lambda: new.append(model.bpr_step(
-                state, users, pos, neg)[0]))
+            new, k3 = [], []
+            calls = land_captured(land, lambda: k3.extend(rowsum_captured(
+                rowsum_module(), lambda: new.append(model.bpr_step(
+                    state, users, pos, neg)[0]))))
             steps[dev] = (to_numpy(new[0]), calls)
             if dev == "cuda":
+                # the first layer's message sum (by destination), the
+                # first gathers' backward (by source), the apply
+                out["rowsum_cases"] = rowsum_graphrec_cases(
+                    rowsum_module(), k3, ["messages_by_dst",
+                                          "gather_backward_by_src",
+                                          "apply_coalesce"])
+                del k3
                 batch = [torch.from_numpy(x).cuda() for x in (users, pos,
                                                               neg)]
 
@@ -3358,18 +3618,23 @@ def phase_graphrec_lightgcn(gr, land, load_tree, to_numpy, kernels,
 
 def lightgcn_graphed(gr, land, load_tree, to_numpy, args, train, n_items,
                      ck, batch):
-    """LightGCN.build_step graphed beside eager from the checkpoint's
-    state on one batch (graphed_beside_eager, frequency scores): the
-    sketch, tick and hot ids exact, the table and its Adam slots within
-    adam_close; then the graphed step traced."""
-    def make(capture):
+    """LightGCN.build_step graphed beside eager (and beside its graph
+    with the sums in float atomics) from the checkpoint's state on one
+    batch (graphed_beside_eager, frequency scores): two graphed runs
+    bit-equal, the sketch, tick and hot ids exact, the table and its
+    Adam slots within adam_close; then the graphed step traced."""
+    def make(mode):
         model = gr.lightgcn_model(args, train, n_items, "cuda")
         model.part.use_freq = True
         state, _ = load_tree(ck, model.init(), model.device)
-        return model, model.build_step(capture), state
+        if mode == "graphed_atomics":
+            with atomic_sums(model):
+                return model, AtomicStep(model.build_step(True), model), \
+                    state
+        return model, model.build_step(mode == "graphed"), state
 
     rec, runs = graphed_beside_eager(
-        make, lambda step, state: step(state, *batch), land)
+        make, lambda step, state: step(state, *batch), land, to_numpy)
     (_, _, e, _), (_, g_step, g, _) = runs["eager"], runs["graphed"]
     e_np, g_np = to_numpy(e), to_numpy(g)
     _sketch_equal("lightgcn graphed", g_np["sketch"], e_np["sketch"])
@@ -3434,13 +3699,16 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
                     np.isfinite(ep["loss"]) and 0 < ep["hit"] <= 1
                     and 0 < ep["ndcg"] <= 1):
                 raise AssertionError(f"pinsage {name}: {res}")
-            if device == "cuda" and k1 != ep["steps"]:
-                raise AssertionError(f"pinsage {name}: K1 launched {k1} "
-                                     f"times in {ep['steps']} steps")
+            if device == "cuda" and (
+                    k1 != ep["steps"] or launches["rowsum"]
+                    < K3_PER_STEP["pinsage"] * ep["steps"]):
+                raise AssertionError(f"pinsage {name}: K1 launched {k1}, "
+                                     f"K3 {launches['rowsum']} times in "
+                                     f"{ep['steps']} steps")
             out[name] = {**ep, "wall_s": wall, "launches": launches,
                          "launches_in_graphs": res["launches_in_graphs"],
                          "capture": graphrec_graph_gate(
-                             f"pinsage {name}", res, device),
+                             f"pinsage {name}", res, device, "pinsage"),
                          "representation": res["representation"],
                          "lines": [ln for ln in lines
                                    if ln.startswith(("epoch", "resumed"))]}
@@ -3469,11 +3737,20 @@ def phase_graphrec_pinsage(gr, land, load_tree, to_numpy, kernels,
                 block = {k: v.cpu() for k, v in model.make_batch(
                     sampler, args.bpr_batch).items()}
             b = {k: v.to(model.device) for k, v in block.items()}
-            new = []
-            calls = land_captured(land, lambda: new.append(model.train_step(
-                state, b, args.lr)[0]))
+            new, k3 = [], []
+            calls = land_captured(land, lambda: k3.extend(rowsum_captured(
+                rowsum_module(), lambda: new.append(model.train_step(
+                    state, b, args.lr)[0]))))
             steps[dev] = (to_numpy(new[0]), calls)
             if dev == "cuda":       # the device step alone: one block
+                # the backward of the gathers at the seed, 1-hop and
+                # 2-hop positions (S, S*T, S*T*T lanes), then the apply
+                # over the block's padded ids (more lanes than any)
+                out["rowsum_cases"] = rowsum_graphrec_cases(
+                    rowsum_module(), sorted(k3, key=lambda c: c[1].numel()),
+                    ["gather_backward_ego", "gather_backward_nbr1",
+                     "gather_backward_nbr2", "apply_coalesce"])
+                del k3
 
                 def one(i):
                     new[0] = model.train_step(new[0], b, args.lr)[0]
@@ -3524,29 +3801,35 @@ def graphed_lockstep(g_step, e_step, state, call, close, to_numpy,
 
 def pinsage_graphed(gr, land, load_tree, to_numpy, args, train, n_items,
                     ck, block):
-    """PinSAGE's built train step graphed beside eager from the
-    checkpoint's state on one block (graphed_beside_eager, frequency
-    scores): the sketch, tick and hot ids exact, the free run's table,
-    slots and conv params recorded; then GRAPHREC_GRAPH_STEPS steps in
-    lockstep from the eager run's state (graphed_lockstep), each with
-    the sketch and tick exact, the table and its Adam slots within
-    adam_close, conv params and slots within GRAPHREC_TOL;
-    represent_items through the graphed representation step against the
-    eager one on the graphed state, within GRAPHREC_TOL (bit-equal
-    expected); then the graphed train step traced."""
+    """PinSAGE's built train step graphed beside eager (and beside its
+    graph with the sums in float atomics) from the checkpoint's state on
+    one block (graphed_beside_eager, frequency scores): two graphed runs
+    bit-equal; the sketch, tick and hot ids exact, the free run's table
+    and its Adam slots within adam_close, conv params and slots within
+    GRAPHREC_TOL (whether they are bit-equal recorded); then
+    GRAPHREC_GRAPH_STEPS steps in lockstep from the eager run's state
+    (graphed_lockstep), each with the same gates; represent_items
+    through the graphed representation step against the eager one on
+    the graphed state, within GRAPHREC_TOL (bit-equal expected); then
+    the graphed train step traced."""
     from cafe_tpu_torch.models.graphrec.pinsage import block_args
     blk = block_args(block)
 
-    def make(capture):
+    def make(mode):
         model, _ = gr.pinsage_model(args, train, n_items, "cuda")
         model.part.use_freq = True
         state, _ = load_tree(ck, model.init(), model.device)
-        return model, model.build_train_step(args.lr, capture), state
+        if mode == "graphed_atomics":
+            with atomic_sums(model):
+                return model, AtomicStep(
+                    model.build_train_step(args.lr, True), model), state
+        return model, model.build_train_step(args.lr, mode == "graphed"), \
+            state
 
     def call(step, state):
         return step(state, *blk, args.lr)
 
-    rec, runs = graphed_beside_eager(make, call, land)
+    rec, runs = graphed_beside_eager(make, call, land, to_numpy)
     (_, e_step, e, _), (model, g_step, g, _) = (runs["eager"],
                                                 runs["graphed"])
     e_np, g_np = to_numpy(e), to_numpy(g)
@@ -3557,10 +3840,11 @@ def pinsage_graphed(gr, land, load_tree, to_numpy, args, train, n_items,
             rec["hot_ids"][0] != rec["hot_ids"][1]:
         raise AssertionError(f"pinsage graphed: tick or hot ids differ "
                              f"from eager {rec}")
-    free, within = adam_gaps(g_np["embed"], e_np["embed"], args.lr)
-    rec["free_run_gaps"] = {
-        **free, "within_one_step_bound": within,
-        **{k: max(v) for k, v in pinsage_dense_gaps(g_np, e_np).items()}}
+    free = adam_close("pinsage graphed free run", g_np["embed"],
+                      e_np["embed"], args.lr)
+    free.update(pinsage_dense_close("pinsage graphed free run", g_np,
+                                    e_np))
+    rec["free_run"] = {**free, "bit_equal": rec["graphed_vs_eager_bit_equal"]}
 
     def close(g_np, e_np):
         _sketch_equal("pinsage graphed step", g_np["embed"]["sketch"],
@@ -3961,7 +4245,7 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
         d[key] = max(d.get(key, 0.0), v)
 
     if pretrain is not None:
-        c_state = from_reference(to_numpy(g_state), "cpu")
+        c_state = cpu_copy(g_state)
         pretrain(g_embed, g_state, data, "cuda")
         pretrain(c_embed, c_state, data, "cpu")
         for path, a, b in _pairs(g_state.embed, c_state.embed):
@@ -3973,7 +4257,7 @@ def gate_card_cpu(build_all, from_reference, to_numpy, bce, cfg, data,
     for i in range(steps):
         for j, part in enumerate(g_embed.parts):
             count_fires(fires, part, g_state.embed[f"part{j}"].get("sketch"))
-        c_state = from_reference(to_numpy(g_state), "cpu")
+        c_state = cpu_copy(g_state)
         gb, cb = batches[i], batches_cpu[i]
         g_grads, g_aux = lane_grads(g_model, g_embed, g_state, *gb, bce)
         c_grads, c_aux = lane_grads(c_model, c_embed, c_state, *cb, bce)
@@ -4600,6 +4884,117 @@ def phase_serving_quant(bench, windows=5, steps=20):
     return out
 
 
+def four_gathers(cfg, sk, ids):
+    """The v1 sketch query as four narrow row gathers of val, cnt and
+    dic (query_cells' form before the packed one), for the A/B."""
+    from cafe_tpu_torch.sketch.hotsketch import _bucket_of
+    h = _bucket_of(cfg, ids).long()
+    val, cnt, dic = sk["val"], sk["cnt"], sk["dic"]
+    m = (cnt[h] > 0) & (val[h] == ids[:, None]) & (dic[h] != 0)
+    slot = torch.where(m, dic[h], 0).amax(dim=1)
+    return torch.where(slot > 0, -slot, ids)
+
+
+def phase_serving_packed(build_all, quant_eval, Config, data, batches,
+                         serving, warmup_calls):
+    """CAFE v1's packed sketch view, frozen at quantize time
+    (CafePart.quantize_for_serving), on the card at the headline flags
+    with frequency scores and threshold 2 after 8 graphed steps, so ids
+    route hot:
+
+    * route: query_cells_packed on the view equals the plain query
+      (sketch_query) exactly for every batch's ids, hot lanes among them;
+    * rows: gather_quantized through the view bit-equal to the plain
+      route's (the view taken out of the tables), at 8 and 4 bits;
+    * scores: the graphed int8 eval step through the view bit-equal to
+      the graphed one without it, on every batch;
+    * the query alone at the headline step's lanes: four narrow row
+      gathers (four_gathers, query_cells' form before the packed one)
+      against packing and querying each call (query_cells) and against
+      the frozen view (time_ms); `packed_form_wins` records the A/B
+      that moved query_cells to the packed form;
+    * serving_quant's A/B (tools/serving_bench_torch.py: its int8 arm
+      through the view against its int8_plain arm, in alternating
+      windows of one call) at B = 2048 and at 16,384 rows, the latency
+      protocol's eval configuration."""
+    from cafe_tpu_torch.sketch.hotsketch import (_pack_cells,
+                                                 query_cells_packed,
+                                                 sketch_query)
+    cfg = headline_cfg(Config, cafe_use_freq=True, cafe_sketch_threshold=2.0)
+    model, embed, state, step, _ = build_all(cfg, data, device="cuda")
+    for i in range(8):
+        state, m = step(state, *batches[i % len(batches)])
+    torch.cuda.synchronize()
+    part, key = cafe_key(embed)
+    cols = embed._cols[int(key[4:])]
+    st = state.embed[key]
+    sk, scfg = st["sketch"], part.sketch_cfg
+    packed = _pack_cells(sk["val"], sk["cnt"], sk["dic"])
+    hot = 0
+    for b in batches:
+        oids = part._oids(b[1][:, cols]).reshape(-1)
+        plain = sketch_query(scfg, sk, oids)
+        if not torch.equal(query_cells_packed(scfg, packed, oids), plain):
+            raise AssertionError("serving_packed: the packed query differs "
+                                 "from the plain one")
+        hot += int((plain < 0).sum())
+    if not hot:
+        raise AssertionError("serving_packed: no lane routed hot")
+    for bits in QUANT_BITS:
+        qt = part.quantize_for_serving(st, bits)
+        if "sk_packed" not in qt or not torch.equal(qt["sk_packed"],
+                                                    packed):
+            raise AssertionError(f"serving_packed: no frozen view at "
+                                 f"{bits} bits")
+        plain_qt = {k: v for k, v in qt.items() if k != "sk_packed"}
+        for b in batches:
+            if not torch.equal(part.gather_quantized(st, qt, b[1][:, cols]),
+                               part.gather_quantized(st, plain_qt,
+                                                     b[1][:, cols])):
+                raise AssertionError(f"serving_packed: rows through the "
+                                     f"view differ at {bits} bits")
+    view = quant_eval(model, embed, state, 8)
+    plain_step = quant_eval(model, embed, state, 8)
+    for q in plain_step.qtables.values():
+        q.pop("sk_packed", None)
+    calls = warmup_calls + 1 + len(batches)
+    for i in range(calls):
+        d, ids = batches[i % len(batches)][:2]
+        if not torch.equal(view(state, d, ids).clone(),
+                           plain_step(state, d, ids)):
+            raise AssertionError(f"serving_packed: int8 scores through the "
+                                 f"view differ, call {i}")
+    if not (view.graphed and plain_step.graphed):
+        raise AssertionError("serving_packed: a quantized step not graphed")
+    oids = part._oids(batches[0][1][:, cols]).reshape(-1)
+    if not torch.equal(four_gathers(scfg, sk, oids),
+                       sketch_query(scfg, sk, oids)):
+        raise AssertionError("serving_packed: four gathers differ")
+    query = {
+        "lanes": int(oids.numel()), "buckets": int(sk["val"].shape[0]),
+        "four_gathers_ms": time_ms(lambda: four_gathers(scfg, sk, oids)),
+        "pack_ms": time_ms(lambda: _pack_cells(sk["val"], sk["cnt"],
+                                               sk["dic"])),
+        "pack_and_query_ms": time_ms(lambda: sketch_query(scfg, sk, oids)),
+        "frozen_view_ms": time_ms(lambda: query_cells_packed(scfg, packed,
+                                                             oids))}
+    query["packed_form_wins"] = \
+        query["pack_and_query_ms"] < query["four_gathers_ms"]
+    ab = {name: {"test_batch": r["test_batch"], "view_ms": r["int8_ms"],
+                 "plain_ms": r["int8_plain_ms"],
+                 "view_over_plain": r["int8_ms"] / r["int8_plain_ms"],
+                 "view_bytes": r["view_bytes"],
+                 "routes_equal": r["routes_equal"],
+                 "windows": {a: r["windows"][a]
+                             for a in ("int8", "int8_plain")}}
+          for name, r in serving.items() if name in SERVING_ARGS}
+    del view, plain_step, state, embed, model, step
+    torch.cuda.empty_cache()
+    return {"hot_lanes": hot, "route_equal": True, "rows_equal": True,
+            "scores_bit_equal": True, "score_calls": calls,
+            "query": query, "ab": ab}
+
+
 def phase_sharded_quant(build_all, init_state, copy_into, quant_eval, cfg,
                         data, batches, mesh):
     """The quantized eval step on a mesh of one rank, graphed and eager,
@@ -4683,9 +5078,9 @@ def phase_export(build_all, export_eval_step, cfg, data, batches,
 
 # ---- the data and experiment tools
 
-PREPROCESS_ROWS = 262144      # 224,694 train rows (110 its), 37,450 test
+PREPROCESS_ROWS = 131072      # 112,347 train rows (55 its), 18,725 test
 GRID_ROWS = 262144            # criteo_grid: 224,694 train rows, 109 steps
-GRID_GATE_STEPS = 16          # card against CPU, each step from one state
+GRID_GATE_STEPS = 8           # card against CPU, each step from one state
 INTERACTIONS = dict(users=2000, items=1000, events=60000, leave_n=1)
 
 
@@ -4731,7 +5126,7 @@ def first_seen_relabel(native_ids, sorted_ids):
 
 def phase_preprocess_cli(main_fn, preprocess, native, kernels, root,
                          device="cuda"):
-    """A 262,144-row Kaggle-format TSV through the port's preprocess (the
+    """A 131,072-row Kaggle-format TSV through the port's preprocess (the
     Python encoder) and native.NativeEncoder into `root`/py and
     `root`/native: counts, labels and dense floats byte-equal, sparse ids
     equal up to each field's first-seen relabelling. Then main_torch.main
@@ -5656,6 +6051,7 @@ def main() -> int:
 
     if os.path.exists(os.path.join(OUT_DIR, "chip_smoke.jsonl")):
         os.remove(os.path.join(OUT_DIR, "chip_smoke.jsonl"))
+    memo_table_draws()
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 towers stay f32
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -5806,8 +6202,11 @@ def main() -> int:
         capture=True)})
 
     # ---- quantized serving and the export
-    emit({"phase": "serving_quant", **phase_serving_quant(
-        load_tool("serving_bench_torch"))})
+    serving = phase_serving_quant(load_tool("serving_bench_torch"))
+    emit({"phase": "serving_quant", **serving})
+    emit({"phase": "serving_packed", **phase_serving_packed(
+        build_all, build_quantized_eval_step, Config, data, batches,
+        serving, WARMUP_CALLS)})
     emit({"phase": "export", **phase_export(
         build_all, export_eval_step, headline_cfg(Config), data, batches)})
     torch.cuda.empty_cache()
@@ -5961,12 +6360,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- the graph recommenders (LightGCN, PinSAGE) and their driver
-    land_shapes = {}
+    land_shapes, rowsum_shapes = {}, {}
     for name, phase in (("graphrec_lightgcn", phase_graphrec_lightgcn),
                         ("graphrec_pinsage", phase_graphrec_pinsage)):
         t0 = time.perf_counter()
         rec = phase(main_graphrec_torch, land, load_tree, to_numpy, KERNELS)
         land_shapes[name] = rec["land_max_cases"]
+        rowsum_shapes[name] = rec["rowsum_cases"]
         by_path[name] = rec["launches"]
         in_graphs[name] = rec["launches_in_graphs"]
         emit({"phase": name, "wall_s": time.perf_counter() - t0, **rec})
@@ -6182,6 +6582,16 @@ def main() -> int:
     # ab_apply128's
     lines[0]["other_paths"] = land_shapes
     lines[1]["other_paths"] = scatter_shapes
+    # K3 at the shapes the graph recommenders' sums give it
+    # (ops/sparse.segment_rows), with each path's launches in and out
+    # of graphs
+    lines[2]["other_paths"] = {
+        path: {"cases": cases, "launches": by_path[path]["rowsum"],
+               "launches_in_graphs": in_graphs[path]["rowsum"]}
+        for path, cases in rowsum_shapes.items()}
+    if not all(v["launches_in_graphs"]
+               for v in lines[2]["other_paths"].values()):
+        raise AssertionError("K3 launched in no graph recommender's graph")
     # K5's device all-gather and reduce-scatter (the branch bodies' rare
     # legs) at n = 1
     lines[4]["collectives"] = kern["a2a"]["n1_collectives"]

@@ -10,8 +10,8 @@ gather_quantized, train/step.build_quantized_eval_step, main_torch's
 * per part (hash, full, weighted hash and full, QR add / mult / concat,
   MDE, Off, AdaEmbed, AE, CAFE v1, CAFE+), on one state (the JAX
   package's after two train steps, bridged): quantize_for_serving
-  byte-equal (the JAX v1 CafePart's frozen packed sketch view,
-  `sk_packed`, is a TPU layout the port does not keep), gather_quantized
+  byte-equal (the v1 CafePart's frozen packed sketch view, `sk_packed`,
+  too), gather_quantized
   within 1e-6, the quantized eval scores within test_torch_methods'
   bounds (f32 towers rtol 1e-5 / atol 1e-6, bf16 2e-3) of the JAX
   package's quantized eval step (of its parts' lookups composed as that
@@ -19,6 +19,11 @@ gather_quantized, train/step.build_quantized_eval_step, main_torch's
   int4: the JAX step reads such a table at 4), the JAX tests'
   mean |p_full - p_q8| < 0.01, and no value read back to the host in
   the quantized eval step (test_torch_capture's dispatch mode);
+* the packed sketch view: _pack_cells byte-equal to the JAX package's,
+  query_cells_packed exactly equal to its and to the plain query on
+  random cells (empty, dic-0 and duplicate-val cells) and on trained
+  sketches; a view frozen at quantize time keeps serving the sketch as
+  it stood then after more train steps, in both packages;
 * main_torch.main --inference_only --load_model ... --quantize_emb_bits
   8 and 4 after a training run that saved: accuracy within 0.01 of the
   float eval of the same checkpoint.
@@ -181,10 +186,14 @@ def test_quantize_for_serving_equals_jax(name, bits):
         key = f"part{i}"
         got = tp.quantize_for_serving(tstate.embed[key], bits)
         want = jp.quantize_for_serving(jstate.embed[key], bits)
-        want.pop("sk_packed", None)
         assert set(got) == set(want), key
         for k in want:
-            _assert_same_table(got[k], want[k])
+            if k == "sk_packed":
+                assert got[k].dtype == torch.int32
+                np.testing.assert_array_equal(got[k].numpy(),
+                                              np.asarray(want[k]))
+            else:
+                _assert_same_table(got[k], want[k])
 
 
 @pytest.mark.parametrize("name", sorted(PARTS))
@@ -288,6 +297,149 @@ def test_quantized_eval_reads_nothing_back(name):
     with NoCaptureBreaks():
         p = step(tstate, *batch)
     assert p.shape == batch[0].shape[:1] and torch.isfinite(p).all()
+
+
+# ------------------------------------------------- the packed sketch view
+
+def _random_cells(rng, rows=96, c=4):
+    """Cells with empty (cnt 0), unpromoted (dic 0) and duplicate-val
+    entries: ids 0..399 sit in cells of their own bucket (some twice, so
+    a bucket holds duplicate vals), the rest of the cells hold ids that
+    hash elsewhere."""
+    from cafe_tpu.sketch import hotsketch as jhs
+    val = rng.integers(0, 400, (rows, c)).astype(np.int32)
+    home = np.asarray(jhs._bucket_of(jhs.HotSketchConfig(
+        buckets=rows, threshold=1.0), jnp.arange(400, dtype=jnp.int32)))
+    for i in rng.permutation(400)[:200]:
+        val[home[i], rng.integers(0, c, 2)] = i          # maybe twice
+    cnt = rng.integers(0, 4, (rows, c)).astype(np.float32) \
+        * rng.random((rows, c)).astype(np.float32)
+    cnt[rng.random((rows, c)) < 0.25] = 0.0
+    dic = rng.integers(1, rows, (rows, c)).astype(np.int32)
+    dic[rng.random((rows, c)) < 0.4] = 0
+    return val, cnt, dic
+
+
+def _trained_cells(seed):
+    """A JAX v1 sketch after an integer-score insert stream that
+    promotes and decays."""
+    from cafe_tpu.sketch import hotsketch as jhs
+    rng = np.random.default_rng(seed)
+    cfg = jhs.HotSketchConfig(buckets=96, threshold=4.0, decay=0.5)
+    st = jhs.init_sketch(cfg)
+    for _ in range(6):
+        ids = rng.zipf(1.3, 512).astype(np.int64) % 400
+        scores = rng.integers(0, 4, 512).astype(np.float32)
+        st, _ = jhs.sketch_insert(cfg, st, jnp.asarray(ids.astype(np.int32)),
+                                  jnp.asarray(scores))
+    return tuple(np.array(x) for x in (st.val, st.cnt, st.dic))
+
+
+def _cells(kind, seed):
+    if kind == "random":
+        return _random_cells(np.random.default_rng(seed))
+    return _trained_cells(seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["random", "trained"])
+def test_pack_cells_byte_equal(kind, seed):
+    from cafe_tpu.sketch import hotsketch as jhs
+    from cafe_tpu_torch.sketch import hotsketch as ths
+    val, cnt, dic = _cells(kind, seed)
+    got = ths._pack_cells(*(torch.from_numpy(x) for x in (val, cnt, dic)))
+    want = np.asarray(jhs._pack_cells(*(jnp.asarray(x)
+                                        for x in (val, cnt, dic))))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert got.numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["random", "trained"])
+def test_query_cells_packed_equals_jax(kind, seed):
+    from cafe_tpu.sketch import hotsketch as jhs
+    from cafe_tpu_torch.sketch import hotsketch as ths
+    val, cnt, dic = _cells(kind, seed)
+    rows = val.shape[0]
+    jcfg = jhs.HotSketchConfig(buckets=rows, threshold=4.0)
+    tcfg = ths.HotSketchConfig(buckets=rows, threshold=4.0)
+    ids = np.concatenate([np.arange(400), val.reshape(-1)]).astype(np.int32)
+    packed = jhs._pack_cells(*(jnp.asarray(x) for x in (val, cnt, dic)))
+    want = np.asarray(jhs.query_cells_packed(jcfg, packed, jnp.asarray(ids)))
+    tv, tc, td = (torch.from_numpy(x) for x in (val, cnt, dic))
+    got = ths.query_cells_packed(tcfg, ths._pack_cells(tv, tc, td),
+                                 torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), ths.query_cells(tcfg, tv, tc, td,
+                                     torch.from_numpy(ids)).numpy())
+    assert (want < 0).any() and (want >= 0).any()   # hot and cold lanes
+
+
+def _steps(kw, n):
+    """The JAX package's state after `n` train steps at kw, its layer
+    and step, the port's layer at kw, and the train batches."""
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    jtrain = jdata(jcfg, "train")
+    jmodel, jembed, jstate, jstep, _ = jbuild_all(jcfg, jtrain)
+    batches = list(jbatches(jtrain, kw["mini_batch_size"], drop_last=True))
+    for dense, sparse, label, valid in batches[:n]:
+        jstate, _ = jstep(jstate, jnp.asarray(dense), jnp.asarray(sparse),
+                          jnp.asarray(label), valid)
+    _, tembed, _, _, _ = tbuild_all(tcfg, get_dataset(tcfg, "train"),
+                                    device="cpu")
+    return jembed, jstate, jstep, tembed, batches
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_a_frozen_view_serves_the_sketch_it_was_quantized_from(bits):
+    """Quantize, train on, then serve with the old tables: both packages
+    route through the view frozen at quantize time, not through the
+    state's newer sketch, and agree on every row."""
+    kw = dict(KW, compress_method="cafe", cafe_use_freq=True,
+              cafe_sketch_threshold=2.0)
+    jembed, jstate, jstep, tembed, batches = _steps(kw, 2)
+    i = next(i for i, p in enumerate(tembed.parts)
+             if type(p).__name__ == "CafePart")
+    key = f"part{i}"
+    jp, tp = jembed.parts[i], tembed.parts[i]
+    jold = jax.device_get(jstate)
+    jqt = jp.quantize_for_serving(jold.embed[key], bits)
+    told = from_reference(jold, "cpu").embed[key]
+    tqt = tp.quantize_for_serving(told, bits)
+    assert "sk_packed" in tqt and "sk_packed" in jqt
+    for dense, sparse, label, valid in batches[2:6]:
+        jstate, _ = jstep(jstate, jnp.asarray(dense), jnp.asarray(sparse),
+                          jnp.asarray(label), valid)
+    jnew = jax.device_get(jstate).embed[key]
+    tnew = from_reference(jax.device_get(jstate), "cpu").embed[key]
+    ids = np.concatenate([b[1] for b in batches[:6]])[:, tp.field_idx]
+    want = np.asarray(jp.gather_quantized(jnew, jqt, jnp.asarray(ids)))
+    got = tp.gather_quantized(tnew, tqt, torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    # the view is the sketch at quantize time: the newer sketch routes
+    # some id elsewhere, and without the view the port serves that route
+    plain = {k: v for k, v in tqt.items() if k != "sk_packed"}
+    newer = tp.gather_quantized(tnew, plain, torch.from_numpy(ids))
+    assert not torch.equal(newer, got)
+    _, frozen_row, _, _ = tp._route(told, torch.from_numpy(ids))
+    np.testing.assert_array_equal(
+        got.numpy(), tp._dequantize(tqt["table"], frozen_row).numpy())
+
+
+def test_no_view_under_a_mesh_layout_or_cafe_plus():
+    """The view is frozen only where the JAX package freezes it: one
+    device, the flat sketch layout, the v1 sketch."""
+    from cafe_tpu_torch.embeddings.cafe import CafePart
+    args = ([0, 1], [500, 700], [0, 500], 64, [40, 50], 8, 2.0, 0.99, 700)
+    rng = np.random.default_rng(0)
+    for plus, layout in ((False, 0), (True, 0), (False, 1), (False, 2)):
+        part = CafePart(*args, plus=plus)
+        part.device = torch.device("cpu")
+        if layout:
+            assert part.enable_sharded_layout(layout)
+        qt = part.quantize_for_serving(part.init(rng), 8)
+        assert ("sk_packed" in qt) == (not plus and not layout)
 
 
 # ------------------------------------------------------------------ CLI

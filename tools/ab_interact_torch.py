@@ -123,19 +123,25 @@ def check(t) -> dict:
     return out
 
 
-def arm_kernels(run, dev, top=4) -> list:
-    """[(kernel, device us a chain)] of one replay, largest first."""
+def arm_kernels(run, dev, top=4, windows=3) -> list:
+    """[(kernel, device us a chain)] of one replay, largest first. A
+    profiler window has come back with no device row for a replay that
+    ran; up to `windows` windows are taken until one holds rows."""
     if dev.type != "cuda":
         return []
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    rows = []
+    for _ in range(windows):
         torch.cuda.synchronize()
-    rows = sorted(((a.key, a.self_device_time_total) for a in
-                   prof.key_averages()
-                   if a.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda x: -x[1])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = sorted(((a.key, a.self_device_time_total) for a in
+                       prof.key_averages()
+                       if a.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda x: -x[1])
+        if rows:
+            break
     return [[k[:100], us] for k, us in rows[:top]]
 
 

@@ -16,7 +16,11 @@ synchronize; on the card every eval step replays a CUDA graph. Besides
 the times the line holds each arm's table bytes (the f32 table against
 the codes) and the mean |p_f32 - p_q| on one batch; on the card also
 each arm's device time a call under torch.profiler and its largest
-kernels.
+kernels. The int8 and int4 steps route CAFE's ids through the packed
+sketch view frozen at quantize time (CafePart.quantize_for_serving,
+"view_bytes"); the `int8_plain` arm is the int8 step with that view
+taken out, routing through the sketch as the f32 step does (the same
+scores, checked), the A/B of the two routes.
 
 `--max_ind_range N` takes every id modulo N (a CPU-sized run); the
 other flags set the configuration. jax-free; defaults to the card.
@@ -39,12 +43,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from cafe_tpu_torch.config import Config  # noqa: E402
 from cafe_tpu_torch.data import CTRArrays, make_criteo_batches  # noqa
 from cafe_tpu_torch.device import resolve_device  # noqa: E402
+from cafe_tpu_torch.ops.quantized import QuantizedTable  # noqa: E402
 from cafe_tpu_torch.train import (build_all,  # noqa: E402
                                   build_quantized_eval_step)
 from cafe_tpu_torch.utils.timing import fence  # noqa: E402
 
 TEST_BATCH = 16384
-ARMS = ("fp32", "int8", "int4")
+ARMS = ("fp32", "int8", "int4", "int8_plain")
 
 
 def parse_args(argv=None):
@@ -61,6 +66,14 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     return ap.parse_args(argv)
+
+
+def _tables(qtables) -> list:
+    """(part key, table key, QuantizedTable) of a quantized step's
+    tables; a CAFE part's frozen sketch view (sk_packed) is routing
+    state, not a table."""
+    return [(pk, key, qt) for pk, part in qtables.items()
+            for key, qt in part.items() if isinstance(qt, QuantizedTable)]
 
 
 def profile_calls(run, arm, calls=5, top=6) -> dict:
@@ -116,15 +129,17 @@ def main(argv=None) -> dict:
 
     steps = {"fp32": eval_step}
     table_bytes = {}
-    for arm, bits in (("int8", 8), ("int4", 4)):
+    for arm, bits in (("int8", 8), ("int4", 4), ("int8_plain", 8)):
         steps[arm] = build_quantized_eval_step(model, embed, state, bits)
         table_bytes[arm] = sum(int(qt.codes.numel())
-                               for part in steps[arm].qtables.values()
-                               for qt in part.values())
+                               for _, _, qt in _tables(steps[arm].qtables))
+    view_bytes = sum(part.pop("sk_packed").numel() * 4
+                     for part in steps["int8_plain"].qtables.values()
+                     if "sk_packed" in part)
     # the f32 tables that the quantized steps serve from codes
-    table_bytes["fp32"] = sum(
-        state.embed[pk][key].numel() * 4
-        for pk, part in steps["int8"].qtables.items() for key in part)
+    table_bytes["fp32"] = sum(state.embed[pk][key].numel() * 4
+                              for pk, key, _ in _tables(
+                                  steps["int8"].qtables))
 
     def run(arm, i):
         return steps[arm](state, *tb[i % 2])
@@ -136,7 +151,12 @@ def main(argv=None) -> dict:
         fence(p)
     p_f32 = run("fp32", 0).clone()
     mean_abs_diff = {arm: float((run(arm, 0) - p_f32).abs().mean())
-                     for arm in ARMS[1:]}
+                     for arm in ARMS[1:3]}
+    routes_equal = all(torch.equal(run("int8", i).clone(),
+                                   run("int8_plain", i)) for i in range(2))
+    if not routes_equal:
+        raise AssertionError("serving_bench: the int8 scores through the "
+                             "frozen view differ from the plain route's")
 
     out = {arm: [] for arm in ARMS}
     for _ in range(args.windows):
@@ -151,7 +171,8 @@ def main(argv=None) -> dict:
         "test_batch": args.test_batch, "bits": [8, 4],
         **{f"{arm}_ms": float(np.median(out[arm])) for arm in ARMS},
         "windows": out,
-        "table_bytes": table_bytes,
+        "table_bytes": table_bytes, "view_bytes": view_bytes,
+        "routes_equal": routes_equal,
         "mean_abs_diff": mean_abs_diff,
         "graphed": {arm: bool(getattr(steps[arm], "graphed", False))
                     for arm in ARMS},
