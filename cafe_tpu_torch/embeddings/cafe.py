@@ -51,6 +51,11 @@ gives a part without a mesh the n-shard state layout, so the global
 state of a run on n ranks (parallel/sharding.unshard_state) serves on one
 device; the sketch is then queried through sketch/sharded's one-process
 queries, and training in that mode raises.
+
+Spans (utils/spans.py): on one device the apply is the spans
+`cafe_insert` (around the insert's branch at an interval > 1),
+`cafe_migrate` and `cafe_update`, and counts `promotions` (p_mask.sum())
+and `migration_lanes`; the mesh's apply opens none.
 """
 
 from __future__ import annotations
@@ -87,6 +92,7 @@ from ..sketch.sharded import (init_sharded_sketch, init_sharded_sketch_plus,
                               query_sharded, query_sharded_plus,
                               shard_global_view, shard_local_view, shard_of)
 from ..utils.cond import cond, copy_into
+from ..utils.spans import count_migration_lanes, count_promotions, span
 from .base import Part, _offsets, round_up
 
 
@@ -421,34 +427,39 @@ class CafePart(Part):
         b, f, d = g_raw.shape
         flat_oids = oids.reshape(-1)
         interval = self.insert_interval
-        if interval > 1:
-            # the insert every interval-th tick, taken on the device
-            # (cond: a conditional node in a CUDA graph). The insert
-            # writes the new sketch into the state's sketch tensors, so
-            # the skip copies nothing; the skip reports the compacted
-            # lane count empty (the insert reports B*F lanes under CAFE+,
-            # <= PROMO_LANES under v1)
-            l0 = flat_oids.shape[0] if self.plus \
-                else min(flat_oids.shape[0], PROMO_LANES)
-            cap_l = min(l0, self.hotn, max(self.mig_lanes * 16, 4096))
+        dev = g_raw.device
+        # the spans (utils/spans.py) wrap the insert's branch, never sit
+        # in its body
+        with span("cafe_insert", dev):
+            if interval > 1:
+                # the insert every interval-th tick, taken on the device
+                # (cond: a conditional node in a CUDA graph). The insert
+                # writes the new sketch into the state's sketch tensors,
+                # so the skip copies nothing; the skip reports the
+                # compacted lane count empty (the insert reports B*F
+                # lanes under CAFE+, <= PROMO_LANES under v1)
+                l0 = flat_oids.shape[0] if self.plus \
+                    else min(flat_oids.shape[0], PROMO_LANES)
+                cap_l = min(l0, self.hotn, max(self.mig_lanes * 16, 4096))
 
-            def insert(sketch, oids_, g):
-                new, ids_, slots_, mask = self._insert_and_compact(
-                    sketch, oids_, g)
-                copy_into(sketch, new)
-                return ids_, slots_, mask
+                def insert(sketch, oids_, g):
+                    new, ids_, slots_, mask = self._insert_and_compact(
+                        sketch, oids_, g)
+                    copy_into(sketch, new)
+                    return ids_, slots_, mask
 
-            def skip(sketch, oids_, g):
-                z = torch.zeros(cap_l, dtype=torch.int32, device=g.device)
-                return z, torch.zeros_like(z), torch.zeros_like(z).bool()
+                def skip(sketch, oids_, g):
+                    z = torch.zeros(cap_l, dtype=torch.int32,
+                                    device=g.device)
+                    return z, torch.zeros_like(z), torch.zeros_like(z).bool()
 
-            sk = state["sketch"]
-            p_ids, p_slots, p_mask = cond(
-                state["tick"] % interval == 0, insert, skip,
-                (sk, flat_oids, g_raw), name="cafe_insert")
-        else:
-            sk, p_ids, p_slots, p_mask = self._insert_and_compact(
-                state["sketch"], flat_oids, g_raw)
+                sk = state["sketch"]
+                p_ids, p_slots, p_mask = cond(
+                    state["tick"] % interval == 0, insert, skip,
+                    (sk, flat_oids, g_raw), name="cafe_insert")
+            else:
+                sk, p_ids, p_slots, p_mask = self._insert_and_compact(
+                    state["sketch"], flat_oids, g_raw)
 
         if self.plus and self.auto_mesh is not None:
             # the CAFE+ insert sums scores in float atomics on the card:
@@ -462,36 +473,42 @@ class CafePart(Part):
         # insert_grad-then-step order). Lanes without a promotion write
         # their source row onto itself: hash rows never receive a
         # promotion, so those writes change nothing and need no mask.
-        prow = self._hash_rows(p_ids)
-        table = state["table"]
-        state = {**state, "sketch": sk, "tick": state["tick"] + 1}
-        slot_ts = [state["table" + sfx]
-                   for sfx in SLOT_SUFFIXES[self.optimizer].values()
-                   if state["table" + sfx].dim() == 2]
-        if "table" in self.auto_keys:
-            # the owners of the promoted slots write them (auto)
-            self._write_owned(table, p_slots,
-                              self._read_rows(state, "table", prow), p_mask)
-            for slot_t in slot_ts:
-                self._write_owned(slot_t, p_slots, torch.zeros(
-                    p_slots.shape[0], slot_t.shape[1],
-                    device=slot_t.device), p_mask)
-        else:
-            dst = torch.where(p_mask, p_slots, prow).long()
-            table[dst] = table[prow.long()]
-            # freshly promoted slots restart their optimizer state (the
-            # same write-back trick for lanes without a promotion)
-            for slot_t in slot_ts:
-                slot_t[dst] = torch.where(p_mask[:, None], 0.0,
-                                          slot_t[prow.long()])
+        with span("cafe_migrate", dev):
+            prow = self._hash_rows(p_ids)
+            table = state["table"]
+            state = {**state, "sketch": sk, "tick": state["tick"] + 1}
+            slot_ts = [state["table" + sfx]
+                       for sfx in SLOT_SUFFIXES[self.optimizer].values()
+                       if state["table" + sfx].dim() == 2]
+            if "table" in self.auto_keys:
+                # the owners of the promoted slots write them (auto)
+                self._write_owned(table, p_slots,
+                                  self._read_rows(state, "table", prow),
+                                  p_mask)
+                for slot_t in slot_ts:
+                    self._write_owned(slot_t, p_slots, torch.zeros(
+                        p_slots.shape[0], slot_t.shape[1],
+                        device=slot_t.device), p_mask)
+            else:
+                dst = torch.where(p_mask, p_slots, prow).long()
+                table[dst] = table[prow.long()]
+                # freshly promoted slots restart their optimizer state
+                # (the same write-back trick for lanes without a
+                # promotion)
+                for slot_t in slot_ts:
+                    slot_t[dst] = torch.where(p_mask[:, None], 0.0,
+                                              slot_t[prow.long()])
+            count_migration_lanes(p_ids.shape[0], dev)
 
         # one scatter updates whichever row served each sample
-        state = self._table_update(state, "table", row.reshape(-1),
-                                   g_raw.reshape(b * f, d), lr)
+        with span("cafe_update", dev):
+            state = self._table_update(state, "table", row.reshape(-1),
+                                       g_raw.reshape(b * f, d), lr)
         stats = {
             "cafe_promotions": p_mask.sum(),
             "cafe_hot_frac": is_hot.float().mean(),
         }
+        count_promotions(stats["cafe_promotions"])
         return state, stats
 
     def _promo_cap(self) -> int:

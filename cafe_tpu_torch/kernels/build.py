@@ -26,7 +26,7 @@ import torch
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR.parents[1] / "build" / "cafe_tpu_torch"
 SOURCES = ("land.cu", "scatter_add.cu", "rowsum.cu", "gather.cu", "a2a.cu",
-           "graph_cond.cu")
+           "graph_cond.cu", "span.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

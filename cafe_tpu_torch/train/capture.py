@@ -61,6 +61,17 @@ collectives pair up; each branch predicate is the same on every rank
 communicator and K5 workspace the step uses (the spare runs those of
 the untaken branches), so a capture creates none.
 
+Spans (utils/spans.py). A step that opens spans is captured twice
+from the same static batch buffers, into one memory pool: first with
+the spans' mark kernels, then without them. Each call reads whether the
+profiler is on (one host bool) and replays the graph with the marks if
+it is, else the graph the step alone makes; both are instantiated and
+uploaded at the capture, so turning the profiler on instantiates
+nothing. While it is on, a call is the host range `cafe_dispatch`,
+holding `cafe_load` (the batch copies into the static buffers) and
+`cafe_replay`, and each replay credits the migration lanes its capture
+recorded.
+
 Host steps. A step that must run eagerly at some steps (AdaEmbed's
 sampled check and rebuild) gives its GraphedStep a StepMirror: the
 device step counter and which steps are host steps. The GraphedStep
@@ -74,12 +85,13 @@ device counter (train/loop.py, at every fence).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..kernels import KERNELS, build
 from ..utils import cond as _cond
+from ..utils import spans
 from ..utils.cond import (branch_runs, cond, conditional_node_blocker,
                           copy_into, host_pred)
 from ..utils.timing import tensors_of
@@ -123,10 +135,15 @@ def _static(x, device):
 
 class _Graph:
     """One captured call: the graph, its static batch buffers, its
-    outputs, the kernel launches one replay makes outside branch bodies
-    and its branches (utils/cond._Capture)."""
+    outputs, the kernel launches one replay makes outside branch bodies,
+    its branches (utils/cond._Capture), its spans (utils/spans.Marks)
+    and the graph replayed instead while the profiler is on (`traced`;
+    None where the step opens no span: no reference back to this one,
+    so a dropped graph is freed at once, never by a cyclic collection
+    inside a later capture)."""
 
-    def __init__(self, graph, batch, out, launches, capture_s, cap):
+    def __init__(self, graph, batch, out, launches, capture_s, cap,
+                 marks=None):
         self.graph = graph
         self.batch = batch
         self.out = out
@@ -134,6 +151,8 @@ class _Graph:
         self.capture_s = capture_s
         self.cap = cap
         self.bodies = cap.bodies
+        self.marks = marks
+        self.traced = None
 
     def load(self, batch) -> None:
         for dst, x in zip(self.batch, batch):
@@ -144,7 +163,7 @@ class _Graph:
             else:
                 dst.copy_(x)
 
-    def replay(self) -> None:
+    def replay(self, tracing: bool = False) -> None:
         self.graph.replay()
         for kern, n in self.launches.items():
             kern.add_launches(n, in_graph=True)
@@ -152,6 +171,8 @@ class _Graph:
             # credited at the next count read, even if this graph is
             # gone by then
             build.PENDING.add(self.cap)
+        if tracing and self.marks is not None:
+            self.marks.credit()
 
 
 class GraphedStep:
@@ -198,6 +219,13 @@ class GraphedStep:
         return [(b.name, b.side, {names[k]: n for k, n in b.launches.items()})
                 for b in self._graph_of(sig).bodies]
 
+    def span_marks(self, sig: Optional[tuple] = None) -> Tuple[int, int]:
+        """(mark and counter launches in the graph of `sig` replayed
+        while the profiler is off, in the one replayed while it is on)
+        (default: the only signature)."""
+        g = self._graph_of(sig)
+        return g.marks.launches, (g.traced or g).marks.launches
+
     def _graph_of(self, sig):
         if sig is None:
             if len(self._graphs) != 1:
@@ -234,6 +262,11 @@ class GraphedStep:
             for i in range(1, self.steps_per_call + 1))
 
     def __call__(self, state, *batch):
+        on = spans.tracing()
+        with spans.host_range("cafe_dispatch", "cuda", on):
+            return self._call(on, state, batch)
+
+    def _call(self, on: bool, state, batch):
         sig = _signature(batch)
         g = self._graphs.get(sig)
         if g is None:
@@ -254,8 +287,12 @@ class GraphedStep:
             self._adopt(state)
             if self._host_call_due():
                 return self._host_call(self._streams[sig], batch)
-        g.load(batch)
-        g.replay()
+        if on and g.traced is not None:
+            g = g.traced
+        with spans.host_range("cafe_load", "cuda", on):
+            g.load(batch)
+        with spans.host_range("cafe_replay", "cuda", on):
+            g.replay(on)
         self.replays += 1
         if self.step_seen is not None:
             self.step_seen += self.steps_per_call
@@ -282,19 +319,35 @@ class GraphedStep:
 
     def _capture(self, sig, stream, batch, dev) -> _Graph:
         static = [_static(x, dev) for x in batch]
+        t0 = time.perf_counter()
+        traced = self._capture_one(static, stream, dev, True, None)
+        g = traced
+        if traced.marks.launches:
+            with torch.cuda.stream(stream):
+                spans.upload(traced.graph, dev)
+            # the graph the untraced replays run, in the same pool: the
+            # two never run at once
+            g = self._capture_one(static, stream, dev, False,
+                                  traced.graph.pool())
+            g.traced = traced
+        g.capture_s = time.perf_counter() - t0
+        self._graphs[sig] = g
+        return g
+
+    def _capture_one(self, static, stream, dev, marked: bool,
+                     pool) -> _Graph:
+        """One capture of the call on the static buffers, with the spans'
+        marks if `marked` (utils/spans.capturing)."""
         before = {k: k.captured for k in KERNELS.values()}
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with _cond.capturing(graph, dev) as cap, \
-                torch.cuda.graph(graph, stream=stream,
+        with spans.capturing(dev, marked) as marks, \
+                _cond.capturing(graph, dev) as cap, \
+                torch.cuda.graph(graph, pool=pool, stream=stream,
                                  capture_error_mode=CAPTURE_MODE):
             out = self.__wrapped__(self.state, *static)
             if self.carry:
                 new_state, out = out
                 copy_into(self.state, new_state)
-        capture_s = time.perf_counter() - t0
         launches = {k: k.captured - n for k, n in before.items()
                     if k.captured > n}
-        g = _Graph(graph, static, out, launches, capture_s, cap)
-        self._graphs[sig] = g
-        return g
+        return _Graph(graph, static, out, launches, 0.0, cap, marks)

@@ -7,7 +7,10 @@ tensor on the card when one is set). Embedding tables
 never enter autograd: the gathered rows are made leaves with
 requires_grad, their gradients come back from one autograd.grad call, and
 each embedding part turns row gradients into in-place scatter updates
-(embeddings/base.py), so every update stays O(batch).
+(embeddings/base.py), so every update stays O(batch). Each step is the
+span `step`, holding `embed_gather` and `towers` (utils/spans.py; CAFE's
+part opens its own inside the apply); a mesh's step has their host
+ranges only.
 
 With cfg.donate_state True (the default) the step updates the state IN
 PLACE (dense params and tables, where the JAX package donates them) and
@@ -50,11 +53,13 @@ same capture through `build_graphrec_step`, with
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
 from ..parallel.exchange import body_transport, psum
+from ..utils.spans import muted, span
 from .capture import GraphedStep, StepMirror, conditional_node_blocker
 from .lr_schedule import lr_policy
 
@@ -346,9 +351,15 @@ def build_train_step(model, embed_layer, cfg, mesh=None, capture=True):
     base_lr = cfg.learning_rate
     use_sched = cfg.lr_num_warmup_steps > 0 or cfg.lr_num_decay_steps > 0
     n, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    # a mesh's step captures no span mark (utils/spans.muted)
+    quiet = contextlib.nullcontext if mesh is None else muted
 
     def train_step(state: TrainState, dense_x, ids, labels, valid
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with quiet(), span("step", ids.device):
+            return one_step(state, dense_x, ids, labels, valid)
+
+    def one_step(state, dense_x, ids, labels, valid):
         b = ids.shape[0]
         if use_sched:
             lr = lr_policy(base_lr, state.step, cfg.lr_num_warmup_steps,
@@ -359,14 +370,15 @@ def build_train_step(model, embed_layer, cfg, mesh=None, capture=True):
         lanes = torch.arange(rank * b, (rank + 1) * b, device=ids.device)
         w = (lanes < valid).float()
         w_total = valid.clamp(0, n * b).float()
-        raws, auxs = embed_layer.gather(state.embed, ids)
+        with span("embed_gather", ids.device):
+            raws, auxs = embed_layer.gather(state.embed, ids)
         raws = {k: v.detach().requires_grad_() for k, v in raws.items()}
         dense = [state.params, state.embed_dense]
         dense_leaves = _leaves(dense)
         for p in dense_leaves:
             p.requires_grad_()
 
-        with torch.enable_grad():
+        with span("towers", ids.device), torch.enable_grad():
             feats = embed_layer.transform(state.embed_dense, raws)
             p = model.apply(state.params, dense_x, feats)
             loss = _bce(p, labels, w, w_total)

@@ -25,11 +25,20 @@ process: `cuda` tests that skip here and run on a card with
   order: the one-device steps above are bit-equal); every replay runs
   under torch.cuda.set_sync_debug_mode("error"), so no value is read
   back to the host in a graphed mesh step;
+* spans (utils/spans.py): a graphed 8-step dispatch under the profiler
+  runs its span marks and the promotions counter in the captured order,
+  8 times a replay, inside the host ranges cafe_dispatch / cafe_load /
+  cafe_replay; the graph of untraced replays holds no mark or counter
+  launch and runs every kernel of the traced graph but its marks (the
+  counter's total stays), and K1 / K3 launch as before; 16 traced
+  replays leave the state bit-equal to 16 untraced ones, and the
+  counters add up the calls' promotions and migration lanes (each at
+  insert interval 1 and 8);
 * the graph recommenders (models/graphrec/): LightGCN's BPR step (cr 1.0
   and 0.5) and PinSAGE's train and representation steps (compress
   ratio 1 and 4), graphed against eager from one state, replays under
-  the same sync check, K1 once a replay on CAFE; a PinSAGE step built
-  for one lr raises on another.
+  the same sync check, K1 once a replay on CAFE, K3 (segment_rows) 7
+  and 4 times; a PinSAGE step built for one lr raises on another.
 """
 
 import contextlib
@@ -42,9 +51,11 @@ import torch
 from cafe_tpu_torch.bridge import from_reference, to_numpy
 from cafe_tpu_torch.config import Config
 from cafe_tpu_torch.kernels import land, rowsum
+from cafe_tpu_torch.embeddings import CafePart
+from cafe_tpu_torch.sketch import PROMO_LANES
 from cafe_tpu_torch.train import build_all, build_multi_step, get_dataset
 from cafe_tpu_torch.train.capture import (WARMUP_CALLS, GraphedStep,
-                                          branch_runs, cond)
+                                          branch_runs, cond, copy_into)
 
 torch.set_num_threads(1)
 
@@ -354,6 +365,194 @@ def _np_leaves(tree, path=""):
     return [(path, np.asarray(tree))]
 
 
+# ------------------------------------------------- spans (utils/spans.py)
+
+# the marks of one step, in the order the step enqueues them
+STEP_MARKS = (["cafe_span_begin_step"]
+              + [f"cafe_span_{end}_{name}" for name in (
+                  "embed_gather", "towers", "cafe_insert", "cafe_migrate",
+                  "cafe_update") for end in ("begin", "end")]
+              + ["cafe_span_count", "cafe_span_end_step"])
+
+
+def _traced(fn):
+    """fn() under torch.profiler (CPU and CUDA); returns (device op names
+    by start, host op names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev, host = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            dev.append((ev.start_ns(), ev.name()))
+        else:
+            host.append(ev.name())
+    return [n for _, n in sorted(dev)], host
+
+
+def _dispatches(step, state, batches, first, n, k=8):
+    for i in range(first, first + n):
+        state, m = step(state, *batches[i % len(batches)], k * B)
+    return state, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 8])
+def test_span_marks_replay_in_the_captured_order(interval):
+    """A graphed 8-step dispatch under the profiler runs each span's
+    begin and end marks and the promotions counter in the captured
+    order, 8 times a replay (at insert interval 8 around the insert's
+    conditional node); the call is the host range cafe_dispatch with
+    cafe_load and cafe_replay, which the device's timeline does not
+    show."""
+    _card()
+    _, g_step, _, _, _, start, batches = _setup(
+        8, cafe_insert_interval=interval)
+    state, _ = _dispatches(g_step, from_reference(start, "cuda"), batches,
+                           0, WARMUP_CALLS + 1)
+    names, host = _traced(lambda: _dispatches(g_step, state, batches,
+                                              WARMUP_CALLS + 1, 2))
+    marks = [n for n in names if n.startswith("cafe_span_")]
+    assert marks == STEP_MARKS * 8 * 2
+    for rng in ("cafe_dispatch", "cafe_load", "cafe_replay"):
+        assert host.count(rng) == 2, rng
+        # a host range only: not mirrored on the device's timeline
+        assert rng not in names, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 8])
+def test_untraced_replays_run_a_graph_without_span_nodes(interval):
+    """The step is captured twice: the graph replayed with the profiler
+    off holds no mark or counter launch, the one replayed with it on
+    holds the marks of 8 steps. Replayed under the profiler from one
+    state, the first runs no mark and, without branches (interval 1),
+    every kernel of the second but its marks; through GraphedStep,
+    untraced replays before and after a traced call leave the promotions
+    counter's total alone in a replay that promotes, and K1 / K3 launch
+    as before."""
+    from collections import Counter
+    from cafe_tpu_torch.utils import spans
+    _card()
+    _, g_step, _, _, _, start, batches = _setup(
+        8, cafe_insert_interval=interval)
+    state, snaps, promos = from_reference(start, "cuda"), [], []
+    for i in range(WARMUP_CALLS + 1):
+        snaps.append(to_numpy(state))
+        state, m = g_step(state, *batches[i], 8 * B)
+        promos.append(int(m["cafe_promotions"]))
+    nodes = len(STEP_MARKS) * 8
+    assert g_step.span_marks() == (0, nodes)
+    total = spans._TOTALS[torch.device("cuda", torch.cuda.current_device())]
+    first = next(i for i, n in enumerate(promos) if n > 0)
+
+    def untraced():
+        # the state before the first call that promoted, copied in: the
+        # replay promotes as that call did
+        before = int(total.sum())
+        _, m = g_step(from_reference(snaps[first], "cuda"),
+                      *batches[first], 8 * B)
+        assert int(m["cafe_promotions"]) == promos[first]
+        assert int(total.sum()) == before
+
+    untraced()
+    g = g_step._graph_of(None)
+
+    def replayed(graph):
+        # each graph from the same state and batch, so the branches
+        # taken are the same
+        copy_into(g_step.state, from_reference(snaps[first], "cuda"))
+        g.load((*batches[first], 8 * B))
+        return _traced(graph.replay)[0]
+
+    plain, marked = replayed(g.graph), replayed(g.traced.graph)
+    marks = [n for n in marked if n.startswith("cafe_span_")]
+    assert marks == STEP_MARKS * 8
+    assert not any(n.startswith("cafe_span_") for n in plain)
+    if interval == 1:
+        # at interval 8 the profiler's counts of some kernels once
+        # differed between these two replays in a run of the whole file
+        # and matched in a run alone (PERF.md, section 7); the
+        # alternating test below holds the two graphs' results equal
+        assert Counter(plain) == Counter(
+            n for n in marked if not n.startswith("cafe_span_"))
+    names, _ = _traced(lambda: _dispatches(g_step, state, batches, 5, 1))
+    assert sum(n.startswith("cafe_span_") for n in names) == nodes
+    untraced()
+    assert g.traced.launches == g.launches
+    if interval == 1:
+        assert g_step.launches_per_replay() == {"land_max": 8,
+                                                 "rowsum": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 8])
+def test_tracing_leaves_the_state_bit_equal_and_counts(interval):
+    """16 replays of the 8-step dispatch with the profiler on leave the
+    tables, the sketch and the tick bit-equal to 16 with it off; traced,
+    `promotions` adds up the calls' cafe_promotions and
+    `migration_lanes` their lanes (8 x cap a call), eager warm-ups
+    included."""
+    from cafe_tpu_torch.utils import spans
+    _card()
+    n = WARMUP_CALLS + 1 + 16
+    cfg, off_step, _, _, _, start, batches = _setup(
+        8, cafe_insert_interval=interval)
+    off, _ = _dispatches(off_step, from_reference(start, "cuda"), batches,
+                         0, n)
+    # the migration's lanes a step: the CAFE part's cap on B x F lanes
+    _, embed, _, _, _ = build_all(cfg, get_dataset(cfg, "train"),
+                                  device="cpu", capture=False)
+    part = next(p for p in embed.parts if isinstance(p, CafePart))
+    cap = min(B * len(part.field_idx), PROMO_LANES, part.hotn,
+              max(part.mig_lanes * 16, 4096))
+    _, on_step, _, _, _, _, _ = _setup(8, cafe_insert_interval=interval)
+    promos = []
+
+    def traced():
+        state = from_reference(start, "cuda")
+        for i in range(n):
+            state, m = on_step(state, *batches[i % len(batches)], 8 * B)
+            promos.append(m["cafe_promotions"].clone())
+        return state
+
+    holder = []
+    _traced(lambda: holder.append(traced()))
+    _assert_equal(holder[0], off)
+    got = spans.counters()
+    assert got["migration_lanes"] == 8 * n * cap
+    assert got["promotions"] == int(torch.stack(promos).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 8])
+def test_alternating_traced_and_untraced_replays_stay_bit_equal(interval):
+    """The two graphs of a step share one memory pool: replays that
+    alternate between them (the profiler turned on and off every call)
+    leave the state bit-equal to untraced replays alone."""
+    _card()
+    n = WARMUP_CALLS + 1 + 12
+    _, off_step, _, _, _, start, batches = _setup(
+        8, cafe_insert_interval=interval)
+    off, _ = _dispatches(off_step, from_reference(start, "cuda"), batches,
+                         0, n)
+    _, mix_step, _, _, _, _, _ = _setup(8, cafe_insert_interval=interval)
+    state = from_reference(start, "cuda")
+    for i in range(n):
+        if i % 2:
+            holder = []
+            _traced(lambda: holder.append(_dispatches(
+                mix_step, state, batches, i, 1)))
+            state = holder[0][0]
+        else:
+            state, _ = _dispatches(mix_step, state, batches, i, 1)
+    torch.cuda.synchronize()
+    _assert_equal(state, off)
+
+
 # ------------------------------------------------- a mesh of one NCCL rank
 
 MESH_CASES = {"explicit": {}, "pallas": {"shard_exchange": "pallas"},
@@ -434,6 +633,8 @@ def test_mesh_graphed_steps_equal_eager_without_host_reads(nccl_mesh, name,
             g_m.append({n: x.clone() for n, x in m.items()})
     torch.cuda.synchronize()
     assert g_step.replays == len(valids) - WARMUP_CALLS
+    # a mesh's step captures no span mark, so one graph (utils/spans)
+    assert g_step.span_marks() == (0, 0)
     _close_states(to_numpy(g_state), to_numpy(e_state))
     for em, gm in zip(e_m, g_m):
         for n in em:
@@ -522,8 +723,10 @@ def test_lightgcn_graphed_step_equals_eager(cr):
         runs[capture] = (to_numpy(state), torch.stack(losses).cpu(), step)
     (e_state, e_loss, _), (g_state, g_loss, g_step) = runs[False], runs[True]
     assert g_step.replays == GRAPHREC_STEPS - WARMUP_CALLS
-    assert g_step.launches_per_replay() == (
-        {"land_max": 1} if cr < 1 else {})
+    # K3 (segment_rows) 7 a step: three layers' messages, their
+    # backward and the apply
+    assert g_step.launches_per_replay() == dict(
+        {"rowsum": 7}, **({"land_max": 1} if cr < 1 else {}))
     np.testing.assert_allclose(g_loss.numpy(), e_loss.numpy(), rtol=1e-5)
     _graphrec_close(g_state, e_state)
     if cr < 1:
@@ -583,8 +786,9 @@ def test_pinsage_graphed_steps_equal_eager(ratio):
     (g_state, g_loss, g_z, g_step, g_rep) = runs[True]
     assert g_step.replays == GRAPHREC_STEPS - WARMUP_CALLS
     assert g_rep.replays == 4 - WARMUP_CALLS
-    assert g_step.launches_per_replay() == (
-        {"land_max": 1} if ratio > 1 else {})
+    # K3 (segment_rows) 4 a step: three gathers' backward and the apply
+    assert g_step.launches_per_replay() == dict(
+        {"rowsum": 4}, **({"land_max": 1} if ratio > 1 else {}))
     np.testing.assert_allclose(g_loss.numpy(), e_loss.numpy(), rtol=1e-5)
     _graphrec_close(g_state, e_state)
     np.testing.assert_allclose(g_z.numpy(), e_z.numpy(), rtol=1e-5,
